@@ -1,0 +1,331 @@
+"""Trace specification and the counter-based RNG of the device trace mode.
+
+The port's own copy of the parts of the reference ``repro.core.events``
+that the fused paper-grid sweep needs: the Section 2.3 rate identities,
+the inter-arrival law descriptors (family and shape only; the port samples
+them on the device through :mod:`repro_torch.kernels.sim_step`), the NumPy
+Threefry-2x32 / SplitMix64 generators that derive each lane's stream keys
+on the host, and the cell-indexed :class:`TraceSpec`.
+
+Stream layout (the reproducibility contract, shared with the reference):
+lane ``i`` owns the 64-bit stream id ``spec.stream[i]``; its per-kind
+subkey is ``threefry2x32(seed_words, (stream_lo, stream_hi << 4 | kind))``
+packed into one 64-bit SplitMix key; draw ``n`` of a stream is
+``splitmix64(key, n)``.  ``tests/test_torch_host.py`` holds every function
+here against the reference bit for bit.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+import numpy as np
+
+__all__ = [
+    "Distribution",
+    "exponential",
+    "weibull",
+    "lognormal",
+    "uniform",
+    "TraceSpec",
+    "make_trace_spec",
+    "mu_np",
+    "mu_p",
+    "mu_e",
+    "false_prediction_mtbf",
+    "false_prediction_mtbf_batch",
+    "threefry2x32",
+    "splitmix64",
+    "uniform24",
+    "stream_subkey_np",
+    "stream_key64_np",
+]
+
+
+# --------------------------------------------------------------------------- #
+# Rate identities (Section 2.3)
+# --------------------------------------------------------------------------- #
+def mu_np(mu: float, r: float) -> float:
+    """Mean time between *unpredicted* faults: mu / (1 - r)."""
+    if r >= 1.0:
+        return math.inf
+    return mu / (1.0 - r)
+
+
+def mu_p(mu: float, r: float, p: float) -> float:
+    """Mean time between *predicted events* (true + false positives): p mu / r."""
+    if r <= 0.0:
+        return math.inf
+    return p * mu / r
+
+
+def mu_e(mu: float, r: float, p: float) -> float:
+    """Mean time between events of any type: 1/mu_e = 1/mu_P + 1/mu_NP."""
+    inv = 0.0
+    mp = mu_p(mu, r, p)
+    mnp = mu_np(mu, r)
+    if math.isfinite(mp):
+        inv += 1.0 / mp
+    if math.isfinite(mnp):
+        inv += 1.0 / mnp
+    if inv == 0.0:
+        return math.inf
+    return 1.0 / inv
+
+
+def false_prediction_mtbf(mu: float, r: float, p: float) -> float:
+    """Mean inter-arrival time of *false* predictions: p mu / (r (1 - p))."""
+    if r <= 0.0 or p >= 1.0:
+        return math.inf
+    return p * mu / (r * (1.0 - p))
+
+
+def false_prediction_mtbf_batch(
+    mtbf: np.ndarray, recall: np.ndarray, precision: np.ndarray
+) -> np.ndarray:
+    """Vectorized :func:`false_prediction_mtbf` (``+inf`` where no false
+    predictions occur)."""
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+        return np.where(
+            (recall > 0.0) & (precision < 1.0),
+            precision * mtbf / np.maximum(recall * (1.0 - precision), 1e-300),
+            np.inf,
+        )
+
+
+# --------------------------------------------------------------------------- #
+# Inter-arrival laws
+# --------------------------------------------------------------------------- #
+#: the families the device sampler implements, by launch code
+LAW_EXPONENTIAL, LAW_WEIBULL, LAW_LOGNORMAL, LAW_UNIFORM = range(4)
+LAW_INDEX = {
+    "exponential": LAW_EXPONENTIAL,
+    "weibull": LAW_WEIBULL,
+    "lognormal": LAW_LOGNORMAL,
+    "uniform": LAW_UNIFORM,
+}
+
+
+@dataclass(frozen=True)
+class Distribution:
+    """A positive inter-arrival law with a given mean, named by its family
+    (``kind``) and shape (``param``: Weibull k, lognormal sigma).  The
+    port samples it on the device only (inverse CDF of a counter draw)."""
+
+    name: str
+    kind: str
+    param: float = 0.0
+
+
+def exponential() -> Distribution:
+    return Distribution("exponential", "exponential")
+
+
+def weibull(shape: float) -> Distribution:
+    return Distribution(f"weibull(k={shape})", "weibull", shape)
+
+
+def lognormal(sigma: float = 1.0) -> Distribution:
+    return Distribution(f"lognormal(sigma={sigma})", "lognormal", sigma)
+
+
+def uniform() -> Distribution:
+    return Distribution("uniform", "uniform")
+
+
+# --------------------------------------------------------------------------- #
+# Counter-based RNG (host side: subkey derivation)
+# --------------------------------------------------------------------------- #
+(
+    STREAM_FAULT_GAP,  # fault inter-arrival time i
+    STREAM_TP_COIN,  # fault i: word0 = predicted coin, word1 = window offset
+    STREAM_FP_GAP,  # false-prediction inter-arrival time j
+    STREAM_TP_TRUST,  # trust coin for fault i's prediction (0 < q < 1 only)
+    STREAM_FP_TRUST,  # trust coin for false prediction j (0 < q < 1 only)
+    STREAM_TIER,  # recovery-tier coin for fault i (two-level strategies)
+) = range(6)
+
+#: Threefry-2x32 key-schedule parity constant (Salmon et al., SC'11)
+_TF_PARITY = 0x1BD11BDA
+#: Threefry-2x32 rotation schedule (repeating groups of four rounds)
+_TF_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+#: Random123 default round count
+THREEFRY_ROUNDS = 20
+
+#: SplitMix64 constants (Vigna; Stafford Mix13 finalizer)
+_SM_GAMMA = 0x9E3779B97F4A7C15
+_SM_MIX1 = 0xBF58476D1CE4E5B9
+_SM_MIX2 = 0x94D049BB133111EB
+
+
+def threefry2x32(k0, k1, c0, c1, rounds: int = THREEFRY_ROUNDS):
+    """Vectorized Threefry-2x32 block cipher over ``uint32`` words
+    (Random123 layout: key injection after every fourth round)."""
+    k0 = np.asarray(k0, np.uint32)
+    k1 = np.asarray(k1, np.uint32)
+    x0 = np.asarray(c0, np.uint32)
+    x1 = np.asarray(c1, np.uint32)
+    with np.errstate(over="ignore"):
+        ks = (k0, k1, k0 ^ k1 ^ np.uint32(_TF_PARITY))
+        x0 = x0 + ks[0]
+        x1 = x1 + ks[1]
+        for i in range(rounds):
+            r = _TF_ROTATIONS[(i // 4) % 2][i % 4]
+            x0 = x0 + x1
+            x1 = (x1 << np.uint32(r)) | (x1 >> np.uint32(32 - r))
+            x1 = x1 ^ x0
+            if i % 4 == 3:
+                s = i // 4 + 1
+                x0 = x0 + ks[s % 3]
+                x1 = x1 + ks[(s + 1) % 3] + np.uint32(s)
+    return x0, x1
+
+
+def splitmix64(key64, ctr):
+    """Counter-indexed SplitMix64 draw: ``mix(key64 + (ctr + 1) * GAMMA)``
+    as its (high, low) ``uint32`` words."""
+    key64 = np.asarray(key64, np.uint64)
+    with np.errstate(over="ignore"):
+        z = key64 + (np.asarray(ctr, np.uint64) + np.uint64(1)) * np.uint64(
+            _SM_GAMMA
+        )
+        z = (z ^ (z >> np.uint64(30))) * np.uint64(_SM_MIX1)
+        z = (z ^ (z >> np.uint64(27))) * np.uint64(_SM_MIX2)
+        z = z ^ (z >> np.uint64(31))
+    return (z >> np.uint64(32)).astype(np.uint32), z.astype(np.uint32)
+
+
+def uniform24(bits, dtype=np.float64):
+    """``uint32`` words -> uniforms in the open interval (0, 1): the top 24
+    bits, centered by half an ulp."""
+    return ((bits >> np.uint32(8)).astype(dtype) + dtype(0.5)) * dtype(2.0**-24)
+
+
+def stream_subkey_np(seed: int, stream, kind: int):
+    """Per-(lane-stream, kind) Threefry subkey pair: the seed splits into
+    the two key words, the counter words carry the 64-bit stream id (high
+    word shifted past the 4-bit kind tag)."""
+    stream = np.asarray(stream, np.int64)
+    s0 = np.uint32(seed & 0xFFFFFFFF)
+    s1 = np.uint32((seed >> 32) & 0xFFFFFFFF)
+    c0 = (stream & 0xFFFFFFFF).astype(np.uint32)
+    c1 = ((((stream >> 32) << 4) | kind) & 0xFFFFFFFF).astype(np.uint32)
+    return threefry2x32(s0, s1, c0, c1)
+
+
+def stream_key64_np(seed: int, stream, kind: int) -> np.ndarray:
+    """The 64-bit SplitMix stream key: the two Threefry subkey words packed
+    ``(high << 32) | low``."""
+    k0, k1 = stream_subkey_np(seed, stream, kind)
+    return (k0.astype(np.uint64) << np.uint64(32)) | k1.astype(np.uint64)
+
+
+# --------------------------------------------------------------------------- #
+# Trace specification
+# --------------------------------------------------------------------------- #
+@dataclass
+class TraceSpec:
+    """A generative, cell-indexed trace batch: one parameter row per
+    experiment cell, plus per-lane RNG stream ids and the lane -> cell
+    index.  Lane ``i``'s faults and predictions are a pure function of
+    ``(seed, stream[i])``; lanes sharing a stream id face identical traces
+    (the paired experiment design)."""
+
+    horizon: np.ndarray  # (n_cells,)
+    mtbf: np.ndarray  # (n_cells,)
+    recall: np.ndarray  # (n_cells,)
+    precision: np.ndarray  # (n_cells,)
+    window: np.ndarray  # (n_cells,)
+    lead: np.ndarray  # (n_cells,)
+    fault_dist: Distribution
+    false_pred_dist: Distribution
+    seed: int
+    stream: np.ndarray  # (L,) int64 global RNG stream ids
+    cell_index: np.ndarray  # (L,) int32 lane -> cell row
+
+    @property
+    def n_lanes(self) -> int:
+        return int(self.stream.shape[0])
+
+    @property
+    def n_cells(self) -> int:
+        return int(self.horizon.shape[0])
+
+    @property
+    def fp_mean(self) -> np.ndarray:
+        """False-prediction mean inter-arrival, one row per cell."""
+        return false_prediction_mtbf_batch(self.mtbf, self.recall, self.precision)
+
+
+def _bc(x, n: int) -> np.ndarray:
+    return np.broadcast_to(np.asarray(x, dtype=np.float64), (n,)).copy()
+
+
+def _require_inverse_cdf(dist: Distribution) -> None:
+    if dist.kind not in LAW_INDEX:
+        raise ValueError(
+            f"distribution {dist.name!r} has no inverse-CDF kind; the device "
+            "sampler supports exponential/weibull/lognormal/uniform"
+        )
+
+
+def make_trace_spec(
+    n_traces: int,
+    horizon,
+    mtbf,
+    recall,
+    precision,
+    window=0.0,
+    lead=math.inf,
+    fault_dist: Optional[Distribution] = None,
+    false_pred_dist: Optional[Distribution] = None,
+    seed: int = 0,
+    stream: Optional[Sequence[int]] = None,
+    cell_index: Optional[Sequence[int]] = None,
+) -> TraceSpec:
+    """Build a cell-indexed :class:`TraceSpec`: the trace parameters
+    describe cells (broadcast to ``max(cell_index) + 1`` rows) and the
+    ``n_traces`` lanes map onto them by ``cell_index``.  ``stream``
+    defaults to ``arange(n_traces)``; ``false_pred_dist`` defaults to the
+    fault law."""
+    L = int(n_traces)
+    if stream is None:
+        stream = np.arange(L, dtype=np.int64)
+    else:
+        stream = np.asarray(stream, dtype=np.int64)
+        if stream.shape != (L,):
+            raise ValueError(f"stream must have shape ({L},), got {stream.shape}")
+    if cell_index is None:
+        raise ValueError("the port supports the cell-indexed layout only")
+    cell_index = np.asarray(cell_index, dtype=np.int32)
+    if cell_index.shape != (L,):
+        raise ValueError(
+            f"cell_index must have shape ({L},), got {cell_index.shape}"
+        )
+    if L and cell_index.min() < 0:
+        raise ValueError("cell_index entries must be >= 0")
+    n_par = int(cell_index.max()) + 1 if L else 0
+    for d in (fault_dist, false_pred_dist):
+        if d is not None and not isinstance(d, Distribution):
+            raise NotImplementedError(
+                "mixed-law specs (one Distribution per cell) are not ported"
+            )
+    fault_dist = exponential() if fault_dist is None else fault_dist
+    false_pred_dist = fault_dist if false_pred_dist is None else false_pred_dist
+    _require_inverse_cdf(fault_dist)
+    _require_inverse_cdf(false_pred_dist)
+    return TraceSpec(
+        horizon=_bc(horizon, n_par),
+        mtbf=_bc(mtbf, n_par),
+        recall=_bc(recall, n_par),
+        precision=_bc(precision, n_par),
+        window=_bc(window, n_par),
+        lead=_bc(lead, n_par),
+        fault_dist=fault_dist,
+        false_pred_dist=false_pred_dist,
+        seed=int(seed),
+        stream=stream,
+        cell_index=cell_index,
+    )

@@ -1,0 +1,130 @@
+"""Build the port's CUDA kernels with ``nvcc`` at first use.
+
+Each ``csrc/<name>.cu`` compiles into its own shared library with a plain
+C interface (no PyTorch headers), loaded with :mod:`ctypes`; the wrappers
+in :mod:`repro_torch.kernels.sim_step` pass device pointers and PyTorch's
+current CUDA stream as integers.  Libraries land in ``build/repro_torch/``
+at the repository root, named by a hash of their source and flags, so an
+edited source is rebuilt and an unchanged one is loaded as it is.
+
+``python -c "from repro_torch.kernels import build; build.build_all()"``
+builds every kernel; nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List
+
+__all__ = ["NVCC_FLAGS", "BUILD_DIR", "build_all", "load"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+#: build outputs, at the root of the checkout (listed in .gitignore)
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+#: sm_90a (Hopper), and no FMA contraction: the kernels must round like
+#: their plain PyTorch versions (see the note in csrc/sim_step.cu)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+_P, _I32, _I64, _F64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64, ctypes.c_double
+
+#: C signatures of the entry points (every one returns a cudaError_t as int)
+_SIGNATURES = {
+    "sim_step": {
+        "sim_step_primitive_update": [
+            _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F64,
+            _I32, _I32, _P, _P, _P, _P, _I32, _F64, _F64, _P,
+        ],
+        "sim_step_stream_advance": [
+            _I64, _P, _P, _P, _P, _P, _P, _I32, _F64, _F64, _P,
+        ],
+    },
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found: the port's CUDA kernels build on a machine with "
+        "the CUDA toolkit (set CUDA_HOME or put nvcc on PATH)"
+    )
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def _start(name: str, nvcc: str) -> subprocess.Popen:
+    out = _lib_path(name)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    return subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+    )
+
+
+def build_all() -> Dict[str, str]:
+    """Compile every ``csrc/*.cu`` whose library is missing, one ``nvcc``
+    per source, all started together.  Returns ``{name: compiler
+    output}`` for the sources built now (the ``-Xptxas -v`` register and
+    spill report); raises if any build fails."""
+    with _lock:
+        return _build_missing(sorted(p.stem for p in CSRC.glob("*.cu")))
+
+
+def _build_missing(names: List[str]) -> Dict[str, str]:
+    todo = [n for n in names if not _lib_path(n).exists()]
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {n: _start(n, nvcc) for n in todo}
+    logs, failed = {}, []
+    for n, p in procs.items():
+        logs[n] = p.communicate()[0]
+        tmp = _lib_path(n).with_suffix(f".{os.getpid()}.tmp")
+        if p.returncode != 0:
+            failed.append(n)
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, _lib_path(n))
+    if failed:
+        detail = "\n".join(f"--- {n} ---\n{logs[n]}" for n in failed)
+        raise RuntimeError(f"nvcc failed for {failed}:\n{detail}")
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            _build_missing([name])
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            for fn, argtypes in _SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _libs[name] = lib
+    return lib
