@@ -9,18 +9,30 @@ version on the card, drives the main path — the full paper grid (108
 cells, 1000 Monte-Carlo runs each) through
 ``repro_torch.experiments.run_grid`` on CUDA — checks that both kernels
 ran on it, checks the card's results against the port's CPU path on the
-validation grid, and times each kernel.  Every phase prints one JSON
-line; any failure exits non-zero before the last line, which is
-``{"ok": true, "device": {...}}``.  Needs one CUDA card; imports nothing
-of JAX.
+validation grid, and times each kernel (phases 1-6).
+
+Then the checkpoint path (phases 7-10): the int8 / int8-delta codec
+kernels against their plain versions on edge-case leaves and on
+SmolLM-135M's 1.61 GB training state (params and AdamW moments), the
+card's payloads against the host codec; saves of that state through
+``repro_torch.checkpoint`` (raw, int8, int8_delta: a blocking save, an
+async save and ``restore_latest`` onto the card each, checked against the
+codec's error bound, with 30 kernel launches a codec save or restore),
+a buddy save and restore after node loss; and the codec kernels' times.
+
+Every phase prints one JSON line; any failure exits non-zero before the
+last line, which is ``{"ok": true, "device": {...}}``.  Needs one CUDA
+card; imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -30,6 +42,7 @@ SRC = ROOT / "src"
 #: H100 SXM data-sheet peaks the bound is taken against
 PEAK_BYTES_S = 3.35e12  # HBM3
 PEAK_F64_S = 34e12  # FP64, outside the tensor cores
+PEAK_F32_S = 67e12  # FP32, outside the tensor cores
 
 #: bytes the kernels must move on given data: every input a lane needs
 #: read once, every output it changes written once.  Primitive update:
@@ -50,6 +63,22 @@ RUNS_PER_CELL = 1000
 
 TM_ULPS = 4  # refilled cursor dates: libdevice transcendentals, same on both sides
 LAWS = (("exponential", 0.0), ("weibull", 0.7), ("lognormal", 1.0), ("uniform", 0.0))
+
+#: the checkpoint path's state: SmolLM-135M's parameters and AdamW moments
+#: made from this seed, and the relative perturbation between two steps
+STATE_SEED = 0
+DELTA_REL = 1e-3
+#: f32 operations per element, approximate: quantize takes |x|, the max,
+#: a divide, a round and a clip (and the delta's subtract); dequantize a
+#: multiply (and the delta's add)
+OPS_QUANT, OPS_DEQUANT = 5, 1
+CODEC_SOURCE = "src/repro_torch/kernels/csrc/ckpt_codec.cu"
+CODEC_REPLACES = {
+    "quantize_blocks": "src/repro/kernels/ckpt_codec.py:44",
+    "dequantize_blocks": "src/repro/kernels/ckpt_codec.py:86",
+}
+#: the stacked leaf that phase 8 runs through the card besides embed
+STACKED_LEAF = "params/blocks/0/mlp/wi_gate"
 
 
 class SmokeFailure(RuntimeError):
@@ -136,20 +165,20 @@ def eager_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def device_ms(calls, copies, src, samples: int = 10):
-    """Median device time of one call, every call on the state the bound
-    counts.  ``calls[i]`` works on ``copies[i]`` (together three times the
-    L2, so each call finds its lanes in device memory); the calls are
-    captured in one CUDA graph.  Before each timed replay a second graph
-    rewrites every copy from ``src`` (the kernels update state in place)
-    and then reads a buffer larger than the L2, so the rewritten lines are
-    flushed before the timed span opens; the card is still busy with it
-    when the timed replay is issued, so the span holds no host time.
-    Returns the ms per call and the outputs of the first call of the last
-    replay."""
+def device_ms(calls, copies=None, src=None, samples: int = 10):
+    """Median device time of one call.  The calls are captured in one CUDA
+    graph and the replays timed between CUDA events.  ``calls[i]`` works
+    on ``copies[i]`` (together three times the L2, so each call finds its
+    lanes in device memory); given copies, a second graph rewrites every
+    copy from ``src`` before each timed replay (the sim_step kernels
+    update state in place) and then reads a buffer larger than the L2, so
+    the rewritten lines are flushed before the timed span opens; the card
+    is still busy with it when the timed replay is issued, so the span
+    holds no host time.  Without copies the calls must leave their inputs
+    as they are, so every replay does the same work.  Returns the ms per
+    call and the outputs of the first call of the last replay."""
     import torch
 
-    flush = torch.ones(int(3 * L2_BYTES) // 4, dtype=torch.float32, device=src["t"].device)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -157,26 +186,345 @@ def device_ms(calls, copies, src, samples: int = 10):
             f()
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
-    prep = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(prep):
-        for c in copies:
-            for k, v in c.items():
-                v.copy_(src[k])
-        flush.sum()
-    prep.replay()
+    prep = None
+    if copies is not None:
+        flush = torch.ones(int(3 * L2_BYTES) // 4, dtype=torch.float32,
+                           device=src["t"].device)
+        prep = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(prep):
+            for c in copies:
+                for k, v in c.items():
+                    v.copy_(src[k])
+            flush.sum()
+        prep.replay()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         outs = [f() for f in calls]
     ms = []
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     for _ in range(samples):
-        prep.replay()
+        if prep is not None:
+            prep.replay()
         a.record()
         graph.replay()
         b.record()
         torch.cuda.synchronize()
         ms.append(a.elapsed_time(b) / len(calls))
     return sorted(ms)[len(ms) // 2], outs[0]
+
+
+# --------------------------------------------------------------------------- #
+# The checkpoint path
+# --------------------------------------------------------------------------- #
+def bits(t):
+    """The bit pattern of an f32 tensor (other tensors as they are)."""
+    import torch
+
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def same_bits(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and torch.equal(bits(a), bits(b))
+
+
+def make_state(seed: int, dev):
+    """SmolLM-135M's training state on the card, from ``seed``: params
+    N(0, 0.02), AdamW m N(0, 1e-3) and v = m^2; and the next step's
+    state, every leaf times ``1 + DELTA_REL * N(0, 1)``."""
+    import torch
+    from repro_torch.checkpoint.store import map_with_keys
+    from repro_torch.configs.smollm_135m import param_shapes
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def normal(std):
+        return lambda shape: torch.randn(shape, generator=g, device=dev) * std
+
+    m = {k: normal(1e-3)(shape) for k, shape in param_shapes().items()}
+    state = {
+        "params": {k: normal(0.02)(shape) for k, shape in param_shapes().items()},
+        "m": m,
+        "v": map_with_keys(lambda _, x: x * x, m),
+    }
+    step2 = map_with_keys(
+        lambda _, x: x * (1.0 + DELTA_REL * torch.randn(x.shape, generator=g, device=dev)),
+        state)
+    return state, step2
+
+
+def codec_err_ratio(got, want, base=None) -> float:
+    """Largest ``|got - want|`` over its bound: half the block's code step,
+    ``max(absmax / 127, 1e-12) / 2`` with absmax taken over ``want`` (or
+    ``want - base``, the delta), widened by the rounding of ``x / scale``
+    (at most 127 ulp of the step's 2^-24) and of the f32 operands.  At
+    most 1 when the round trip is right."""
+    import torch
+
+    w = want.reshape(-1).float()
+    d = w if base is None else w - base.reshape(-1).float()
+    n = d.numel()
+    am = torch.nn.functional.pad(d.abs(), (0, (-n) % 256)).view(-1, 256).amax(1)
+    step = torch.clamp(am / 127.0, min=1e-12).repeat_interleave(256)[:n]
+    mag = w.abs() if base is None else w.abs() + base.reshape(-1).float().abs()
+    tol = step / 2 * (1 + 2.0**-14) + 2.0**-22 * mag
+    return float(((got.reshape(-1).float() - w).abs() / tol).max())
+
+
+def codec_bytes(n: int, delta: bool, quantize: bool) -> int:
+    """Bytes one launch must move on an ``n``-element leaf: quantize reads
+    4 B an element (8 with prev) and writes 1 B a padded element and 4 B
+    a block; dequantize reads 1 B a code it decodes and 4 B a block (and
+    4 B of prev an element) and writes 4 B an element."""
+    nb = -(-n // 256)
+    if quantize:
+        return 4 * n * (2 if delta else 1) + 256 * nb + 4 * nb
+    return n + 4 * nb + 4 * n * (1 if delta else 0) + 4 * n
+
+
+def check_codec_pair(CK, x, prev, what, err):
+    """Both kernels against their plain versions on the flat leaf ``x``
+    (and ``prev``): codes, scales and decoded values bit-equal.  Raises
+    ``err[name]`` to the largest absolute difference seen.  Returns the
+    kernels' (q, s)."""
+    q, s = CK.quantize_blocks(x, prev)
+    qr, sr = CK.quantize_ref(x, prev)
+    d = CK.dequantize_blocks(q, s, prev, n=x.numel())
+    dr = CK.dequantize_ref(q, s, prev, n=x.numel())
+    err["quantize_blocks"] = max(err["quantize_blocks"], float(
+        (q.int() - qr.int()).abs().max()), max_abs_err([(s, sr)]))
+    err["dequantize_blocks"] = max(err["dequantize_blocks"], max_abs_err([(d, dr)]))
+    check(same_bits(q, qr), f"{what}: quantize_blocks codes differ from the plain version")
+    check(same_bits(s, sr), f"{what}: quantize_blocks scales differ from the plain version")
+    check(same_bits(d, dr), f"{what}: dequantize_blocks differs from the plain version")
+    return q, s
+
+
+def checkpoint_phases(dev) -> list:
+    """Phases 7-10: the codec kernels against their plain versions and the
+    host codec, the checkpoint path (store, async and buddy tiers) on
+    SmolLM-135M's training state, and the kernels' times.  Returns the
+    two kernels' entries of the ``kernels`` line."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import (
+        AsyncCheckpointer, BuddyMemoryCheckpoint, CheckpointStore,
+    )
+    from repro_torch.checkpoint import codec as host_codec
+    from repro_torch.checkpoint.store import decode_leaf, encode_leaf, flatten_with_keys
+    from repro_torch.kernels import ckpt_codec as CK
+
+    # ---- 7. kernels against their plain versions, on the card ---------- #
+    t0 = time.monotonic()
+    err = {"quantize_blocks": 0.0, "dequantize_blocks": 0.0}
+    edge = {}
+    for seed in (1, 2):
+        x_np, p_np = CK.sample_codec_leaf(seed)
+        x, p = torch.from_numpy(x_np).to(dev), torch.from_numpy(p_np).to(dev)
+        for prev, prev_np in ((None, None), (p, p_np)):
+            what = f"edge leaf {seed}" + (" (delta)" if prev is not None else "")
+            q, s = check_codec_pair(CK, x, prev, what, err)
+            # and against the host codec, which owns the format: the codes
+            # equal; the scales equal or both NaN (the card's subtract
+            # writes its own NaN where x86 keeps the operand's payload)
+            with np.errstate(invalid="ignore"):
+                pay, meta = host_codec.encode_array(x_np, prev_np)
+            qn = meta["nblocks"] * 256
+            check(np.array_equal(q.cpu().numpy().reshape(-1).view(np.uint8), pay[:qn]),
+                  f"{what}: codes differ from the host codec")
+            sc = s.cpu().numpy().reshape(-1)
+            check(np.array_equal(sc, pay[qn:].view(np.float32), equal_nan=True),
+                  f"{what}: scales differ from the host codec")
+            edge[what] = {"nan_scales": int(np.isnan(sc).sum()),
+                          "inf_scales": int(np.isinf(sc).sum()),
+                          "floor_scales": int((sc == np.float32(1e-12)).sum())}
+    state, step2 = make_state(STATE_SEED, dev)
+    flat, flat2 = flatten_with_keys(state), flatten_with_keys(step2)
+    codec_keys = [k for k, v in flat.items() if v.numel() >= 1024]
+    for k in codec_keys:
+        check_codec_pair(CK, flat[k].reshape(-1), None, k, err)
+        check_codec_pair(CK, flat2[k].reshape(-1), flat[k].reshape(-1), k + " (delta)", err)
+    torch.cuda.synchronize()
+    n_elems = sum(flat[k].numel() for k in codec_keys)
+    n_blocks = sum(-(-flat[k].numel() // 256) for k in codec_keys)
+    state_bytes = sum(v.numel() * v.element_size() for v in flat.values())
+    emit("codec_check", seconds=time.monotonic() - t0, edge=edge,
+         state_leaves=len(flat), codec_leaves=len(codec_keys), elements=n_elems,
+         blocks=n_blocks, state_bytes=state_bytes,
+         compared="codes, scales and decoded values bit-equal to the plain "
+                  "versions; edge leaves also to the host codec")
+
+    # ---- 8. the card's payload against the host codec ------------------ #
+    t0 = time.monotonic()
+    host_check = {}
+    for k in ("params/embed", STACKED_LEAF):
+        for prev in (None, flat[k]):
+            x = flat[k] if prev is None else flat2[k]
+            pay, meta = encode_leaf(x, prev)
+            x_np = x.cpu().numpy()
+            p_np = None if prev is None else prev.cpu().numpy()
+            hpay, hmeta = host_codec.encode_array(x_np, p_np)
+            what = f"{k} ({meta['codec']})"
+            check(meta == hmeta, f"{what}: manifest entry differs from the host codec's")
+            check(np.array_equal(pay, hpay), f"{what}: payload bytes differ from the host codec's")
+            back = decode_leaf(pay, meta, prev, dev)
+            hback = host_codec.decode_array(pay, meta, p_np)
+            check(np.array_equal(back.cpu().numpy().view(np.uint32), hback.view(np.uint32)),
+                  f"{what}: dequantize_blocks differs from the host decoder")
+            host_check[what] = {"payload_bytes": int(pay.nbytes), "nblocks": meta["nblocks"]}
+    emit("codec_host", seconds=time.monotonic() - t0, leaves=host_check,
+         compared="payload bytes equal to encode_array's; decoded bit-equal to decode_array's")
+
+    # ---- 9. the checkpoint path ---------------------------------------- #
+    CK.quantize_blocks.launches = 0
+    CK.dequantize_blocks.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    n_codec = len(codec_keys)
+    per_codec = {}
+
+    def counted(fn):
+        q0, d0 = CK.quantize_blocks.launches, CK.dequantize_blocks.launches
+        out = fn()
+        return out, CK.quantize_blocks.launches - q0, CK.dequantize_blocks.launches - d0
+
+    with tempfile.TemporaryDirectory(prefix="ckpt_smoke_") as tmp:
+        for codec in ("raw", "int8", "int8_delta"):
+            store = CheckpointStore(os.path.join(tmp, codec), codec)
+            want_q = 0 if codec == "raw" else n_codec
+            m_save, nq, nd = counted(lambda: store.save(1, state))
+            check(nq == want_q and nd == 0, f"{codec}: blocking save launched {nq} quantize_blocks")
+            ac = AsyncCheckpointer(store, keep=1)
+            tree, prev = (step2, state) if codec == "int8_delta" else (state, None)
+            (c_block, nq, nd) = counted(lambda: ac.save(2, tree, prev_tree=prev))
+            ac.wait()
+            check(nq == want_q, f"{codec}: async save launched {nq} quantize_blocks")
+            check(ac.durable_step == 2 and store.steps() == [2],
+                  f"{codec}: durable step {ac.durable_step}, steps {store.steps()}")
+            m = ac.metrics
+            got, nq, nd = counted(lambda: store.restore_latest(target=tree, prev_tree=prev))
+            check(got is not None and got[0] == 2, f"{codec}: restore_latest gave {got and got[0]}")
+            check(nd == want_q, f"{codec}: restore launched {nd} dequantize_blocks")
+            back = flatten_with_keys(got[1])
+            base = flat if codec == "int8_delta" else {}
+            worst = 0.0
+            for k, want in flatten_with_keys(tree).items():
+                b = back[k]
+                check(b.device == want.device and b.dtype == want.dtype and b.shape == want.shape,
+                      f"{codec}: {k} restored as {b.dtype} {tuple(b.shape)} on {b.device}")
+                if codec == "raw" or k not in codec_keys:
+                    check(torch.equal(b, want), f"{codec}: {k} not restored exactly")
+                else:
+                    r = codec_err_ratio(b, want, base.get(k))
+                    check(r <= 1.0, f"{codec}: {k} off by {r} of its bound")
+                    worst = max(worst, r)
+            del got, back
+            per_codec[codec] = {
+                "blocking_save": m_save, "async": m, "c_block_returned": c_block,
+                "ratio": m["raw_bytes"] / m["stored_bytes"], "max_err_over_bound": worst,
+            }
+            emit("ckpt_save", codec=codec, **{k: m[k] for k in (
+                "t_snapshot", "t_total", "raw_bytes", "stored_bytes", "c_block", "c_full")},
+                blocking_t_snapshot=m_save["t_snapshot"], blocking_t_total=m_save["t_total"],
+                raw_over_stored=m["raw_bytes"] / m["stored_bytes"], max_err_over_bound=worst)
+        bm = BuddyMemoryCheckpoint(n_nodes=2)
+        t_buddy = bm.save(3, state, rank=0)
+        got = bm.restore(0, lost=True)
+        check(got is not None and got[0] == 3, "buddy: node loss lost the snapshot")
+        t1 = time.monotonic()
+        hb = flatten_with_keys(got[1])
+        for k, want in flat.items():
+            check(hb[k].device.type == "cpu" and torch.equal(hb[k].to(dev), want),
+                  f"buddy: {k} not restored exactly")
+        t_buddy_restore = time.monotonic() - t1
+        del got, hb, bm
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {"quantize_blocks": CK.quantize_blocks.launches,
+                "dequantize_blocks": CK.dequantize_blocks.launches}
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched on the checkpoint path")
+    emit("ckpt_path", seconds=wall, state_bytes=state_bytes, launches=launches,
+         launches_per_codec_save=n_codec, buddy_save_s=t_buddy,
+         buddy_restore_and_check_s=t_buddy_restore,
+         note="each codec: a blocking save, an async save with wait, restore_latest "
+              "onto the card; then a buddy save and restore with lost=True")
+
+    # ---- 10. times on embed and over the state ------------------------- #
+    t0 = time.monotonic()
+    emb, emb2 = flat["params/embed"].reshape(-1), flat2["params/embed"].reshape(-1)
+    n_emb = emb.numel()
+    reps = 10
+    timing = {}
+    for delta in (False, True):
+        x, p = (emb2, emb) if delta else (emb, None)
+        qe, se = CK.quantize_ref(x, p)
+        leaves = [(flat2[k].reshape(-1), flat[k].reshape(-1)) if delta
+                  else (flat[k].reshape(-1), None) for k in codec_keys]
+        coded = [CK.quantize_ref(x_, p_) + (x_.numel(),) for x_, p_ in leaves]
+        for quant in (True, False):
+            if quant:
+                kern = lambda x=x, p=p: CK.quantize_blocks(x, p)  # noqa: E731
+                plain = lambda x=x, p=p: CK.quantize_ref(x, p)  # noqa: E731
+                over = [lambda x_=x_, p_=p_: CK.quantize_blocks(x_, p_) for x_, p_ in leaves]
+            else:
+                kern = lambda q=qe, s=se, p=p: CK.dequantize_blocks(q, s, p, n=n_emb)  # noqa: E731
+                plain = lambda q=qe, s=se, p=p: CK.dequantize_ref(q, s, p, n=n_emb)  # noqa: E731
+                over = [lambda c=c, p_=p_: CK.dequantize_blocks(c[0], c[1], p_, n=c[2])
+                        for c, (_, p_) in zip(coded, leaves)]
+            name = "quantize_blocks" if quant else "dequantize_blocks"
+            ms, out = device_ms([kern] * reps)
+            pms, pout = device_ms([plain] * reps)
+            for a, b in zip(out if quant else [out], pout if quant else [pout]):
+                check(same_bits(a, b), f"{name}: a timed call differs from the plain version")
+            lms = None
+            if not quant and not delta:
+                # one PyTorch call computes the plain decode: the broadcast
+                # product promotes the codes to f32 and rounds q*s once.
+                # (The delta decode has none: addcmul may fuse the product
+                # and the sum into one rounding.)
+                lms, lout = device_ms([lambda q=qe, s=se: torch.mul(q, s)] * reps)
+                check(same_bits(lout.reshape(-1)[:n_emb], out),
+                      f"{name}: torch.mul differs from the kernel")
+            sms, _ = device_ms(over)
+            ops = OPS_QUANT + delta if quant else OPS_DEQUANT + delta
+            nbytes = codec_bytes(n_emb, delta, quant)
+            sbytes = sum(codec_bytes(x_.numel(), delta, quant) for x_, _ in leaves)
+            t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops * n_emb / PEAK_F32_S * 1e3
+            timing[(name, delta)] = {
+                "ms": ms, "plain_ms": pms, "library_ms": lms,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": nbytes, "state_ms": sms * len(over), "state_bytes": sbytes,
+                "state_bound_ms": max(sbytes / PEAK_BYTES_S * 1e3,
+                                      ops * n_elems / PEAK_F32_S * 1e3),
+            }
+            del out, pout
+    emit("codec_timing", seconds=time.monotonic() - t0, leaf="params/embed",
+         leaf_elements=n_emb, launches_per_sample=reps,
+         note="CUDA graphs of launches on unchanged inputs: neither kernel updates "
+              "its inputs, so every launch does the work the bound counts; embed "
+              "moves 2.3x the L2 a launch; library: torch.mul(q, s) for the plain "
+              "decode (bit-equal to the kernel), none for quantize or the delta decode",
+         times={f"{k[0]}{'/delta' if k[1] else ''}": v for k, v in timing.items()})
+
+    kernels = []
+    for name in ("quantize_blocks", "dequantize_blocks"):
+        t, td = timing[(name, False)], timing[(name, True)]
+        kernels.append({
+            "name": name, "route": "cuda", "source": CODEC_SOURCE,
+            "replaces": CODEC_REPLACES[name], "launches": launches[name],
+            "max_abs_err": err[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "shape": f"params/embed, {n_emb} f32",
+            "delta_ms": td["ms"], "delta_plain_ms": td["plain_ms"],
+            "delta_bound_ms": td["bound_ms"],
+            "state_ms": t["state_ms"], "state_bound_ms": t["state_bound_ms"],
+            "delta_state_ms": td["state_ms"], "delta_state_bound_ms": td["state_bound_ms"],
+        })
+    return kernels
 
 
 def main() -> int:
@@ -383,6 +731,7 @@ def main() -> int:
          launches_per_iter={k["name"]: k["launches"] / max(meta["outer_iters"], 1)
                             for k in kernels},
          note="estimates: main-path launches x the per-launch times of phase 6")
+    kernels += checkpoint_phases(dev)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

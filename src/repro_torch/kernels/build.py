@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles into its own shared library with a plain
 C interface (no PyTorch headers), loaded with :mod:`ctypes`; the wrappers
-in :mod:`repro_torch.kernels.sim_step` pass device pointers and PyTorch's
+in :mod:`repro_torch.kernels.sim_step` and
+:mod:`repro_torch.kernels.ckpt_codec` pass device pointers and PyTorch's
 current CUDA stream as integers.  Libraries land in ``build/repro_torch/``
 at the repository root, named by a hash of their source and flags, so an
 edited source is rebuilt and an unchanged one is loaded as it is.
@@ -29,7 +30,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 #: sm_90a (Hopper), and no FMA contraction: the kernels must round like
-#: their plain PyTorch versions (see the note in csrc/sim_step.cu)
+#: their plain PyTorch versions (see the notes in csrc/*.cu)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -50,6 +51,10 @@ _SIGNATURES = {
         "sim_step_stream_advance": [
             _I64, _P, _P, _P, _P, _P, _P, _I32, _F64, _F64, _P,
         ],
+    },
+    "ckpt_codec": {
+        "ckpt_quantize": [_I64, _P, _P, _P, _P, _I32, _P],
+        "ckpt_dequantize": [_I64, _P, _P, _P, _P, _I32, _P],
     },
 }
 

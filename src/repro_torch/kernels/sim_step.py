@@ -251,18 +251,26 @@ def primitive_update(
 # Kernel wrappers
 # --------------------------------------------------------------------------- #
 def _check(name: str, specs) -> torch.device:
-    """Validate ``(arg_name, tensor, dtype)`` triples: one device, the
-    stated dtypes, equal 1-D shapes, contiguous.  Returns the device."""
-    dev = specs[0][1].device
-    n = specs[0][1].shape
-    for arg, x, dt in specs:
+    """Validate ``(arg_name, tensor, dtype[, numel])`` specs: one device,
+    the stated dtypes, contiguous; an argument given ``numel`` has that
+    many elements, any other is 1-D of the first argument's shape.
+    Returns the device."""
+    for arg, x, *_ in specs:
         if not isinstance(x, torch.Tensor):
             raise TypeError(f"{name}: {arg} must be a tensor")
+    dev = specs[0][1].device
+    n = specs[0][1].shape
+    for arg, x, dt, *numel in specs:
         if x.device != dev:
             raise ValueError(f"{name}: {arg} is on {x.device}, expected {dev}")
         if x.dtype != dt:
             raise TypeError(f"{name}: {arg} has dtype {x.dtype}, expected {dt}")
-        if x.dim() != 1 or x.shape != n:
+        if numel:
+            if x.numel() != numel[0]:
+                raise ValueError(
+                    f"{name}: {arg} has {x.numel()} elements, expected {numel[0]}"
+                )
+        elif x.dim() != 1 or x.shape != n:
             raise ValueError(
                 f"{name}: {arg} has shape {tuple(x.shape)}, expected {tuple(n)}"
             )

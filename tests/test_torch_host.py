@@ -1,6 +1,7 @@
 """The port's copies of the reference host code, held against the
 reference: rate identities, laws, periods, strategies, lane codes,
-per-lane packing, the fused layout and the chunk packers.  Everything
+per-lane packing, the fused layout, the chunk packers and the host
+checkpoint codec.  Everything
 here is NumPy or Python doubles on both sides, so every comparison is
 exact."""
 
@@ -11,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.checkpoint import codec as RCodec
 from repro.configs import paper as RP
 from repro.core import batch_sim as RB
 from repro.core import events as RE
@@ -19,6 +21,7 @@ from repro.core import periods as RPer
 from repro.experiments import GridSpec as RGridSpec
 from repro.experiments.paper_grid import paper_grid_cells as ref_cells
 from repro.experiments.runner import build_fused_layout as ref_layout
+from repro_torch.checkpoint import codec as PCodec
 from repro_torch.configs import paper as PP
 from repro_torch.core import batch_sim as PB
 from repro_torch.core import events as PE
@@ -260,3 +263,37 @@ def test_tables_from_numpy_round_trips():
     state = PT._to_device(sb, "cpu")
     state["t"][0] = math.pi
     assert state["saved"][0] == 0.0 and sb["t"][0] == 0.0
+
+
+# --------------------------------------------------------------------------- #
+# checkpoint/codec.py
+# --------------------------------------------------------------------------- #
+def _codec_arrays():
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal(17_280).astype(np.float32)
+    x[5], x[300], x[301] = np.nan, np.inf, -0.0
+    return {
+        "f32": x,
+        "f16": rng.standard_normal((30, 576)).astype(np.float16),
+        "tiny": np.zeros(256 * 3, np.float32),
+        "scaled": (rng.standard_normal((4, 2048)) * 1e-30).astype(np.float32),
+    }
+
+
+@pytest.mark.parametrize("delta", [False, True])
+def test_checkpoint_codec_copy_matches(delta):
+    arrays = _codec_arrays()
+    rng = np.random.default_rng(12)
+    prev = ({k: (v * (1 + 1e-3 * rng.standard_normal(v.shape))).astype(v.dtype)
+             for k, v in arrays.items()} if delta else None)
+    with np.errstate(invalid="ignore"):
+        enc_p, enc_r = PCodec.encode_tree(arrays, prev), RCodec.encode_tree(arrays, prev)
+        assert list(enc_p) == list(enc_r)
+        for k, (pay, meta) in enc_p.items():
+            np.testing.assert_array_equal(pay, enc_r[k][0])
+            assert meta == enc_r[k][1], k
+        dec_p, dec_r = PCodec.decode_tree(enc_p, prev), RCodec.decode_tree(enc_r, prev)
+    for k, v in dec_p.items():
+        assert v.dtype == dec_r[k].dtype and v.shape == dec_r[k].shape
+        np.testing.assert_array_equal(v.view(np.uint8), dec_r[k].view(np.uint8))
+    assert PCodec.__all__ == RCodec.__all__ and PCodec._BLOCK == RCodec._BLOCK
