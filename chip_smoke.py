@@ -20,6 +20,17 @@ async save and ``restore_latest`` onto the card each, checked against the
 codec's error bound, with 30 kernel launches a codec save or restore),
 a buddy save and restore after node loss; and the codec kernels' times.
 
+Then the serving path of SmolLM-135M (phases 11-14): the two attention
+kernels (``flash_attention_bhsd``, ``decode_attention_bhd``) against their
+plain versions at the path's shapes, in bf16 and f32; the model on the
+card against the port on the CPU (full width, 2 layers, f32); the path
+itself, ``repro_torch.launch.serve`` at full width and depth (8 requests
+of 1024 prompt tokens, 128 generated), once without faults and once with
+wall-clock faults, whose tokens must equal the fault-free ones, with 30
+flash launches a prefill and 30 decode launches a decode step, and a
+dense-attention run held to the kernel run; and the kernels' times beside
+their bounds, plain versions and ``scaled_dot_product_attention``.
+
 Every phase prints one JSON line; any failure exits non-zero before the
 last line, which is ``{"ok": true, "device": {...}}``.  Needs one CUDA
 card; imports nothing of JAX.
@@ -79,6 +90,37 @@ CODEC_REPLACES = {
 }
 #: the stacked leaf that phase 8 runs through the card besides embed
 STACKED_LEAF = "params/blocks/0/mlp/wi_gate"
+
+#: the serving path: SmolLM-135M at full width and depth, weights and
+#: prompts from this seed
+SERVE_SEED = 0
+REQUESTS, PROMPT_LEN, GEN, SNAPSHOT_EVERY = 8, 1024, 128, 16
+#: faults injected in the faulted run, at most (each restore replays up to
+#: SNAPSHOT_EVERY - 1 tokens, so the run ends)
+MAX_FAULTS = 8
+PEAK_BF16_S = 989e12  # dense bf16, tensor cores
+#: the attention kernels' tolerances against their plain versions (abs and
+#: rel): the reference kernel tests' own (tests/test_kernels.py:43, :77)
+ATTN_TOL = {"float32": 2e-6, "bfloat16": 2e-2}
+#: the model on the card against the port on the CPU, f32 compute (the
+#: port-vs-reference tolerances of tests/test_torch_serve.py, measured on
+#: the CPU): prefill logits; one decode step from the same cache; decode
+#: steps each from its own bf16 cache, where f32 noise flips a few bf16
+#: roundings of K/V
+CARD_CPU_TOL = {"prefill": 1e-5, "decode_same_cache": 1e-4, "decode_own_cache": 1e-3}
+#: the dense-attention serving run against the kernel run, bf16 compute at
+#: 30 layers, as a fraction of max|logit| (largest difference and relative
+#: L2 norm of the difference).  bf16 rounds the residual stream at other
+#: places in the two paths: measured on the CPU with the plain versions
+#: (B = 2, S = 256, two seeds), each bf16 path sits 1.6-2.4% (max) and
+#: 1.7-2.3% (L2) from the f32 run and as far from the other; this is 2x
+#: that.  (In f32 compute the two paths agreed exactly there.)
+DENSE_TOL = 5e-2
+ATTN_SOURCE = "src/repro_torch/kernels/csrc/{}.cu"
+ATTN_REPLACES = {
+    "flash_attention_bhsd": "src/repro/kernels/flash_attention.py:84",
+    "decode_attention_bhd": "src/repro/kernels/decode_attention.py:65",
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -527,6 +569,304 @@ def checkpoint_phases(dev) -> list:
     return kernels
 
 
+# --------------------------------------------------------------------------- #
+# The serving path
+# --------------------------------------------------------------------------- #
+def attn_close(got, want, what: str) -> float:
+    """Hold a kernel's output to its plain version's (or a library call's)
+    within ATTN_TOL of the dtype; returns the largest absolute error."""
+    import torch
+
+    tol = ATTN_TOL[str(want.dtype).split(".")[-1]]
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{what}: {got.dtype} {tuple(got.shape)} against {want.dtype} {tuple(want.shape)}")
+    g, w = got.float(), want.float()
+    bad = (g - w).abs() > tol + tol * w.abs()
+    check(bool(torch.isfinite(g).all()), f"{what}: non-finite output")
+    check(not bool(bad.any()), f"{what}: {int(bad.sum())} values off by more than {tol} "
+          f"(max abs err {float((g - w).abs().max())})")
+    return float((g - w).abs().max())
+
+
+def flash_inputs(B, S, T, H, KV, hd, dt, seed, dev):
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device=dev).to(dt)
+                 for shape in ((B, S, H, hd), (B, T, KV, hd), (B, T, KV, hd)))
+
+
+def serving_phases(dev, launch_floor_ms: float) -> list:
+    """Phases 11-14: the attention kernels against their plain versions,
+    the model on the card against the port on the CPU, the serving path,
+    and the kernels' times.  Returns the two kernels' entries of the
+    ``kernels`` line."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.checkpoint.store import map_with_keys
+    from repro_torch.configs import get
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import fault_trace, serve
+    from repro_torch.models import LanguageModel, RuntimeFlags
+
+    cfg = get("smollm-135m")
+    H, KV, hd, L = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_layers
+    B, S = REQUESTS, PROMPT_LEN
+    max_seq = PROMPT_LEN + GEN + 8
+    err = {"flash_attention_bhsd": 0.0, "decode_attention_bhd": 0.0}
+
+    # ---- 11. kernels against their plain versions, the path's shapes ---- #
+    t0 = time.monotonic()
+    cases = []
+    for dt in (torch.bfloat16, torch.float32):
+        dn = str(dt).split(".")[-1]
+        for what, s_, t_, causal, bhsd in (
+            ("path", S, S, True, False), ("bhsd_group1", S, S, True, True),
+            ("ragged_1000", 1000, 1000, True, False), ("non_causal", S, S, False, False),
+            ("prefix_128_of_1000", 128, 1000, True, False),
+        ):
+            q, k, v = flash_inputs(B, s_, t_, H, KV, hd, dt, len(cases), dev)
+            if bhsd:  # the reference's layout, K/V broadcast to every query head
+                q = q.transpose(1, 2).reshape(B * H, s_, hd).contiguous()
+                k = k.repeat_interleave(H // KV, dim=2).transpose(1, 2).reshape(B * H, t_, hd).contiguous()
+                v = v.repeat_interleave(H // KV, dim=2).transpose(1, 2).reshape(B * H, t_, hd).contiguous()
+                got, want = FA.flash_attention_bhsd(q, k, v, causal), FA.flash_attention_ref(q, k, v, causal)
+            else:
+                got, want = ops.flash_attention(q, k, v, causal), FA.attention_ref(q, k, v, causal)
+            torch.cuda.synchronize()
+            e = attn_close(got, want, f"flash_attention_bhsd/{what}/{dn}")
+            err["flash_attention_bhsd"] = max(err["flash_attention_bhsd"], e)
+            cases.append({"kernel": "flash_attention_bhsd", "case": what, "dtype": dn,
+                          "q": list(q.shape), "k": list(k.shape), "causal": causal,
+                          "max_abs_err": e})
+        g = torch.Generator(device=dev)
+        g.manual_seed(20)
+        kc = torch.randn((B, max_seq, KV, hd), generator=g, device=dev).to(torch.bfloat16)
+        vc = torch.randn((B, max_seq, KV, hd), generator=g, device=dev).to(torch.bfloat16)
+        qd = torch.randn((B, 1, H, hd), generator=g, device=dev).to(dt)
+        for pos in (0, 511, 1023, max_seq - 1):
+            p = torch.tensor(pos, dtype=torch.int32, device=dev)
+            got = ops.decode_attention(qd, kc, vc, p)
+            want = DA.attention_ref(qd[:, 0], kc, vc, p).unsqueeze(1)
+            torch.cuda.synchronize()
+            e = attn_close(got, want, f"decode_attention_bhd/pos{pos}/{dn}")
+            err["decode_attention_bhd"] = max(err["decode_attention_bhd"], e)
+            cases.append({"kernel": "decode_attention_bhd", "case": f"pos {pos}",
+                          "q_dtype": dn, "cache": list(kc.shape), "max_abs_err": e})
+        # the reference's layout: (BH, hd) over a broadcast (BH, S_max, hd) cache
+        kb = kc.repeat_interleave(H // KV, dim=2).transpose(1, 2).reshape(B * H, max_seq, hd).to(dt)
+        vb = vc.repeat_interleave(H // KV, dim=2).transpose(1, 2).reshape(B * H, max_seq, hd).to(dt)
+        qb = qd[:, 0].reshape(B * H, hd).contiguous()
+        p = torch.tensor(700, dtype=torch.int32, device=dev)
+        e = attn_close(DA.decode_attention_bhd(qb, kb, vb, p),
+                       DA.decode_attention_ref(qb, kb, vb, p), f"decode_attention_bhd/bhd/{dn}")
+        err["decode_attention_bhd"] = max(err["decode_attention_bhd"], e)
+        cases.append({"kernel": "decode_attention_bhd", "case": "bhd group 1, pos 700",
+                      "q_dtype": dn, "cache": list(kb.shape), "max_abs_err": e})
+    emit("attn_check", seconds=time.monotonic() - t0, cases=cases, tol=ATTN_TOL)
+
+    # ---- 12. the model on the card against the port on the CPU --------- #
+    # (the CPU side runs on one thread, so its summation order does not
+    # depend on how many threads the host hands it)
+    t0 = time.monotonic()
+    cpu_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    small = dataclasses.replace(cfg, num_layers=2)
+    flags = RuntimeFlags(compute_dtype=torch.float32)
+    m_cpu, m_gpu = LanguageModel(small, flags), LanguageModel(small, flags)
+    p_cpu = m_cpu.init(torch.Generator().manual_seed(SERVE_SEED))
+    p_gpu = map_with_keys(lambda _, x: x.to(dev), p_cpu)
+    toks = np.random.default_rng(SERVE_SEED).integers(0, small.vocab_size, (2, 128)).astype(np.int32)
+    lc, cc = m_cpu.prefill(p_cpu, torch.from_numpy(toks), 128 + 16)
+    lg, cg = m_gpu.prefill(p_gpu, torch.from_numpy(toks).to(dev), 128 + 16)
+    diffs = {"prefill": float((lg.cpu() - lc).abs().max()), "decode_same_cache": 0.0,
+             "decode_own_cache": 0.0}
+    same_tokens = True
+    tok = lc[:, -1].argmax(-1).to(torch.int32)[:, None]
+    for _ in range(8):
+        synced = {"pos": cc["pos"].to(dev, copy=True),
+                  "blocks": tuple({k: v.to(dev, copy=True) for k, v in b.items()}
+                                  for b in cc["blocks"])}
+        ls, _ = m_gpu.decode_step(p_gpu, synced, tok.to(dev))
+        lc, cc = m_cpu.decode_step(p_cpu, cc, tok)
+        lg, cg = m_gpu.decode_step(p_gpu, cg, tok.to(dev))
+        diffs["decode_same_cache"] = max(diffs["decode_same_cache"], float((ls.cpu() - lc).abs().max()))
+        diffs["decode_own_cache"] = max(diffs["decode_own_cache"], float((lg.cpu() - lc).abs().max()))
+        same_tokens &= bool(torch.equal(lg.cpu().argmax(-1), lc.argmax(-1)))
+        tok = lc[:, -1].argmax(-1).to(torch.int32)[:, None]
+    torch.set_num_threads(cpu_threads)
+    for k, tol in CARD_CPU_TOL.items():
+        check(diffs[k] <= tol, f"card vs CPU: {k} logits differ by {diffs[k]} > {tol}")
+    emit("serve_card_vs_cpu", seconds=time.monotonic() - t0, layers=2, batch=2, prompt=128,
+         decode_steps=8, compute="float32", max_abs_logit=float(lc.abs().max()),
+         max_abs_diff=diffs, tol=CARD_CPU_TOL, greedy_tokens_equal=same_tokens)
+    del m_cpu, m_gpu, p_cpu, p_gpu, cc, cg
+
+    # ---- 13. the path: serve SmolLM-135M, without and with faults ------ #
+    kw = dict(requests=REQUESTS, prompt_len=PROMPT_LEN, gen=GEN,
+              snapshot_every=SNAPSHOT_EVERY, seed=SERVE_SEED, device=dev)
+    FA.flash_attention_bhsd.launches = 0
+    DA.decode_attention_bhd.launches = 0
+    torch.cuda.synchronize()
+    clean = serve(cfg, **kw)
+    launches = {"flash_attention_bhsd": FA.flash_attention_bhsd.launches,
+                "decode_attention_bhd": DA.decode_attention_bhd.launches}
+    check(clean["decode_steps"] == GEN - 1, f"fault-free run took {clean['decode_steps']} steps")
+    check(launches["flash_attention_bhsd"] == L,
+          f"flash_attention_bhsd launched {launches['flash_attention_bhsd']} times in one prefill")
+    check(launches["decode_attention_bhd"] == L * clean["decode_steps"],
+          f"decode_attention_bhd launched {launches['decode_attention_bhd']} times in "
+          f"{clean['decode_steps']} decode steps")
+    toks_clean = clean["tokens"]
+    check(tuple(toks_clean.shape) == (REQUESTS, GEN), f"tokens {tuple(toks_clean.shape)}")
+    check(bool(((toks_clean >= 0) & (toks_clean < cfg.vocab_size)).all()), "token out of range")
+
+    mtbf = clean["decode_s"] / 4
+    times = fault_trace(SERVE_SEED, mtbf)[:MAX_FAULTS]
+    FA.flash_attention_bhsd.launches = 0
+    DA.decode_attention_bhd.launches = 0
+    faulted = serve(cfg, fault_times=times, **kw)
+    f_launch = {"flash_attention_bhsd": FA.flash_attention_bhsd.launches,
+                "decode_attention_bhd": DA.decode_attention_bhd.launches}
+    check(faulted["faults"] >= 1, "no fault landed in the faulted run")
+    check(torch.equal(faulted["tokens"], toks_clean),
+          f"faulted run's tokens differ from the fault-free run's in "
+          f"{int((faulted['tokens'] != toks_clean).sum())} places")
+    check(faulted["decode_steps"] == GEN - 1 + faulted["redecoded"], "replayed steps miscounted")
+    check(f_launch["flash_attention_bhsd"] == L
+          and f_launch["decode_attention_bhd"] == L * faulted["decode_steps"],
+          f"faulted run launches {f_launch} for {faulted['decode_steps']} decode steps")
+
+    # the dense-attention path against the kernel path: same weights, same prompts
+    g = torch.Generator(device=dev)
+    g.manual_seed(SERVE_SEED)
+    m_k = LanguageModel(cfg)
+    params = m_k.cast_params(m_k.init(g))
+    m_d = LanguageModel(cfg, RuntimeFlags(attn_impl="dense"))
+    prompts = torch.from_numpy(np.random.default_rng(SERVE_SEED).integers(
+        0, cfg.vocab_size, (REQUESTS, PROMPT_LEN)).astype(np.int32)).to(dev)
+    lk, ck = m_k.prefill(params, prompts, max_seq)
+    check(torch.equal(lk[:, -1].argmax(-1).to(torch.int32).cpu(), toks_clean[:, 0]),
+          "the kernel prefill's greedy tokens are not serve()'s first tokens")
+    ld, cd = m_d.prefill(params, prompts, max_seq)
+    first = lk[:, -1].argmax(-1).to(torch.int32)[:, None]
+    lk2, _ = m_k.decode_step(params, ck, first)
+    ld2, _ = m_d.decode_step(params, cd, first)
+    dense_vs_kernel = {}
+    for what, a, b in (("prefill", ld, lk), ("decode", ld2, lk2)):
+        a, b = a.float(), b.float()
+        scale = float(b.abs().max())
+        d = {"max_abs_diff": float((a - b).abs().max()), "max_abs_logit": scale,
+             "max_over_max_logit": float((a - b).abs().max()) / scale,
+             "rel_l2": float((a - b).norm() / b.norm())}
+        check(d["max_over_max_logit"] <= DENSE_TOL and d["rel_l2"] <= DENSE_TOL,
+              f"dense {what} logits off the kernel run's: {d}")
+        dense_vs_kernel[what] = d
+    del ck, cd, ld, ld2, lk2
+
+    steps_ms = clean["decode_s"] * 1e3 / clean["decode_steps"]
+    emit("serve_path", model=cfg.name, layers=L, params=cfg.param_count(),
+         requests=REQUESTS, prompt_len=PROMPT_LEN, gen=GEN, max_seq=max_seq,
+         kv_cache_bytes=2 * L * REQUESTS * max_seq * KV * hd * 2,
+         prefill_s=clean["prefill_s"], decode_s=clean["decode_s"],
+         decode_ms_per_token=steps_ms, tokens_per_s=REQUESTS * GEN / clean["wall_s"],
+         wall_s=clean["wall_s"], launches=launches,
+         faulted={"mtbf_s": mtbf, "fault_times_s": times, "faults": faulted["faults"],
+                  "redecoded": faulted["redecoded"], "decode_steps": faulted["decode_steps"],
+                  "wall_s": faulted["wall_s"], "decode_s": faulted["decode_s"],
+                  "launches": f_launch, "tokens_equal_fault_free": True},
+         dense_vs_kernel=dense_vs_kernel, dense_tol=DENSE_TOL,
+         nvidia_smi=subprocess.run(
+             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+             capture_output=True, text=True, check=True).stdout.strip())
+
+    # ---- 14. times at the path's shapes -------------------------------- #
+    t0 = time.monotonic()
+    timing = {}
+    # flash: one layer's prefill attention, bf16; input sets cycled so the
+    # calls read three times the L2
+    set_bytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
+    n_sets = math.ceil(3 * L2_BYTES / set_bytes)
+    sets = [flash_inputs(B, S, S, H, KV, hd, torch.bfloat16, 100 + i, dev) for i in range(n_sets)]
+    ms, out = device_ms([lambda x=x: ops.flash_attention(*x, True) for x in sets])
+    pms, pout = device_ms([lambda x=x: FA.attention_ref(*x, True) for x in sets])
+    lms, lout = device_ms([lambda x=x: F.scaled_dot_product_attention(
+        x[0].transpose(1, 2), x[1].transpose(1, 2), x[2].transpose(1, 2),
+        is_causal=True, enable_gqa=True) for x in sets])
+    attn_close(out, pout, "flash_attention_bhsd (timed) against its plain version")
+    attn_close(out, lout.transpose(1, 2), "flash_attention_bhsd (timed) against sdpa")
+    ops_f = 4 * hd * B * H * S * (S + 1) // 2
+    t_ops, t_bytes = ops_f / PEAK_BF16_S * 1e3, set_bytes / PEAK_BYTES_S * 1e3
+    timing["flash_attention_bhsd"] = {
+        "ms": ms, "plain_ms": pms, "library_ms": lms, "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes", "ops": ops_f,
+        "bytes": set_bytes, "input_sets": n_sets,
+        "host_call_ms": eager_ms(lambda: ops.flash_attention(*sets[0], True), 50),
+        "shape": f"q ({B}, {S}, {H}, {hd}), k/v ({B}, {S}, {KV}, {hd}) bf16, causal",
+    }
+    del sets, out, pout, lout
+    # decode: one decode step's 30 launches, each on its layer's cache, at
+    # the middle position of the path's decode (1024 + 63)
+    pos = PROMPT_LEN + GEN // 2 - 1
+    g = torch.Generator(device=dev)
+    g.manual_seed(30)
+    layers = [tuple(torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+                    for shape in ((B, 1, H, hd), (B, max_seq, KV, hd), (B, max_seq, KV, hd)))
+              for _ in range(L)]
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    ms, out = device_ms([lambda x=x: ops.decode_attention(*x, p) for x in layers])
+    pms, pout = device_ms([lambda x=x: DA.attention_ref(x[0][:, 0], x[1], x[2], p) for x in layers])
+    lms, lout = device_ms([lambda x=x: F.scaled_dot_product_attention(
+        x[0].transpose(1, 2), x[1][:, :pos + 1].transpose(1, 2), x[2][:, :pos + 1].transpose(1, 2),
+        enable_gqa=True) for x in layers])
+    attn_close(out, pout.unsqueeze(1), "decode_attention_bhd (timed) against its plain version")
+    attn_close(out, lout.transpose(1, 2), "decode_attention_bhd (timed) against sdpa")
+    d_bytes = 2 * B * (pos + 1) * KV * hd * 2 + 2 * B * H * hd * 2 + 4
+    d_ops = 4 * hd * B * H * (pos + 1)
+    t_ops, t_bytes = d_ops / PEAK_BF16_S * 1e3, d_bytes / PEAK_BYTES_S * 1e3
+    timing["decode_attention_bhd"] = {
+        "ms": ms, "plain_ms": pms, "library_ms": lms, "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops > t_bytes else "bytes", "ops": d_ops,
+        "bytes": d_bytes, "pos": pos, "launch_floor_ms": launch_floor_ms,
+        "host_call_ms": eager_ms(lambda: ops.decode_attention(*layers[0], p), 200),
+        "shape": f"q ({B}, 1, {H}, {hd}), cache ({B}, {max_seq}, {KV}, {hd}) bf16, pos {pos}",
+    }
+    del layers, out, pout, lout
+    # one whole decode step of the path, replayed as a CUDA graph (device
+    # time, no host), against the same step issued eagerly
+    m = LanguageModel(cfg)
+    _, cache = m.prefill(params, prompts, max_seq)
+    tok = torch.zeros((REQUESTS, 1), dtype=torch.int32, device=dev)
+    step_eager = eager_ms(lambda: m.decode_step(params, cache, tok), 20)
+    cache["pos"].fill_(PROMPT_LEN)
+    step_graph, _ = device_ms([lambda: m.decode_step(params, cache, tok)], samples=20)
+    del cache
+    emit("serve_timing", seconds=time.monotonic() - t0, times=timing,
+         decode_step={"graph_ms": step_graph, "eager_ms": step_eager,
+                      "device_idle_share_eager": 1.0 - step_graph / step_eager,
+                      "note": "one decode step of the 30-layer model: replayed as a CUDA "
+                              "graph (device time) and issued eagerly from Python"},
+         note="device_ms: CUDA graph of the calls, median of replays; flash over input "
+              "sets 3x the L2, decode over the 30 layers' caches (214 MB)")
+
+    kernels = []
+    for name, t in timing.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": ATTN_SOURCE.format(name.rsplit("_", 1)[0]),
+            "replaces": ATTN_REPLACES[name], "launches": launches[name],
+            "max_abs_err": err[name], **{k: t[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "host_call_ms": t["host_call_ms"], "shape": t["shape"],
+        })
+    return kernels
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -732,6 +1072,7 @@ def main() -> int:
                             for k in kernels},
          note="estimates: main-path launches x the per-launch times of phase 6")
     kernels += checkpoint_phases(dev)
+    kernels += serving_phases(dev, timing["masked_stream_advance"]["launch_floor_ms"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,1 +1,29 @@
-"""Platform configurations of the paper's experiments."""
+"""Configurations: the paper's platforms (:mod:`.paper`) and the model
+architectures the port builds, resolved by name with :func:`get`."""
+
+from __future__ import annotations
+
+from importlib import import_module
+from typing import List
+
+from .base import ArchConfig, FTSpec, LayerSpec, MoESpec, SSMSpec
+
+__all__ = ["ArchConfig", "FTSpec", "LayerSpec", "MoESpec", "SSMSpec",
+           "ARCH_NAMES", "get"]
+
+#: architectures ported so far (the reference's ``configs`` has more)
+_MODULES = {
+    "smollm-135m": "smollm_135m",
+}
+
+ARCH_NAMES: List[str] = list(_MODULES)
+
+
+def get(name: str) -> ArchConfig:
+    """The published config of architecture ``name`` (``.reduced()`` is
+    its CPU-sized variant)."""
+    try:
+        mod = _MODULES[name]
+    except KeyError:
+        raise KeyError(f"unknown arch {name!r}; the port has: {ARCH_NAMES}") from None
+    return import_module(f".{mod}", __package__).CONFIG

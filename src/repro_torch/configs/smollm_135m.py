@@ -1,22 +1,30 @@
 """SmolLM-135M (llama architecture, tied embeddings;
-hf:HuggingFaceTB/SmolLM-135M): the parameter shapes of the reference's
-``LanguageModel`` for ``smollm-135m``, whose training state the
-checkpoint path carries."""
+hf:HuggingFaceTB/SmolLM-135M): the reference's ``configs/smollm_135m.py``
+config, and the parameter shapes of its ``LanguageModel``, whose training
+state the checkpoint path carries and whose serving path the port runs."""
 
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
-__all__ = ["NUM_LAYERS", "D_MODEL", "NUM_HEADS", "NUM_KV_HEADS", "HEAD_DIM",
-           "D_FF", "VOCAB_SIZE", "param_shapes"]
+from .base import ArchConfig, FTSpec, LayerSpec
 
-NUM_LAYERS = 30
-D_MODEL = 576
-NUM_HEADS = 9
-NUM_KV_HEADS = 3
-HEAD_DIM = D_MODEL // NUM_HEADS
-D_FF = 1536
-VOCAB_SIZE = 49152
+__all__ = ["CONFIG", "param_shapes"]
+
+CONFIG = ArchConfig(
+    name="smollm-135m",
+    family="dense",
+    num_layers=30,
+    d_model=576,
+    num_heads=9,
+    num_kv_heads=3,
+    d_ff=1536,
+    vocab_size=49152,
+    tie_embeddings=True,
+    pattern=(LayerSpec("attn", "dense"),),
+    ft=FTSpec(C=10.0, R=10.0),
+    source="hf:HuggingFaceTB/SmolLM-135M",
+)
 
 
 def param_shapes() -> Dict[str, Tuple[int, ...]]:
@@ -24,17 +32,18 @@ def param_shapes() -> Dict[str, Tuple[int, ...]]:
     keys the checkpoint store flattens it to: one block group stacked over
     the 30 layers (``blocks/0/...``), the tied embedding and the final
     norm."""
-    L, d, hd = NUM_LAYERS, D_MODEL, HEAD_DIM
+    c = CONFIG
+    L, d, hd = c.num_layers, c.d_model, c.resolved_head_dim
     return {
-        "blocks/0/mixer/wk": (L, d, NUM_KV_HEADS, hd),
-        "blocks/0/mixer/wo": (L, NUM_HEADS, hd, d),
-        "blocks/0/mixer/wq": (L, d, NUM_HEADS, hd),
-        "blocks/0/mixer/wv": (L, d, NUM_KV_HEADS, hd),
+        "blocks/0/mixer/wk": (L, d, c.num_kv_heads, hd),
+        "blocks/0/mixer/wo": (L, c.num_heads, hd, d),
+        "blocks/0/mixer/wq": (L, d, c.num_heads, hd),
+        "blocks/0/mixer/wv": (L, d, c.num_kv_heads, hd),
         "blocks/0/mixer_norm": (L, d),
-        "blocks/0/mlp/wi_gate": (L, d, D_FF),
-        "blocks/0/mlp/wi_up": (L, d, D_FF),
-        "blocks/0/mlp/wo": (L, D_FF, d),
+        "blocks/0/mlp/wi_gate": (L, d, c.d_ff),
+        "blocks/0/mlp/wi_up": (L, d, c.d_ff),
+        "blocks/0/mlp/wo": (L, c.d_ff, d),
         "blocks/0/mlp_norm": (L, d),
-        "embed": (VOCAB_SIZE, d),
+        "embed": (c.vocab_size, d),
         "final_norm": (d,),
     }

@@ -1,11 +1,13 @@
 """Trace specification and the counter-based RNG of the device trace mode.
 
 The port's own copy of the parts of the reference ``repro.core.events``
-that the fused paper-grid sweep needs: the Section 2.3 rate identities,
-the inter-arrival law descriptors (family and shape only; the port samples
-them on the device through :mod:`repro_torch.kernels.sim_step`), the NumPy
-Threefry-2x32 / SplitMix64 generators that derive each lane's stream keys
-on the host, and the cell-indexed :class:`TraceSpec`.
+that the fused paper-grid sweep and the server need: the Section
+2.3 rate identities, the inter-arrival law descriptors (sampled on the
+device through :mod:`repro_torch.kernels.sim_step`, and on the host with
+NumPy for the scalar traces), the scalar merged trace
+:func:`make_event_trace` (the server's wall-clock faults), the
+NumPy Threefry-2x32 / SplitMix64 generators that derive each lane's
+stream keys on the host, and the cell-indexed :class:`TraceSpec`.
 
 Stream layout (the reproducibility contract, shared with the reference):
 lane ``i`` owns the 64-bit stream id ``spec.stream[i]``; its per-kind
@@ -18,8 +20,8 @@ here against the reference bit for bit.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
-from typing import Optional, Sequence
+from dataclasses import dataclass, field
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -29,6 +31,10 @@ __all__ = [
     "weibull",
     "lognormal",
     "uniform",
+    "FaultEvent",
+    "PredictionEvent",
+    "EventTrace",
+    "make_event_trace",
     "TraceSpec",
     "make_trace_spec",
     "mu_np",
@@ -112,11 +118,27 @@ LAW_INDEX = {
 class Distribution:
     """A positive inter-arrival law with a given mean, named by its family
     (``kind``) and shape (``param``: Weibull k, lognormal sigma).  The
-    port samples it on the device only (inverse CDF of a counter draw)."""
+    sweep samples it on the device (inverse CDF of a counter draw);
+    :meth:`sample` draws on the host with the reference's NumPy calls, so
+    a scalar trace equals the reference's at the same seed."""
 
     name: str
     kind: str
     param: float = 0.0
+
+    def sample(self, rng: np.random.Generator, mean: float, n: int) -> np.ndarray:
+        if self.kind == "exponential":
+            return rng.exponential(mean, size=n)
+        if self.kind == "weibull":
+            # E[X] = scale * Gamma(1 + 1/k) = mean
+            return mean / math.gamma(1.0 + 1.0 / self.param) * rng.weibull(self.param, size=n)
+        if self.kind == "lognormal":
+            # E[X] = exp(mu + sigma^2 / 2) = mean
+            mu_ln = math.log(mean) - self.param * self.param / 2.0
+            return rng.lognormal(mu_ln, self.param, size=n)
+        if self.kind == "uniform":
+            return rng.uniform(0.0, 2.0 * mean, size=n)  # U(0, 2 mean)
+        raise ValueError(f"no host sampler for {self.name!r}")
 
 
 def exponential() -> Distribution:
@@ -133,6 +155,90 @@ def lognormal(sigma: float = 1.0) -> Distribution:
 
 def uniform() -> Distribution:
     return Distribution("uniform", "uniform")
+
+
+# --------------------------------------------------------------------------- #
+# Scalar merged traces (host)
+# --------------------------------------------------------------------------- #
+@dataclass(order=True)
+class FaultEvent:
+    """A fault at absolute ``time``; ``predicted`` marks true positives."""
+
+    time: float
+    predicted: bool = field(default=False, compare=False)
+
+
+@dataclass(order=True)
+class PredictionEvent:
+    """A prediction with window ``[t0, t0 + window]``, announced ``lead``
+    before ``t0``; ``fault_time`` is None for false positives."""
+
+    t0: float
+    window: float = field(default=0.0, compare=False)
+    fault_time: Optional[float] = field(default=None, compare=False)
+    lead: float = field(default=math.inf, compare=False)
+
+
+@dataclass
+class EventTrace:
+    """A merged trace of faults and predictions over ``[0, horizon]``."""
+
+    horizon: float
+    faults: List[FaultEvent]
+    predictions: List[PredictionEvent]
+
+
+def _arrival_times(rng: np.random.Generator, dist: Distribution, mean: float,
+                   horizon: float) -> np.ndarray:
+    """Cumulative renewal arrivals in (0, horizon], drawn in blocks."""
+    if not math.isfinite(mean):
+        return np.empty(0)
+    times: List[float] = []
+    t = 0.0
+    expected = max(16, int(horizon / mean * 1.5) + 8)
+    while t < horizon:
+        block = np.maximum(dist.sample(rng, mean, expected), 1e-9)
+        cum = t + np.cumsum(block)
+        keep = cum[cum <= horizon]
+        times.extend(keep.tolist())
+        if len(keep) < len(cum):
+            break
+        t = float(cum[-1])
+    return np.asarray(times)
+
+
+def make_event_trace(
+    rng: np.random.Generator,
+    horizon: float,
+    mtbf: float,
+    recall: float,
+    precision: float,
+    window: float = 0.0,
+    lead: float = math.inf,
+    fault_dist: Optional[Distribution] = None,
+    false_pred_dist: Optional[Distribution] = None,
+) -> EventTrace:
+    """The paper's merged trace (Section 5), drawn as the reference's
+    ``make_event_trace`` draws it (single renewal stream): faults of mean
+    ``mtbf``; each predicted with probability ``recall``, its window placed
+    so that the fault is uniform inside it; false predictions of mean
+    ``p mu / (r (1 - p))``; merged and sorted."""
+    fault_dist = fault_dist or exponential()
+    false_pred_dist = false_pred_dist or fault_dist
+    faults = [FaultEvent(float(t)) for t in _arrival_times(rng, fault_dist, mtbf, horizon)]
+    predictions: List[PredictionEvent] = []
+    for f in faults:
+        if rng.random() < recall:
+            f.predicted = True
+            offset = rng.uniform(0.0, window) if window > 0 else 0.0
+            predictions.append(PredictionEvent(
+                t0=max(0.0, f.time - offset), window=window, fault_time=f.time, lead=lead))
+    fp_mean = false_prediction_mtbf(mtbf, recall, precision)
+    for t in _arrival_times(rng, false_pred_dist, fp_mean, horizon):
+        predictions.append(PredictionEvent(t0=float(t), window=window, fault_time=None, lead=lead))
+    faults.sort()
+    predictions.sort()
+    return EventTrace(horizon=horizon, faults=faults, predictions=predictions)
 
 
 # --------------------------------------------------------------------------- #

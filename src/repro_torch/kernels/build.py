@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` compiles into its own shared library with a plain
 C interface (no PyTorch headers), loaded with :mod:`ctypes`; the wrappers
-in :mod:`repro_torch.kernels.sim_step` and
-:mod:`repro_torch.kernels.ckpt_codec` pass device pointers and PyTorch's
+in :mod:`repro_torch.kernels.sim_step`,
+:mod:`repro_torch.kernels.ckpt_codec`,
+:mod:`repro_torch.kernels.flash_attention` and
+:mod:`repro_torch.kernels.decode_attention` pass device pointers and PyTorch's
 current CUDA stream as integers.  Libraries land in ``build/repro_torch/``
 at the repository root, named by a hash of their source and flags, so an
 edited source is rebuilt and an unchanged one is loaded as it is.
@@ -55,6 +57,14 @@ _SIGNATURES = {
     "ckpt_codec": {
         "ckpt_quantize": [_I64, _P, _P, _P, _P, _I32, _P],
         "ckpt_dequantize": [_I64, _P, _P, _P, _P, _I32, _P],
+    },
+    "flash_attention": {
+        # q, k, v, o; dtype, B, H, KV, S, T, hd, causal, vec; 12 strides
+        "flash_attention_fwd": [_P] * 4 + [_I32] * 9 + [_I64] * 12 + [_P],
+    },
+    "decode_attention": {
+        # q, k, v, pos, o; q / kv dtype, B, H, KV, S, hd, vec; 10 strides
+        "decode_attention_fwd": [_P] * 5 + [_I32] * 8 + [_I64] * 10 + [_P],
     },
 }
 

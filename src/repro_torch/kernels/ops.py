@@ -1,9 +1,17 @@
-"""Entry points of the port's checkpoint kernels, with the layout of the
-reference's ``kernels/ops.py`` (``quantize_checkpoint`` /
-``dequantize_checkpoint``): a leaf of any shape in, the codec's
-``(n_blocks, 256)`` int8 codes and ``(n_blocks, 1)`` f32 scales out.  The
-kernels read the leaf flat with its length, so no padded copy is made.
-There is no ``tile`` argument: the Pallas grid has no counterpart here."""
+"""Model-facing entry points of the port's kernels, with the layouts of
+the reference's ``kernels/ops.py``.
+
+* ``flash_attention`` / ``decode_attention``: ``(B, S, H, hd)`` queries
+  over ``(B, T, KV, hd)`` keys and values.  The reference broadcasts the
+  KV heads to the query heads before its kernels; here the kernels read
+  KV head ``h // (H // KV)`` in place, so pre-broadcast (``KV == H``) and
+  grouped K/V both work and no repeated copy is made.  There are no block
+  arguments: the Pallas grid has no counterpart here.
+* ``quantize_checkpoint`` / ``dequantize_checkpoint``: a leaf of any shape
+  in, the codec's ``(n_blocks, 256)`` int8 codes and ``(n_blocks, 1)`` f32
+  scales out.  The kernels read the leaf flat with its length, so no
+  padded copy is made.
+"""
 
 from __future__ import annotations
 
@@ -11,9 +19,27 @@ from typing import Optional, Sequence
 
 import torch
 
+from . import decode_attention as _decode
+from . import flash_attention as _flash
 from .ckpt_codec import dequantize_blocks, quantize_blocks
 
-__all__ = ["quantize_checkpoint", "dequantize_checkpoint"]
+__all__ = ["flash_attention", "decode_attention", "quantize_checkpoint",
+           "dequantize_checkpoint"]
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """q ``(B, S, H, hd)``; k, v ``(B, T, KV, hd)`` -> ``(B, S, H, hd)``
+    (the kernel of ``flash_attention_bhsd``)."""
+    return _flash.attention(q, k, v, causal)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     pos: torch.Tensor) -> torch.Tensor:
+    """q ``(B, 1, H, hd)``; caches k, v ``(B, S_max, KV, hd)``; ``pos``
+    the 0-d int32 index of the newest valid cache row -> ``(B, 1, H, hd)``
+    (the kernel of ``decode_attention_bhd``)."""
+    return _decode.attention(q[:, 0], k, v, pos).unsqueeze(1)
 
 
 def _flat_f32(x: torch.Tensor) -> torch.Tensor:

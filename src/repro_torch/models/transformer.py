@@ -1,0 +1,231 @@
+"""Language model for the dense family: the port of the reference's
+``models/transformer.py`` serving entry points.
+
+* Parameters are a plain tree with the reference's layout and key paths:
+  ``embed``, ``final_norm`` (and ``lm_head`` when untied) and
+  ``blocks/<pattern position>/...``, each block leaf stacked over the
+  repeats (``blocks/0/mixer/wq`` is ``(L, D, H, hd)``), so the checkpoint
+  store saves them under the reference's keys.  The layer loop is a
+  Python ``for`` over the stacked slices.
+* Weights are cast to the compute dtype by :meth:`LanguageModel.cast_params`
+  except the ``_KEEP_F32`` leaves, as the reference's ``_cast_tree`` does;
+  the entry points cast what they are given, which costs nothing for a
+  tree already cast, so a server casts once when it builds the model
+  (:mod:`..launch.serve`) where the reference casts on every call.  The
+  numbers are the same.
+* The serving cache is the reference's: ``pos`` (0-d int32) and per
+  pattern position ``k`` / ``v`` of shape ``(L, B, max_seq, KV, hd)`` in
+  bf16.  :meth:`LanguageModel.decode_step` updates it **in place** (the
+  new K/V rows and ``pos``), where the reference returns a new tree; a
+  caller that keeps an old state must clone it.
+
+Only the dense family (``attn`` mixer, ``dense`` MLP, no frontend) is
+built; the other families are queue 1.1 of ``ROADMAP.md``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..configs.base import ArchConfig, LayerSpec
+from .layers import (
+    RuntimeFlags,
+    attention,
+    attention_decode,
+    init_attention,
+    init_mlp,
+    rms_norm,
+    rope_table,
+    swiglu_mlp,
+)
+
+__all__ = ["LanguageModel"]
+
+#: parameters kept in float32 inside the compute graph (the reference's
+#: set: norm scales, SSM decay / state params, router logits); everything
+#: else is cast to the compute dtype
+_KEEP_F32 = {
+    "mixer_norm",
+    "mlp_norm",
+    "router",
+    "A_log",
+    "D_skip",
+    "dt_b",
+    "w0",
+    "u",
+    "ln",
+    "mu",
+}
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+CACHE_DTYPE = torch.bfloat16
+
+
+def _cast_tree(d: dict, dtype: torch.dtype) -> dict:
+    out = {}
+    for k, v in d.items():
+        if isinstance(v, dict):
+            out[k] = _cast_tree(v, dtype)
+        elif k in _KEEP_F32 or not v.is_floating_point():
+            out[k] = v
+        else:
+            out[k] = v.to(dtype)
+    return out
+
+
+def _layer(tree: dict, r: int) -> dict:
+    """Layer ``r``'s slice of a stacked block tree (views)."""
+    return {k: _layer(v, r) if isinstance(v, dict) else v[r] for k, v in tree.items()}
+
+
+class LanguageModel(nn.Module):
+    """The dense-family LM.  Parameters and caches are plain trees passed
+    to the entry points, as in the reference."""
+
+    def __init__(self, cfg: ArchConfig, flags: Optional[RuntimeFlags] = None):
+        super().__init__()
+        for spec in cfg.pattern:
+            if spec != LayerSpec("attn", "dense"):
+                raise NotImplementedError(
+                    f"{cfg.name}: {spec} blocks are not ported yet "
+                    "(ROADMAP.md, queue 1.1); the port builds attn + dense MLP")
+        if cfg.frontend:
+            raise NotImplementedError(f"{cfg.name}: modality frontends are not ported")
+        self.cfg = cfg
+        self.flags = flags if flags is not None else RuntimeFlags()
+        if self.flags.remat_policy != "none":
+            raise NotImplementedError("remat_policy: the port has no training path yet")
+        self.param_dtype = _DTYPES[cfg.param_dtype]
+
+    # ------------------------------------------------------------------ #
+    # Parameters
+    # ------------------------------------------------------------------ #
+    def init(self, generator: torch.Generator) -> dict:
+        """Random parameters on the generator's device, the reference's
+        initialisation laws (different numbers: torch's generator is not
+        JAX's)."""
+        cfg, dt = self.cfg, self.param_dtype
+        dev = generator.device
+        D, R = cfg.d_model, cfg.n_repeats
+        params = {
+            "embed": (torch.randn((cfg.vocab_size, D), generator=generator, device=dev)
+                      * 0.02).to(dt),
+            "final_norm": torch.ones(D, device=dev),
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = (torch.randn((D, cfg.vocab_size), generator=generator,
+                                             device=dev) / math.sqrt(D)).to(dt)
+        blocks = []
+        for _ in cfg.pattern:
+            blocks.append({
+                "mixer": init_attention(generator, cfg, dt, lead=(R,)),
+                "mixer_norm": torch.ones((R, D), device=dev),
+                "mlp": init_mlp(generator, D, cfg.d_ff, dt, lead=(R,)),
+                "mlp_norm": torch.ones((R, D), device=dev),
+            })
+        params["blocks"] = tuple(blocks)
+        return params
+
+    def cast_params(self, params: dict) -> dict:
+        """The tree as the compute graph uses it: every leaf but the
+        ``_KEEP_F32`` ones (and ``final_norm``, which ``rms_norm`` reads in
+        f32) in the compute dtype.  Leaves already in it are not copied."""
+        cd = self.flags.compute_dtype
+        out = {k: v for k, v in params.items() if k != "blocks"}
+        out["embed"] = params["embed"].to(cd)
+        if "lm_head" in params:
+            out["lm_head"] = params["lm_head"].to(cd)
+        out["blocks"] = tuple(_cast_tree(b, cd) for b in params["blocks"])
+        return out
+
+    # ------------------------------------------------------------------ #
+    # Caches
+    # ------------------------------------------------------------------ #
+    def cache_struct(self, batch: int, max_seq: int) -> dict:
+        """The serving cache's ``(shape, dtype)`` tree."""
+        cfg = self.cfg
+        kv = ((cfg.n_repeats, batch, max_seq, cfg.num_kv_heads, cfg.resolved_head_dim),
+              CACHE_DTYPE)
+        return {"pos": ((), torch.int32),
+                "blocks": tuple({"k": kv, "v": kv} for _ in cfg.pattern)}
+
+    def init_cache(self, batch: int, max_seq: int, device=None) -> dict:
+        st = self.cache_struct(batch, max_seq)
+        return {
+            "pos": torch.zeros(st["pos"][0], dtype=st["pos"][1], device=device),
+            "blocks": tuple(
+                {k: torch.zeros(s, dtype=dt, device=device) for k, (s, dt) in b.items()}
+                for b in st["blocks"]
+            ),
+        }
+
+    # ------------------------------------------------------------------ #
+    # Blocks
+    # ------------------------------------------------------------------ #
+    def _apply_block(self, bp: dict, x, sin, cos, mode: str, cache, pos):
+        """One block; in prefill, ``cache`` is the layer's ``{"k", "v"}``
+        ``(B, max_seq, KV, hd)`` buffers, filled at ``[:, :S]``."""
+        cfg, flags = self.cfg, self.flags
+        h = rms_norm(x, bp["mixer_norm"], cfg.norm_eps)
+        if mode == "decode":
+            y, _ = attention_decode(bp["mixer"], h, cfg, pos, (cache["k"], cache["v"]), flags)
+        else:
+            y, (k_raw, v_raw) = attention(bp["mixer"], h, cfg, sin, cos, flags)
+            S = x.shape[1]
+            cache["k"][:, :S] = k_raw.to(CACHE_DTYPE)
+            cache["v"][:, :S] = v_raw.to(CACHE_DTYPE)
+        x = x + y
+        h2 = rms_norm(x, bp["mlp_norm"], cfg.norm_eps)
+        return x + swiglu_mlp(bp["mlp"], h2)
+
+    def _run_layers(self, params: dict, x, sin, cos, mode: str, cache: dict, pos):
+        """The repeated pattern, layer by layer, over the stacked slices."""
+        for r in range(self.cfg.n_repeats):
+            for pi in range(len(self.cfg.pattern)):
+                cb = cache["blocks"][pi]
+                x = self._apply_block(_layer(params["blocks"][pi], r), x, sin, cos, mode,
+                                      {"k": cb["k"][r], "v": cb["v"][r]}, pos)
+        return x
+
+    # ------------------------------------------------------------------ #
+    # Entry points
+    # ------------------------------------------------------------------ #
+    def _embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+        return F.embedding(tokens, params["embed"]).to(self.flags.compute_dtype)
+
+    def _head(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        w = params.get("lm_head")
+        if w is None:
+            w = params["embed"].T
+        return torch.einsum("bsd,dv->bsv", x, w.to(x.dtype))
+
+    def prefill(self, params: dict, tokens: torch.Tensor, max_seq: int):
+        """tokens ``(B, S)`` int32 -> (last-token logits ``(B, 1, V)``, the
+        cache, its first ``S`` rows filled and ``pos = S``)."""
+        p = self.cast_params(params)
+        x = self._embed(p, tokens)
+        B, S = x.shape[0], x.shape[1]
+        positions = torch.arange(S, device=x.device)
+        sin, cos = rope_table(positions, self.cfg.resolved_head_dim, self.cfg.rope_theta)
+        cache = self.init_cache(B, max_seq, x.device)
+        x = self._run_layers(p, x, sin, cos, "prefill", cache, None)
+        logits = self._head(p, x[:, -1:, :])
+        cache["pos"].fill_(S)
+        return logits, cache
+
+    def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor):
+        """One new token per sequence, tokens ``(B, 1)`` int32 ->
+        (logits ``(B, 1, V)``, ``cache``), the cache updated in place."""
+        p = self.cast_params(params)
+        pos = cache["pos"]
+        x = self._embed(p, tokens)
+        x = self._run_layers(p, x, None, None, "decode", cache, pos)
+        logits = self._head(p, x)
+        pos.add_(1)
+        return logits, cache
