@@ -31,6 +31,18 @@ flash launches a prefill and 30 decode launches a decode step, and a
 dense-attention run held to the kernel run; and the kernels' times beside
 their bounds, plain versions and ``scaled_dot_product_attention``.
 
+Then the serving path of RWKV6-7B (phases 15-18): the WKV6 kernel
+(``wkv6_bhsd``) against its plain version at the path's prefill and
+decode shapes and on edge cases (final state bit-equal, y within a stated
+tolerance); the RWKV model on the card against the port on the CPU (full
+width, 2 layers, f32); ``repro_torch.launch.serve`` on ``rwkv6-7b`` at
+full width and depth in bf16 (8 requests of 1024 prompt tokens, 128
+generated), once without faults and once with wall-clock faults, whose
+tokens must equal the fault-free ones, with 32 kernel launches a prefill
+and 32 a decode step, one decode step replayed as a CUDA graph against
+the same step issued eagerly; and the kernel's times at both shapes
+beside its bound and its plain version.
+
 Every phase prints one JSON line; any failure exits non-zero before the
 last line, which is ``{"ok": true, "device": {...}}``.  Needs one CUDA
 card; imports nothing of JAX.
@@ -121,6 +133,26 @@ ATTN_REPLACES = {
     "flash_attention_bhsd": "src/repro/kernels/flash_attention.py:84",
     "decode_attention_bhd": "src/repro/kernels/decode_attention.py:65",
 }
+
+#: the RWKV6 serving path: RWKV6-7B at full width and depth, bf16 compute,
+#: the same requests as the SmolLM path
+WKV_SOURCE = "src/repro_torch/kernels/csrc/rwkv6.cu"
+WKV_REPLACES = "src/repro/kernels/rwkv6.py:68"
+#: the WKV kernel's y against its plain version's, as a fraction of
+#: max|y| (an f32 emulation of the kernel's summation order on the CPU
+#: measured up to 2.6e-7 on these input laws); the final state must be
+#: bit-equal
+WKV_Y_TOL = 1e-5
+#: f32 operations per token and head of the recurrence: the state update
+#: (2 products and a sum per entry), r . S (a product and a sum per
+#: entry), the bonus dot r . (u * k) and c * v + y (5 per channel)
+WKV_OPS_HD2, WKV_OPS_HD = 5, 5
+#: the RWKV model on the card against the port on the CPU, f32 compute,
+#: full width, 2 layers.  Measured on the CPU with the port at one thread
+#: against eight (another summation order, as the card's): prefill logits
+#: 1.9e-5 apart, free-running decode up to 3.9e-3 (22 flipped bf16
+#: roundings of ``last`` / ``cm_last`` over 8 steps); this is 5x that.
+RWKV_CARD_CPU_TOL = {"prefill": 1e-4, "decode_same_cache": 1e-4, "decode_own_cache": 2e-2}
 
 
 class SmokeFailure(RuntimeError):
@@ -867,6 +899,331 @@ def serving_phases(dev, launch_floor_ms: float) -> list:
     return kernels
 
 
+# --------------------------------------------------------------------------- #
+# The RWKV6 serving path
+# --------------------------------------------------------------------------- #
+def wkv_close(got, want, what: str) -> float:
+    """Hold the WKV kernel's ``(y, sT)`` to its plain version's: the final
+    state bit for bit, y within WKV_Y_TOL of max|y|.  Returns y's largest
+    absolute error."""
+    import torch
+
+    (y, s), (yw, sw) = got, want
+    torch.cuda.synchronize()
+    check(y.shape == yw.shape and s.shape == sw.shape and y.dtype == yw.dtype == torch.float32,
+          f"{what}: y {tuple(y.shape)} / state {tuple(s.shape)} against {tuple(yw.shape)} / "
+          f"{tuple(sw.shape)}")
+    check(bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all()),
+          f"{what}: non-finite output")
+    differ = int((s.view(torch.int32) != sw.view(torch.int32)).sum())
+    check(differ == 0, f"{what}: {differ} state entries differ from the plain version's "
+          f"(max {float((s - sw).abs().max())})")
+    err, scale = float((y - yw).abs().max()), float(yw.abs().max())
+    check(err <= WKV_Y_TOL * scale, f"{what}: y off by {err} (max|y| {scale})")
+    return err
+
+
+def wkv_bound(B: int, S: int, H: int, hd: int, with_s0: bool) -> dict:
+    """Least time of one launch: r, k, v, w read and y written (f32), u
+    read per head, the final state written and, given one, the initial
+    state read; against the f32 operations of the recurrence."""
+    nbytes = 4 * (5 * B * S * H * hd + H * hd + (2 if with_s0 else 1) * B * H * hd * hd)
+    nops = B * S * H * (WKV_OPS_HD2 * hd * hd + WKV_OPS_HD * hd)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, nops / PEAK_F32_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else
+            "operations", "bytes": nbytes, "ops": nops, "bytes_ms": t_bytes, "ops_ms": t_ops}
+
+
+def rwkv_products_ms(params, cfg, rows: int, head_rows: int, dev) -> float:
+    """Device time of the matrix products of one pass of the RWKV model
+    over ``rows`` tokens (the LM head over ``head_rows``): the same bf16
+    weights, random activations of the products' shapes, every product
+    into a buffer of its shape, all of them replayed as one CUDA graph."""
+    import torch
+
+    D, lora = cfg.d_model, cfg.ssm.decay_lora
+    g = torch.Generator(device=dev)
+    g.manual_seed(60)
+
+    def act(n):
+        return torch.randn((rows, n), generator=g, device=dev).to(torch.bfloat16)
+
+    xs = {D: act(D), cfg.d_ff: act(cfg.d_ff), lora: act(lora)}
+    outs = {}
+
+    def product(x, w):
+        o = outs.setdefault((x.shape[0], w.shape[1]), torch.empty(
+            (x.shape[0], w.shape[1]), dtype=torch.bfloat16, device=dev))
+        return lambda: torch.mm(x, w, out=o)
+
+    calls = []
+    for blk in params["blocks"]:
+        mix, mlp = blk["mixer"], blk["mlp"]
+        for r in range(cfg.n_repeats):
+            mats = [mix[n][r].reshape(D, -1) for n in ("wr", "wk", "wv", "wg")]
+            mats += [mix["w_lora_a"][r], mix["w_lora_b"][r].reshape(lora, -1),
+                     mix["wo"][r].reshape(-1, D), mlp["wk"][r], mlp["wv"][r], mlp["wr"][r]]
+            calls += [product(xs[w.shape[0]], w) for w in mats]
+    calls.append(product(xs[D][:head_rows], params["lm_head"]))
+    ms, _ = device_ms(calls)
+    return ms * len(calls)
+
+
+def rwkv_phases(dev) -> list:
+    """Phases 15-18: the WKV kernel against its plain version, the RWKV
+    model on the card against the port on the CPU, the RWKV6-7B serving
+    path, and the kernel's times.  Returns the kernel's entry of the
+    ``kernels`` line."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.store import flatten_with_keys, map_with_keys
+    from repro_torch.configs import get
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rwkv6 as W
+    from repro_torch.launch.serve import fault_trace, serve
+    from repro_torch.models import LanguageModel, RuntimeFlags
+
+    cfg = get("rwkv6-7b")
+    L, H, hd = cfg.num_layers, cfg.rwkv_heads, cfg.ssm.rwkv_head_dim
+    B, S = REQUESTS, PROMPT_LEN
+    max_seq = PROMPT_LEN + GEN + 8
+
+    # ---- 15. the kernel against its plain version ---------------------- #
+    # the path's prefill (zero initial state) and decode shapes, then the
+    # other head dims, one (batch, head) pair over a long sequence, decays
+    # near 0 and 1, the reference's (BH, S, hd) layout, strided views
+    t0 = time.monotonic()
+    cases, y_err = [], 0.0
+
+    def case(name, got, want, **info):
+        nonlocal y_err
+        e = wkv_close(got, want, f"wkv6_bhsd/{name}")
+        y_err = max(y_err, e)
+        cases.append({"case": name, "y_max_abs_err": e, "y_max_abs": float(want[0].abs().max()),
+                      "state_bit_equal": True, **info})
+
+    for name, b, s_, h, d, w_range, zero_s0 in (
+        ("prefill", B, S, H, hd, (0.001, 0.9999), True),
+        ("decode", B, 1, H, hd, (0.001, 0.9999), False),
+        ("hd16", 2, 333, 3, 16, (0.001, 0.9999), False),
+        ("hd32", 2, 1000, 3, 32, (0.001, 0.9999), False),
+        ("hd128", 2, 333, 3, 128, (0.001, 0.9999), False),
+        ("bh1_s2000", 1, 2000, 1, hd, (0.001, 0.9999), False),
+        ("w_near_0", 2, 600, 4, hd, (1e-6, 1e-3), False),
+        ("w_near_1", 2, 600, 4, hd, (0.999, 0.9999), False),
+    ):
+        x = W.sample_wkv_inputs(b, s_, h, d, seed=len(cases), device=dev, w_range=w_range)
+        if zero_s0:
+            x = x[:5]
+        case(name, ops.wkv6(*x), W.wkv_ref(*x), shape=[b, s_, h, d], w_range=list(w_range),
+             s0=not zero_s0)
+    r, k, v, w, u, s0 = W.sample_wkv_inputs(B, 1, H, hd, seed=20, device=dev)
+    want = W.wkv_ref(r, k, v, w, u, s0)
+    state = s0.clone()  # the serving cache's decode: the state written in place
+    got = ops.wkv6(r, k, v, w, u, state, state_out=state)
+    check(got[1] is state, "state_out was not the returned state")
+    case("decode_in_place", got, want, shape=[B, 1, H, hd])
+    r, k, v, w, u, s0 = W.sample_wkv_inputs(4, 300, 3, hd, seed=21, device=dev)
+    flat = [t.transpose(1, 2).reshape(12, 300, hd).contiguous() for t in (r, k, v, w)]
+    ub = u.expand(4, 3, hd).reshape(12, hd).contiguous()
+    case("bhsd_layout", W.wkv6_bhsd(*flat, ub, s0.reshape(12, hd, hd)),
+         W.wkv6_ref(*flat, ub, s0.reshape(12, hd, hd)), shape=[12, 300, hd])
+    big = torch.zeros((4, 4, 300, 5, hd), device=dev)
+    for i, t in enumerate((r, k, v, w)):
+        big[i, :, :, 2:] = t
+    case("strided_views", ops.wkv6(*(big[i, :, :, 2:] for i in range(4)), u, s0),
+         W.wkv_ref(r, k, v, w, u, s0), shape=[4, 300, 3, hd])
+    del big, flat, x
+    emit("wkv_check", seconds=time.monotonic() - t0, cases=cases, y_tol_of_max=WKV_Y_TOL,
+         state="bit-equal to the plain version in every case")
+
+    # ---- 16. the RWKV model on the card against the port on the CPU ---- #
+    # (full width, 2 layers, f32; the bonus u, the decays w0, the token-shift
+    # lerps mu and the group-norm scale ln drawn from a seed, with the CPU
+    # tests' laws, since the init leaves them zero or constant; the CPU side
+    # on one thread)
+    t0 = time.monotonic()
+    small = dataclasses.replace(cfg, num_layers=2)
+    flags = RuntimeFlags(compute_dtype=torch.float32)
+    m_cpu, m_gpu = LanguageModel(small, flags), LanguageModel(small, flags)
+    p_cpu = m_cpu.init(torch.Generator().manual_seed(SERVE_SEED))
+    g = torch.Generator().manual_seed(SERVE_SEED + 1)
+    mix, cmix = p_cpu["blocks"][0]["mixer"], p_cpu["blocks"][0]["mlp"]
+    mix["u"] = torch.randn(mix["u"].shape, generator=g) * 0.5
+    mix["w0"] = torch.rand(mix["w0"].shape, generator=g) * 6 - 5
+    mix["mu"] = torch.rand(mix["mu"].shape, generator=g)
+    mix["ln"] = 1 + 0.1 * torch.randn(mix["ln"].shape, generator=g)
+    cmix["mu"] = torch.rand(cmix["mu"].shape, generator=g)
+    p_gpu = map_with_keys(lambda _, x: x.to(dev), p_cpu)
+    cpu_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    toks = torch.from_numpy(np.random.default_rng(SERVE_SEED).integers(
+        0, small.vocab_size, (2, 128)).astype(np.int32))
+    lc, cc = m_cpu.prefill(p_cpu, toks, 128 + 16)
+    lg, cg = m_gpu.prefill(p_gpu, toks.to(dev), 128 + 16)
+    diffs = {"prefill": float((lg.cpu() - lc).abs().max()), "decode_same_cache": 0.0,
+             "decode_own_cache": 0.0}
+    state_diff = float((cg["blocks"][0]["state"].cpu() - cc["blocks"][0]["state"]).abs().max())
+    same_tokens = True
+    tok = lc[:, -1].argmax(-1).to(torch.int32)[:, None]
+    for _ in range(8):
+        synced = map_with_keys(lambda _, x: x.to(dev, copy=True), cc)
+        ls, _ = m_gpu.decode_step(p_gpu, synced, tok.to(dev))
+        lc, cc = m_cpu.decode_step(p_cpu, cc, tok)
+        lg, cg = m_gpu.decode_step(p_gpu, cg, tok.to(dev))
+        diffs["decode_same_cache"] = max(diffs["decode_same_cache"],
+                                         float((ls.cpu() - lc).abs().max()))
+        diffs["decode_own_cache"] = max(diffs["decode_own_cache"],
+                                        float((lg.cpu() - lc).abs().max()))
+        same_tokens &= bool(torch.equal(lg.cpu().argmax(-1), lc.argmax(-1)))
+        tok = lc[:, -1].argmax(-1).to(torch.int32)[:, None]
+    torch.set_num_threads(cpu_threads)
+    check(bool(torch.isfinite(lg).all()), "card logits not finite")
+    for k_, tol in RWKV_CARD_CPU_TOL.items():
+        check(diffs[k_] <= tol, f"RWKV card vs CPU: {k_} logits differ by {diffs[k_]} > {tol}")
+    emit("rwkv_card_vs_cpu", seconds=time.monotonic() - t0, layers=2, d_model=small.d_model,
+         heads=H, head_dim=hd, d_ff=small.d_ff, vocab=small.vocab_size, batch=2, prompt=128,
+         decode_steps=8, compute="float32", max_abs_logit=float(lc.abs().max()),
+         max_abs_diff=diffs, prefill_state_max_abs_diff=state_diff, tol=RWKV_CARD_CPU_TOL,
+         greedy_tokens_equal=same_tokens)
+    del m_cpu, m_gpu, p_cpu, p_gpu, cc, cg, synced, mix, cmix
+
+    # ---- 17. the path: serve RWKV6-7B, without and with faults --------- #
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kw = dict(requests=REQUESTS, prompt_len=PROMPT_LEN, gen=GEN,
+              snapshot_every=SNAPSHOT_EVERY, seed=SERVE_SEED, device=dev)
+    W.wkv6_bhsd.launches = 0
+    torch.cuda.synchronize()
+    clean = serve(cfg, **kw)
+    n_clean = W.wkv6_bhsd.launches
+    check(clean["decode_steps"] == GEN - 1, f"fault-free run took {clean['decode_steps']} steps")
+    check(n_clean == L * (1 + clean["decode_steps"]),
+          f"wkv6_bhsd launched {n_clean} times for one prefill and {clean['decode_steps']} "
+          f"decode steps of {L} layers")
+    toks_clean = clean["tokens"]
+    check(tuple(toks_clean.shape) == (REQUESTS, GEN), f"tokens {tuple(toks_clean.shape)}")
+    check(bool(((toks_clean >= 0) & (toks_clean < cfg.vocab_size)).all()), "token out of range")
+
+    mtbf = clean["decode_s"] / 4
+    times = fault_trace(SERVE_SEED, mtbf)[:MAX_FAULTS]
+    W.wkv6_bhsd.launches = 0
+    faulted = serve(cfg, fault_times=times, **kw)
+    n_faulted = W.wkv6_bhsd.launches
+    check(faulted["faults"] >= 1, "no fault landed in the faulted run")
+    check(torch.equal(faulted["tokens"], toks_clean),
+          f"faulted run's tokens differ from the fault-free run's in "
+          f"{int((faulted['tokens'] != toks_clean).sum())} places")
+    check(faulted["decode_steps"] == GEN - 1 + faulted["redecoded"], "replayed steps miscounted")
+    check(n_faulted == L * (1 + faulted["decode_steps"]),
+          f"faulted run launched wkv6_bhsd {n_faulted} times for {faulted['decode_steps']} steps")
+    serve_peak = torch.cuda.max_memory_allocated()
+
+    # one prefill and one decode step of the same model, counted apart;
+    # then one decode step replayed as a CUDA graph against the same step
+    # issued eagerly
+    g = torch.Generator(device=dev)
+    g.manual_seed(SERVE_SEED)
+    m = LanguageModel(cfg)
+    params = m.cast_params(m.init(g))
+    prompts = torch.from_numpy(np.random.default_rng(SERVE_SEED).integers(
+        0, cfg.vocab_size, (REQUESTS, PROMPT_LEN)).astype(np.int32)).to(dev)
+    W.wkv6_bhsd.launches = 0
+    logits, cache = m.prefill(params, prompts, max_seq)
+    torch.cuda.synchronize()
+    n_prefill = W.wkv6_bhsd.launches
+    check(n_prefill == L, f"one prefill launched wkv6_bhsd {n_prefill} times")
+    check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
+    tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    check(torch.equal(tok[:, 0].cpu(), toks_clean[:, 0]),
+          "the model's prefill greedy tokens are not serve()'s first tokens")
+    W.wkv6_bhsd.launches = 0
+    logits, cache = m.decode_step(params, cache, tok)
+    torch.cuda.synchronize()
+    n_step = W.wkv6_bhsd.launches
+    check(n_step == L, f"one decode step launched wkv6_bhsd {n_step} times")
+    check(torch.equal(logits[:, -1].argmax(-1).to(torch.int32).cpu(), toks_clean[:, 1]),
+          "the model's first decode step's tokens are not serve()'s second tokens")
+    step_eager = eager_ms(lambda: m.decode_step(params, cache, tok), 20)
+    step_graph, _ = device_ms([lambda: m.decode_step(params, cache, tok)], samples=20)
+    # the step's and the prefill's matrix products alone (the rest of the
+    # device time is the WKV launches and the elementwise glue)
+    products = {"decode_step_ms": rwkv_products_ms(params, cfg, REQUESTS, REQUESTS, dev),
+                "prefill_ms": rwkv_products_ms(params, cfg, REQUESTS * PROMPT_LEN, REQUESTS, dev)}
+    weight_bytes = sum(x.numel() * x.element_size()
+                       for key, x in flatten_with_keys(params).items() if key != "embed")
+    state_bytes = sum(b["state"].numel() * 4 for b in cache["blocks"])
+    floor_ms = (weight_bytes + 2 * state_bytes) / PEAK_BYTES_S * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    del params, cache, logits, m
+    torch.cuda.empty_cache()
+    steps_ms = clean["decode_s"] * 1e3 / clean["decode_steps"]
+    emit("rwkv_serve", model=cfg.name, layers=L, params=cfg.param_count(), compute="bfloat16",
+         requests=REQUESTS, prompt_len=PROMPT_LEN, gen=GEN, snapshot_every=SNAPSHOT_EVERY,
+         prefill_s=clean["prefill_s"], decode_s=clean["decode_s"],
+         decode_ms_per_token=steps_ms, tokens_per_s=REQUESTS * GEN / clean["wall_s"],
+         wall_s=clean["wall_s"],
+         launches={"serve": n_clean, "prefill": n_prefill, "decode_step": n_step},
+         faulted={"mtbf_s": mtbf, "fault_times_s": times, "faults": faulted["faults"],
+                  "redecoded": faulted["redecoded"], "decode_steps": faulted["decode_steps"],
+                  "wall_s": faulted["wall_s"], "decode_s": faulted["decode_s"],
+                  "launches": n_faulted, "tokens_equal_fault_free": True},
+         decode_step={"graph_ms": step_graph, "eager_ms": step_eager,
+                      "device_idle_share_eager": 1.0 - step_graph / step_eager,
+                      "weight_bytes": weight_bytes, "state_cache_bytes": state_bytes,
+                      "floor_ms": floor_ms, "products_ms": products["decode_step_ms"],
+                      "note": f"one decode step of the {L}-layer model: replayed as a CUDA "
+                              "graph (device time) and issued eagerly from Python; the floor "
+                              "reads the weights (all but the embedding table) once and reads "
+                              "and writes the state cache; products_ms: its matrix "
+                              "products alone, replayed as a CUDA graph"},
+         prefill_products_ms=products["prefill_ms"],
+         max_memory_allocated_bytes={"serve": serve_peak, "phase": peak},
+         nvidia_smi=subprocess.run(
+             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+             capture_output=True, text=True, check=True).stdout.strip())
+
+    # ---- 18. times at the path's shapes -------------------------------- #
+    # prefill: one layer's launch, zero initial state (537 MB of inputs, 10x
+    # the L2); decode: one decode step's 32 launches, each on its own
+    # layer's state (268 MB in all), the final state into another buffer so
+    # every replay does the same work
+    t0 = time.monotonic()
+    r, k, v, w, u = W.sample_wkv_inputs(B, S, H, hd, seed=40, device=dev)[:5]
+    ms, out = device_ms([lambda: ops.wkv6(r, k, v, w, u)])
+    pms, pout = device_ms([lambda: W.wkv_ref(r, k, v, w, u)])
+    wkv_close(out, pout, "wkv6_bhsd (timed prefill) against its plain version")
+    prefill_t = {"ms": ms, "plain_ms": pms, **wkv_bound(B, S, H, hd, with_s0=False)}
+    del r, k, v, w, out, pout
+    layers = [W.sample_wkv_inputs(B, 1, H, hd, seed=50 + i, device=dev) for i in range(L)]
+    outs = [torch.empty_like(x[5]) for x in layers]
+    ms, out = device_ms([lambda x=x, o=o: ops.wkv6(*x, state_out=o)
+                         for x, o in zip(layers, outs)])
+    pms, pout = device_ms([lambda x=x: W.wkv_ref(*x) for x in layers])
+    wkv_close(out, pout, "wkv6_bhsd (timed decode) against its plain version")
+    decode_t = {"ms": ms, "plain_ms": pms, **wkv_bound(B, 1, H, hd, with_s0=True),
+                "host_call_ms": eager_ms(lambda: ops.wkv6(*layers[0], state_out=outs[0]), 200)}
+    del layers, outs, out, pout
+    emit("wkv_timing", seconds=time.monotonic() - t0, prefill=prefill_t, decode=decode_t,
+         launches_on_path={"prefill": n_prefill, "decode_step": n_step, "serve": n_clean},
+         library_ms=None,
+         note="device_ms: CUDA graph of the calls, median of replays; no single PyTorch "
+              "call computes WKV6")
+    return [{
+        "name": "wkv6_bhsd", "route": "cuda", "source": WKV_SOURCE, "replaces": WKV_REPLACES,
+        "launches": n_clean, "max_abs_err": y_err,
+        **{k_: prefill_t[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "decode_ms": decode_t["ms"], "decode_plain_ms": decode_t["plain_ms"],
+        "decode_bound_ms": decode_t["bound_ms"], "decode_bound_by": decode_t["bound_by"],
+        "host_call_ms": decode_t["host_call_ms"],
+        "shape": f"r/k/v/w ({B}, {S}, {H}, {hd}) f32, zero initial state; decode "
+                 f"({B}, 1, {H}, {hd}) over a ({B}, {H}, {hd}, {hd}) state",
+    }]
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -1073,6 +1430,8 @@ def main() -> int:
          note="estimates: main-path launches x the per-launch times of phase 6")
     kernels += checkpoint_phases(dev)
     kernels += serving_phases(dev, timing["masked_stream_advance"]["launch_floor_ms"])
+    torch.cuda.empty_cache()  # the 7B path needs the card's memory
+    kernels += rwkv_phases(dev)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,6 +14,7 @@ __all__ = ["ArchConfig", "FTSpec", "LayerSpec", "MoESpec", "SSMSpec",
 #: architectures ported so far (the reference's ``configs`` has more)
 _MODULES = {
     "smollm-135m": "smollm_135m",
+    "rwkv6-7b": "rwkv6_7b",
 }
 
 ARCH_NAMES: List[str] = list(_MODULES)

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` compiles into its own shared library with a plain
 C interface (no PyTorch headers), loaded with :mod:`ctypes`; the wrappers
 in :mod:`repro_torch.kernels.sim_step`,
 :mod:`repro_torch.kernels.ckpt_codec`,
-:mod:`repro_torch.kernels.flash_attention` and
-:mod:`repro_torch.kernels.decode_attention` pass device pointers and PyTorch's
+:mod:`repro_torch.kernels.flash_attention`,
+:mod:`repro_torch.kernels.decode_attention` and
+:mod:`repro_torch.kernels.rwkv6` pass device pointers and PyTorch's
 current CUDA stream as integers.  Libraries land in ``build/repro_torch/``
 at the repository root, named by a hash of their source and flags, so an
 edited source is rebuilt and an unchanged one is loaded as it is.
@@ -65,6 +66,10 @@ _SIGNATURES = {
     "decode_attention": {
         # q, k, v, pos, o; q / kv dtype, B, H, KV, S, hd, vec; 10 strides
         "decode_attention_fwd": [_P] * 5 + [_I32] * 8 + [_I64] * 10 + [_P],
+    },
+    "rwkv6": {
+        # r, k, v, w, u, s0, y, sT; B, S, H, hd; 23 strides
+        "wkv6_fwd": [_P] * 8 + [_I32] * 4 + [_I64] * 23 + [_P],
     },
 }
 

@@ -7,6 +7,11 @@ the reference's ``kernels/ops.py``.
   KV head ``h // (H // KV)`` in place, so pre-broadcast (``KV == H``) and
   grouped K/V both work and no repeated copy is made.  There are no block
   arguments: the Pallas grid has no counterpart here.
+* ``wkv6``: the RWKV-6 recurrence on ``(B, S, H, hd)`` r, k, v, w with
+  ``u`` ``(H, hd)`` and the ``(B, H, hd, hd)`` state.  The reference
+  transposes to ``(B * H, S, hd)`` and broadcasts ``u`` to every batch
+  row; here the kernel reads the model layout and ``u`` per head in
+  place, and there is no ``chunk`` argument (the Pallas grid's block).
 * ``quantize_checkpoint`` / ``dequantize_checkpoint``: a leaf of any shape
   in, the codec's ``(n_blocks, 256)`` int8 codes and ``(n_blocks, 1)`` f32
   scales out.  The kernels read the leaf flat with its length, so no
@@ -21,9 +26,10 @@ import torch
 
 from . import decode_attention as _decode
 from . import flash_attention as _flash
+from . import rwkv6 as _rwkv6
 from .ckpt_codec import dequantize_blocks, quantize_blocks
 
-__all__ = ["flash_attention", "decode_attention", "quantize_checkpoint",
+__all__ = ["flash_attention", "decode_attention", "wkv6", "quantize_checkpoint",
            "dequantize_checkpoint"]
 
 
@@ -40,6 +46,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the 0-d int32 index of the newest valid cache row -> ``(B, 1, H, hd)``
     (the kernel of ``decode_attention_bhd``)."""
     return _decode.attention(q[:, 0], k, v, pos).unsqueeze(1)
+
+
+#: the kernel of ``wkv6_bhsd`` in the model layout (its docstring holds the
+#: shapes); the wrapper is already this layout's, so it is the entry itself
+wkv6 = _rwkv6.wkv
 
 
 def _flat_f32(x: torch.Tensor) -> torch.Tensor:

@@ -2,7 +2,8 @@
 reference's ``launch/serve.py``).
 
 Prefill, then a greedy decode loop over a batch of requests.  The server
-snapshots the KV cache every ``snapshot_every`` tokens; a fault (from a
+snapshots the decode cache (the KV cache, or the RWKV states and last
+tokens) every ``snapshot_every`` tokens; a fault (from a
 wall-clock fault trace) restores the last snapshot and re-decodes the
 tokens generated since.  Serving "waste" is the re-decoded tokens plus
 the snapshot time.
@@ -15,6 +16,7 @@ would let a replay decode from a cache that has already moved on.
 Usage (on the card; ``--device cpu`` runs the kernels' plain versions):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
         --requests 4 --prompt-len 32 --gen 48 --inject-faults
+(``--arch rwkv6-7b`` serves the RWKV6 family.)
 """
 
 from __future__ import annotations

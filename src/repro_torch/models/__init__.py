@@ -1,6 +1,7 @@
-"""Models of the port: the dense-family language model
-(:class:`LanguageModel`), its layers, and the conversion of the
-reference's parameter trees (:func:`params_from_jax`)."""
+"""Models of the port: the language model of the dense and RWKV6
+families (:class:`LanguageModel`), its layers (``layers``, ``ssm``), and
+the conversion of the reference's parameter trees
+(:func:`params_from_jax`)."""
 
 from .convert import params_from_jax
 from .layers import RuntimeFlags

@@ -1,5 +1,5 @@
-"""Language model for the dense family: the port of the reference's
-``models/transformer.py`` serving entry points.
+"""Language model for the dense and RWKV6 families: the port of the
+reference's ``models/transformer.py`` serving entry points.
 
 * Parameters are a plain tree with the reference's layout and key paths:
   ``embed``, ``final_norm`` (and ``lm_head`` when untied) and
@@ -14,13 +14,17 @@
   (:mod:`..launch.serve`) where the reference casts on every call.  The
   numbers are the same.
 * The serving cache is the reference's: ``pos`` (0-d int32) and per
-  pattern position ``k`` / ``v`` of shape ``(L, B, max_seq, KV, hd)`` in
-  bf16.  :meth:`LanguageModel.decode_step` updates it **in place** (the
-  new K/V rows and ``pos``), where the reference returns a new tree; a
-  caller that keeps an old state must clone it.
+  pattern position, for an ``attn`` block ``k`` / ``v`` of shape ``(L, B,
+  max_seq, KV, hd)`` in bf16; for an ``rwkv`` block the WKV ``state``
+  ``(L, B, H, hd, hd)`` in f32 and the previous token's time-mix and
+  channel-mix inputs ``last`` / ``cm_last`` ``(L, B, D)`` in bf16.
+  :meth:`LanguageModel.decode_step` updates it **in place** (the new K/V
+  rows, the states and last tokens, ``pos``), where the reference returns
+  a new tree; a caller that keeps an old state must clone it.
 
-Only the dense family (``attn`` mixer, ``dense`` MLP, no frontend) is
-built; the other families are queue 1.1 of ``ROADMAP.md``.
+Two block kinds are built: ``attn`` mixer with ``dense`` MLP, and
+``rwkv`` mixer with ``rwkv_cm`` channel mix (no frontend); the other
+families are queue 1 of ``ROADMAP.md``.
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ArchConfig, LayerSpec
+from ..core.torch_sim import resolve_device
+from . import ssm
 from .layers import (
     RuntimeFlags,
     attention,
@@ -64,6 +70,8 @@ _KEEP_F32 = {
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 CACHE_DTYPE = torch.bfloat16
+#: the block kinds the port builds
+BLOCKS = (LayerSpec("attn", "dense"), LayerSpec("rwkv", "rwkv_cm"))
 
 
 def _cast_tree(d: dict, dtype: torch.dtype) -> dict:
@@ -84,16 +92,17 @@ def _layer(tree: dict, r: int) -> dict:
 
 
 class LanguageModel(nn.Module):
-    """The dense-family LM.  Parameters and caches are plain trees passed
-    to the entry points, as in the reference."""
+    """The LM of the dense and RWKV6 families.  Parameters and caches are
+    plain trees passed to the entry points, as in the reference."""
 
     def __init__(self, cfg: ArchConfig, flags: Optional[RuntimeFlags] = None):
         super().__init__()
         for spec in cfg.pattern:
-            if spec != LayerSpec("attn", "dense"):
+            if spec not in BLOCKS:
                 raise NotImplementedError(
                     f"{cfg.name}: {spec} blocks are not ported yet "
-                    "(ROADMAP.md, queue 1.1); the port builds attn + dense MLP")
+                    "(ROADMAP.md, queue 1.1); the port builds attn + dense MLP "
+                    "and rwkv + rwkv_cm")
         if cfg.frontend:
             raise NotImplementedError(f"{cfg.name}: modality frontends are not ported")
         self.cfg = cfg
@@ -121,11 +130,17 @@ class LanguageModel(nn.Module):
             params["lm_head"] = (torch.randn((D, cfg.vocab_size), generator=generator,
                                              device=dev) / math.sqrt(D)).to(dt)
         blocks = []
-        for _ in cfg.pattern:
+        for spec in cfg.pattern:
+            if spec.mixer == "attn":
+                mixer = init_attention(generator, cfg, dt, lead=(R,))
+                mlp = init_mlp(generator, D, cfg.d_ff, dt, lead=(R,))
+            else:
+                mixer = ssm.init_rwkv(generator, cfg, dt, lead=(R,))
+                mlp = ssm.init_rwkv_channel_mix(generator, cfg, dt, lead=(R,))
             blocks.append({
-                "mixer": init_attention(generator, cfg, dt, lead=(R,)),
+                "mixer": mixer,
                 "mixer_norm": torch.ones((R, D), device=dev),
-                "mlp": init_mlp(generator, D, cfg.d_ff, dt, lead=(R,)),
+                "mlp": mlp,
                 "mlp_norm": torch.ones((R, D), device=dev),
             })
         params["blocks"] = tuple(blocks)
@@ -149,12 +164,24 @@ class LanguageModel(nn.Module):
     def cache_struct(self, batch: int, max_seq: int) -> dict:
         """The serving cache's ``(shape, dtype)`` tree."""
         cfg = self.cfg
-        kv = ((cfg.n_repeats, batch, max_seq, cfg.num_kv_heads, cfg.resolved_head_dim),
-              CACHE_DTYPE)
-        return {"pos": ((), torch.int32),
-                "blocks": tuple({"k": kv, "v": kv} for _ in cfg.pattern)}
+        R = cfg.n_repeats
+        blocks = []
+        for spec in cfg.pattern:
+            if spec.mixer == "attn":
+                kv = ((R, batch, max_seq, cfg.num_kv_heads, cfg.resolved_head_dim),
+                      CACHE_DTYPE)
+                blocks.append({"k": kv, "v": kv})
+            else:
+                c = {k: ((R,) + s, dt) for k, (s, dt) in ssm.rwkv_cache_spec(cfg, batch).items()}
+                c["cm_last"] = ((R, batch, cfg.d_model), CACHE_DTYPE)
+                blocks.append(c)
+        return {"pos": ((), torch.int32), "blocks": tuple(blocks)}
 
     def init_cache(self, batch: int, max_seq: int, device=None) -> dict:
+        """A zero cache on ``device``: the current CUDA device unless the
+        caller names another (``"cpu"``); without CUDA and without a
+        device it raises."""
+        device = resolve_device(device)
         st = self.cache_struct(batch, max_seq)
         return {
             "pos": torch.zeros(st["pos"][0], dtype=st["pos"][1], device=device),
@@ -167,34 +194,56 @@ class LanguageModel(nn.Module):
     # ------------------------------------------------------------------ #
     # Blocks
     # ------------------------------------------------------------------ #
-    def _apply_block(self, bp: dict, x, sin, cos, mode: str, cache, pos):
-        """One block; in prefill, ``cache`` is the layer's ``{"k", "v"}``
-        ``(B, max_seq, KV, hd)`` buffers, filled at ``[:, :S]``."""
+    def _apply_block(self, spec: LayerSpec, bp: dict, x, sin, cos, mode: str, cache, pos):
+        """One block.  ``cache`` is the layer's slice of the serving cache:
+        for ``attn``, the ``{"k", "v"}`` ``(B, max_seq, KV, hd)`` buffers,
+        filled at ``[:, :S]`` in prefill; for ``rwkv``, ``state``,
+        ``last`` and ``cm_last``, read in decode and overwritten in both
+        modes."""
         cfg, flags = self.cfg, self.flags
+        decode = mode == "decode"
         h = rms_norm(x, bp["mixer_norm"], cfg.norm_eps)
-        if mode == "decode":
-            y, _ = attention_decode(bp["mixer"], h, cfg, pos, (cache["k"], cache["v"]), flags)
-        else:
-            y, (k_raw, v_raw) = attention(bp["mixer"], h, cfg, sin, cos, flags)
-            S = x.shape[1]
-            cache["k"][:, :S] = k_raw.to(CACHE_DTYPE)
-            cache["v"][:, :S] = v_raw.to(CACHE_DTYPE)
+        if spec.mixer == "attn":
+            if decode:
+                y, _ = attention_decode(bp["mixer"], h, cfg, pos, (cache["k"], cache["v"]),
+                                        flags)
+            else:
+                y, (k_raw, v_raw) = attention(bp["mixer"], h, cfg, sin, cos, flags)
+                S = x.shape[1]
+                cache["k"][:, :S] = k_raw.to(CACHE_DTYPE)
+                cache["v"][:, :S] = v_raw.to(CACHE_DTYPE)
+        else:  # rwkv: the final state goes straight into the cache
+            y, st = ssm.rwkv_apply(bp["mixer"], h, cache if decode else None,
+                                   state_out=cache["state"])
+            cache["last"].copy_(st["last"])
         x = x + y
         h2 = rms_norm(x, bp["mlp_norm"], cfg.norm_eps)
-        return x + swiglu_mlp(bp["mlp"], h2)
+        if spec.mlp == "dense":
+            return x + swiglu_mlp(bp["mlp"], h2)
+        last = cache["cm_last"].to(h2.dtype) if decode else None
+        y2, cm_last = ssm.rwkv_channel_mix(bp["mlp"], h2, last)
+        cache["cm_last"].copy_(cm_last)
+        return x + y2
 
     def _run_layers(self, params: dict, x, sin, cos, mode: str, cache: dict, pos):
         """The repeated pattern, layer by layer, over the stacked slices."""
         for r in range(self.cfg.n_repeats):
-            for pi in range(len(self.cfg.pattern)):
-                cb = cache["blocks"][pi]
-                x = self._apply_block(_layer(params["blocks"][pi], r), x, sin, cos, mode,
-                                      {"k": cb["k"][r], "v": cb["v"][r]}, pos)
+            for pi, spec in enumerate(self.cfg.pattern):
+                x = self._apply_block(spec, _layer(params["blocks"][pi], r), x, sin, cos,
+                                      mode, _layer(cache["blocks"][pi], r), pos)
         return x
 
     # ------------------------------------------------------------------ #
     # Entry points
     # ------------------------------------------------------------------ #
+    def _rope(self, seq_len: int, device):
+        """(sin, cos) tables, or (None, None) for an attention-free stack."""
+        cfg = self.cfg
+        if not any(s.mixer == "attn" for s in cfg.pattern):
+            return None, None
+        positions = torch.arange(seq_len, device=device)
+        return rope_table(positions, cfg.resolved_head_dim, cfg.rope_theta)
+
     def _embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
         return F.embedding(tokens, params["embed"]).to(self.flags.compute_dtype)
 
@@ -207,12 +256,12 @@ class LanguageModel(nn.Module):
 
     def prefill(self, params: dict, tokens: torch.Tensor, max_seq: int):
         """tokens ``(B, S)`` int32 -> (last-token logits ``(B, 1, V)``, the
-        cache, its first ``S`` rows filled and ``pos = S``)."""
+        cache: the attention blocks' first ``S`` K/V rows, the rwkv
+        blocks' states and last inputs, ``pos = S``)."""
         p = self.cast_params(params)
         x = self._embed(p, tokens)
         B, S = x.shape[0], x.shape[1]
-        positions = torch.arange(S, device=x.device)
-        sin, cos = rope_table(positions, self.cfg.resolved_head_dim, self.cfg.rope_theta)
+        sin, cos = self._rope(S, x.device)
         cache = self.init_cache(B, max_seq, x.device)
         x = self._run_layers(p, x, sin, cos, "prefill", cache, None)
         logits = self._head(p, x[:, -1:, :])

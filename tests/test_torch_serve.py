@@ -93,8 +93,21 @@ def test_config_and_reduced_match_reference_field_for_field():
         configs.get("qwen2-72b")
 
 
+def test_rwkv_config_and_reduced_match_reference_field_for_field():
+    ref, port = RC.get("rwkv6-7b"), configs.get("rwkv6-7b")
+    for r, p in ((ref, port), (ref.reduced(), port.reduced())):
+        assert dataclasses.asdict(p) == dataclasses.asdict(r)
+        assert (p.resolved_head_dim, p.n_repeats, p.rwkv_heads, p.param_count()) == \
+               (r.resolved_head_dim, r.n_repeats, r.rwkv_heads, r.param_count())
+    assert port.param_count() == 7_534_546_944
+    assert (port.num_layers, port.d_model, port.rwkv_heads, port.ssm.rwkv_head_dim,
+            port.d_ff, port.vocab_size, port.tie_embeddings, port.param_dtype) == \
+           (32, 4096, 64, 64, 14336, 65536, False, "float32")
+    assert "rwkv6-7b" in configs.ARCH_NAMES
+
+
 def test_other_families_are_not_built():
-    for name in ("rwkv6-7b", "qwen3-moe-30b-a3b", "jamba-1.5-large-398b"):
+    for name in ("qwen3-moe-30b-a3b", "jamba-1.5-large-398b"):
         r = RC.get(name)
         cfg = configs.base.ArchConfig(
             name=r.name, family=r.family, num_layers=r.num_layers, d_model=r.d_model,
