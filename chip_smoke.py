@@ -43,6 +43,15 @@ and 32 a decode step, one decode step replayed as a CUDA graph against
 the same step issued eagerly; and the kernel's times at both shapes
 beside its bound and its plain version.
 
+Then the mixed-law sweep (phases 19-21): the law-indexed variant of both
+sim_step kernels against its plain version and, on each law's lanes,
+against the single-law launch (0 ulp); the reference benchmark's
+mixed-law grid (the bench grid under the exponential, Weibull 0.7 and
+lognormal 0.5 laws: 216 cells, 1000 runs each) in one dispatch through
+``run_grid`` on CUDA, with only the law-indexed kernels launched; the
+card against the CPU, and the fused dispatch against the per-family one
+lane for lane, on the three-law validation grid; and the variant's times.
+
 Every phase prints one JSON line; any failure exits non-zero before the
 last line, which is ``{"ok": true, "device": {...}}``.  Needs one CUDA
 card; imports nothing of JAX.
@@ -77,12 +86,17 @@ PEAK_F32_S = 67e12  # FP32, outside the tensor cores
 #: (36 B) and writes ctr, tm (12 B).
 BYTES_PRIM, BYTES_PRIM_FAULTED = 116, 40
 BYTES_ADV, BYTES_ADV_MASKED = 1, 48
+#: the law-indexed variants: a lane that draws (faulted, or masked) also
+#: reads its law code (4 B) and shape slots s1, s2 (8 B each)
+BYTES_LAW = 20
 #: f64 operations, approximate: ~20 adds / compares / selects per lane of
 #: the update, ~40 for one gap draw (uniform, log1p, scale, add, retire)
 OPS_PRIM, OPS_GAP = 20, 40
 #: the card's L2; timed calls cycle through input copies three times larger
 L2_BYTES = 50e6
 RUNS_PER_CELL = 1000
+#: the mixed-law path's seed, the reference benchmark's
+MIXED_SEED = 5
 
 TM_ULPS = 4  # refilled cursor dates: libdevice transcendentals, same on both sides
 LAWS = (("exponential", 0.0), ("weibull", 0.7), ("lognormal", 1.0), ("uniform", 0.0))
@@ -195,17 +209,31 @@ def make_inputs(K, L: int, seed: int, dev):
     return K.lane_state_tensors(K.sample_lane_state(L, seed), dev)
 
 
+PRIM_ARGS = ("prim", "cont", "target", "ckend", "nf", "t", "saved", "unsaved",
+             "pw", "W", "DR")
+
+
+def prim_kw(s, kind, param) -> dict:
+    """The stream and gap arguments of a primitive update on lanes ``s``;
+    ``kind="indexed"`` takes the lanes' own ``law`` / ``s1`` / ``s2``."""
+    stream = (s["key"], s["ctr"], s["nf"], s["mean"], s["horizon"])
+    if kind == "indexed":
+        stream += (s["law"], s["s1"], s["s2"])
+    return dict(eps=1e-6, reg_cont=1, stream=stream, gap=(kind, param))
+
+
+def adv_kw(s, kind, param) -> dict:
+    if kind == "indexed":
+        return dict(kind=kind, param=param, law=s["law"], lp=(s["s1"], s["s2"]))
+    return dict(kind=kind, param=param)
+
+
 def run_prim(K, x, kind, param, plain: bool):
     import torch
 
     s = {k: v.clone() for k, v in x.items()}
-    args = [s[k] for k in ("prim", "cont", "target", "ckend", "nf", "t",
-                           "saved", "unsaved", "pw", "W", "DR")]
-    kw = dict(eps=1e-6, reg_cont=1,
-              stream=(s["key"], s["ctr"], s["nf"], s["mean"], s["horizon"]),
-              gap=(kind, param))
     fn = K.primitive_update if plain else K.masked_primitive_update
-    out = fn(*args, **kw)
+    out = fn(*(s[k] for k in PRIM_ARGS), **prim_kw(s, kind, param))
     torch.cuda.synchronize()
     return dict(zip(("t", "saved", "unsaved", "pw", "flags", "ctr", "tm"), out))
 
@@ -216,9 +244,69 @@ def run_adv(K, x, kind, param, plain: bool):
     s = {k: v.clone() for k, v in x.items()}
     fn = K.stream_advance if plain else K.masked_stream_advance
     out = fn(s["mask"], s["ctr"], s["nf"], s["key"], s["mean"], s["horizon"],
-             kind=kind, param=param)
+             **adv_kw(s, kind, param))
     torch.cuda.synchronize()
     return dict(zip(("ctr", "tm"), out))
+
+
+def prim_call(K, s, kind, param, plain: bool = False):
+    """One primitive update on lanes ``s`` (kernel or plain version), as a
+    call without arguments."""
+    fn = K.primitive_update if plain else K.masked_primitive_update
+    return lambda: fn(*(s[k] for k in PRIM_ARGS), **prim_kw(s, kind, param))
+
+
+def adv_call(K, s, kind, param, plain: bool = False):
+    fn = K.stream_advance if plain else K.masked_stream_advance
+    return lambda: fn(s["mask"], s["ctr"], s["nf"], s["key"], s["mean"], s["horizon"],
+                      **adv_kw(s, kind, param))
+
+
+def timed(make, src, n_copies: int, want=None, what: str = "") -> float:
+    """:func:`device_ms` of ``make(copy)`` over ``n_copies`` copies of the
+    lanes ``src``; the first timed call's outputs are held against
+    ``want`` (the plain version's), ``tm`` within ``TM_ULPS``."""
+    import torch
+
+    cs = [{k: v.clone() for k, v in src.items()} for _ in range(n_copies)]
+    ms, out = device_ms([make(c) for c in cs], cs, src)
+    for (k, w), g in zip((want or {}).items(), out):
+        same = (int(ulp_dist(g, w).max()) <= TM_ULPS if k == "tm"
+                else torch.equal(g, w))
+        check(same, f"{what}: a timed call's {k} is not the plain version's")
+    return ms
+
+
+def sim_step_entry(name: str, replaces: str, tm: dict, launches: int, err: float,
+                   **extra) -> dict:
+    """A sim_step kernel's entry of the ``kernels`` line from its times
+    ``tm`` (with the bytes and operations its bound counts)."""
+    t_bytes = tm["bytes"] / PEAK_BYTES_S * 1e3
+    t_ops = tm["ops"] / PEAK_F64_S * 1e3
+    return {
+        "name": name, "route": "cuda", "source": "src/repro_torch/kernels/csrc/sim_step.cu",
+        "replaces": replaces, "launches": launches, "max_abs_err": err,
+        "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
+        "launch_floor_ms": tm["launch_floor_ms"], "host_call_ms": tm["host_call_ms"],
+        **extra,
+    }
+
+
+def card_vs_cpu(on_gpu, on_cpu) -> float:
+    """Hold two sweeps' cells to each other: the integer columns exact,
+    the moments within rtol 1e-9.  Returns the largest relative gap."""
+    worst = 0.0
+    for a, b in zip(on_gpu.cells, on_cpu.cells):
+        ints = [[r.n_exhausted, r.stats["n"]] + [r.stats[k] * r.stats["n"] for k in (
+            "mean_faults", "mean_proactive_ckpts", "mean_regular_ckpts", "mean_migrations")]
+            for r in (a, b)]
+        check(ints[0] == ints[1], f"{a.cell.label}: counters differ card vs CPU")
+        for k in ("mean_waste", "ci95_waste", "mean_makespan", "ci95_makespan"):
+            rel = abs(a.stats[k] - b.stats[k]) / abs(b.stats[k])
+            worst = max(worst, rel)
+            check(rel <= 1e-9, f"{a.cell.label}: {k} card vs CPU rel {rel}")
+    return worst
 
 
 def eager_ms(fn, reps: int) -> float:
@@ -1224,11 +1312,201 @@ def rwkv_phases(dev) -> list:
     }]
 
 
+# --------------------------------------------------------------------------- #
+# The mixed-law sweep
+# --------------------------------------------------------------------------- #
+def mixed_grid(preset: str, n_runs: int):
+    """The reference benchmark's mixed-law grid: the paper grid under the
+    exponential, Weibull 0.7 and lognormal 0.5 laws, labels prefixed by
+    the law, seed ``MIXED_SEED``."""
+    from dataclasses import replace
+
+    from repro_torch.core.events import lognormal, weibull
+    from repro_torch.experiments import GridSpec, paper_grid_cells
+
+    laws = (("exp", None), ("weibull", weibull(0.7)), ("lognormal", lognormal(0.5)))
+    cells = [replace(c, label=f"{law}/{c.label}", fault_dist=d)
+             for law, d in laws for c in paper_grid_cells(preset)]
+    return GridSpec(tuple(cells), n_runs=n_runs, seed=MIXED_SEED), [law for law, _ in laws]
+
+
+def counts(K) -> dict:
+    return {f"{fn.__name__}{tag}": getattr(fn, attr)
+            for fn in (K.masked_primitive_update, K.masked_stream_advance)
+            for tag, attr in (("", "launches"), ("[indexed]", "indexed_launches"))}
+
+
+def reset_counts(K) -> None:
+    for fn in (K.masked_primitive_update, K.masked_stream_advance):
+        fn.launches = fn.indexed_launches = 0
+
+
+def mixed_law_phases(dev) -> list:
+    """Phases 19-21: the law-indexed variant of both sim_step kernels
+    against its plain version and against the single-law launch, the
+    mixed-law paper grid in one dispatch on the card, the card against the
+    CPU and the fused dispatch against the per-family one; then the
+    variant's times.  Returns its two entries of the ``kernels`` line."""
+    import numpy as np
+    import torch
+    from repro_torch.experiments import run_grid
+    from repro_torch.kernels import sim_step as K
+
+    grid, law_names = mixed_grid("bench", RUNS_PER_CELL)
+    L = grid.n_lanes
+
+    def lanes(seed: int, block: int) -> dict:
+        x = {**K.sample_lane_state(L, seed), **K.sample_lane_laws(L, seed + 1, block)}
+        return K.lane_state_tensors(x, dev)
+
+    # ---- 19. the indexed kernels against their plain versions ---------- #
+    t0 = time.monotonic()
+    x = lanes(200, 1)
+    err = {"masked_primitive_update[indexed]": 0.0, "masked_stream_advance[indexed]": 0.0}
+    got = {"prim": run_prim(K, x, "indexed", 0.0, False), "adv": run_adv(K, x, "indexed", 0.0, False)}
+    want = {"prim": run_prim(K, x, "indexed", 0.0, True), "adv": run_adv(K, x, "indexed", 0.0, True)}
+    ulps = {}
+    for which, name in (("prim", "masked_primitive_update[indexed]"),
+                        ("adv", "masked_stream_advance[indexed]")):
+        for k, g in got[which].items():
+            if k == "tm":
+                ulps[name] = int(ulp_dist(g, want[which][k]).max())
+                check(ulps[name] <= TM_ULPS, f"{name}: tm off by {ulps[name]} ulp")
+            else:
+                check(torch.equal(g, want[which][k]),
+                      f"{name}: {k} differs from the plain version")
+        err[name] = max_abs_err((g, want[which][k]) for k, g in got[which].items())
+    faulted = got["prim"]["flags"].bitwise_and(1).ne(0)
+    per_law = {}
+    for li, (kind, param) in enumerate(K.SAMPLE_LAWS):
+        on = x["pick"] == li
+        check(bool((on & faulted).any()) and bool((on & x["mask"]).any()),
+              f"{kind}({param}): no lane of this law drew")
+        single = {"prim": run_prim(K, x, kind, param, False),
+                  "adv": run_adv(K, x, kind, param, False)}
+        for which in ("prim", "adv"):
+            for k, g in got[which].items():
+                check(torch.equal(g[on], single[which][k][on]),
+                      f"{kind}({param}): indexed {which} {k} differs from the single-law "
+                      "launch on this law's lanes")
+        per_law[f"{kind}({param})"] = {"lanes": int(on.sum()),
+                                       "faulted": int((on & faulted).sum())}
+    torch.cuda.synchronize()
+    emit("indexed_check", seconds=time.monotonic() - t0, lanes=L, tm_ulps=ulps,
+         laws=per_law, compared="ctr, flags, t, saved, unsaved, pw equal to the plain "
+         f"version, tm within {TM_ULPS} ulp; every output equal (0 ulp) to the single-law "
+         "launch on each law's lanes")
+
+    # ---- 20. the mixed-law grid on the card, one dispatch -------------- #
+    reset_counts(K)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    res = run_grid(grid, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = counts(K)
+    meta = res.meta
+    check(meta["device"].startswith("cuda"), f"mixed path ran on {meta['device']}")
+    check(meta["dispatches"] == 1 and meta["n_chunks"] == 1 and meta["sampler"] == "indexed",
+          f"mixed path: {meta}")
+    for name, n in launches.items():
+        if name.endswith("[indexed]"):
+            check(n > 0, f"{name} was not launched on the mixed-law path")
+        else:
+            check(n == 0, f"{name}: {n} single-law launches on the mixed-law path")
+    for c in res.cells:
+        check(c.n_runs == RUNS_PER_CELL, f"{c.cell.label}: {c.n_runs} runs")
+        check(0.0 < c.mean_waste < 1.0 and np.isfinite(c.ci95_waste),
+              f"{c.cell.label}: waste {c.mean_waste}")
+    anchors = {}
+    for law in law_names:
+        for pk in ("p82r85", "p40r70"):
+            y = res[f"{law}/{pk}/N65536/Young"].mean_waste
+            e = res[f"{law}/{pk}/N65536/Exact"].mean_waste
+            if law == "exp":
+                check(e < y, f"{law}/{pk}: ExactPrediction does not beat Young ({e} >= {y})")
+            anchors[f"{law}/{pk}"] = {"Young": y, "Exact": e}
+    emit("mixed_path", cells=len(res.cells), runs_per_cell=RUNS_PER_CELL, lanes=L,
+         laws=law_names, seed=MIXED_SEED, seconds=wall, lanes_per_s=L / wall,
+         outer_iters=meta["outer_iters"], host_syncs=meta["host_syncs"],
+         syncs_per_iter=meta["host_syncs"] / max(meta["outer_iters"], 1),
+         dispatches=meta["dispatches"], n_chunks=meta["n_chunks"], launches=launches,
+         waste_N65536=anchors)
+
+    # ---- 21. card against CPU, fused against per-family --------------- #
+    t0 = time.monotonic()
+    val, _ = mixed_grid("validation", 8)
+    worst = card_vs_cpu(run_grid(val, device="cuda"), run_grid(val, device="cpu"))
+    fused = run_grid(val, device="cuda", collect="lanes")
+    fam = run_grid(val, device="cuda", collect="lanes", dispatch="perfamily")
+    check((fused.meta["dispatches"], fam.meta["dispatches"]) == (1, len(law_names)),
+          f"dispatches: fused {fused.meta['dispatches']}, perfamily {fam.meta['dispatches']}")
+    for a, b in zip(fused.cells, fam.cells):
+        for f in ("makespan", "n_faults", "n_proactive_ckpts", "n_regular_ckpts",
+                  "n_migrations"):
+            check(np.array_equal(getattr(a, f), getattr(b, f)),
+                  f"{a.cell.label}: {f} differs fused vs perfamily")
+    emit("mixed_card_vs_cpu", seconds=time.monotonic() - t0, cells=len(val.cells),
+         lanes=val.n_lanes, max_rel_float=worst, rtol=1e-9,
+         fused_vs_perfamily="every lane bit-equal (makespan and counters)",
+         dispatches={"fused": fused.meta["dispatches"], "perfamily": fam.meta["dispatches"]})
+
+    # ---- times of the indexed variants at the mixed path's lane count -- #
+    # The path's lanes come in runs of one cell (1000 lanes, one law); the
+    # same lanes with laws mixed lane by lane, and each law's single-law
+    # launch on them, show what the per-lane law costs.
+    t0 = time.monotonic()
+    xb = lanes(210, RUNS_PER_CELL)
+    xm = dict(xb, **{k: v for k, v in lanes(210, 1).items() if k in ("pick", "law", "s1", "s2")})
+    xs = {k: v[:128].clone() for k, v in xb.items()}
+    want_prim = run_prim(K, xb, "indexed", 0.0, True)
+    want_adv = run_adv(K, xb, "indexed", 0.0, True)
+    n_fault = int(want_prim["flags"].bitwise_and(1).ne(0).sum())
+    n_mask = int(xb["mask"].sum())
+
+    timing = {}
+    for name, call, want, nbytes, ops in (
+        ("masked_primitive_update[indexed]", prim_call, want_prim,
+         BYTES_PRIM * L + (BYTES_PRIM_FAULTED + BYTES_LAW) * n_fault,
+         OPS_PRIM * L + OPS_GAP * n_fault),
+        ("masked_stream_advance[indexed]", adv_call, want_adv,
+         BYTES_ADV * L + (BYTES_ADV_MASKED + BYTES_LAW) * n_mask, OPS_GAP * n_mask),
+    ):
+        n_copies = math.ceil(3 * L2_BYTES / nbytes)
+        single = {f"{k}({p})": timed(lambda c, k=k, p=p: call(K, c, k, p), xb, n_copies)
+                  for k, p in K.SAMPLE_LAWS}
+        timing[name] = {
+            "ms": timed(lambda c: call(K, c, "indexed", 0.0), xb, n_copies, want, name),
+            "lane_mixed_ms": timed(lambda c: call(K, c, "indexed", 0.0), xm, n_copies),
+            "single_law_ms": single,
+            "single_law_mean_ms": sum(single.values()) / len(single),
+            "plain_ms": timed(lambda c: call(K, c, "indexed", 0.0, plain=True), xb,
+                              n_copies, want, name + " (plain)"),
+            "launch_floor_ms": timed(lambda c: call(K, c, "indexed", 0.0), xs, 64),
+            "host_call_ms": eager_ms(
+                call(K, {k: v.clone() for k, v in xb.items()}, "indexed", 0.0), 200),
+            "bytes": nbytes, "ops": ops, "copies": n_copies,
+        }
+    emit("indexed_timing", seconds=time.monotonic() - t0, lanes=L, faulted_lanes=n_fault,
+         masked_lanes=n_mask, times=timing,
+         note="device_ms over input copies restored before each replay; ms: laws in runs "
+              "of 1000 lanes (the path's cells); lane_mixed_ms: a law per lane; "
+              "single_law_ms: each law's single-law launch on the same lanes")
+    replaces = {"masked_primitive_update[indexed]": "src/repro/kernels/sim_step.py:516",
+                "masked_stream_advance[indexed]": "src/repro/kernels/sim_step.py:409"}
+    return [sim_step_entry(name, replaces[name], tm, launches[name], err[name],
+                           lane_mixed_ms=tm["lane_mixed_ms"],
+                           single_law_mean_ms=tm["single_law_mean_ms"],
+                           lanes=L, faulted_lanes=n_fault, masked_lanes=n_mask)
+            for name, tm in timing.items()]
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: src/repro_torch not found beside this script",
               file=sys.stderr)
         return 2
+    t_script = time.monotonic()
     sys.path.insert(0, str(SRC))
     import numpy as np
     import torch
@@ -1288,8 +1566,7 @@ def main() -> int:
         emit("kernel_check", law=kind, lanes=L, prim_tm_ulps=u, adv_tm_ulps=u2)
 
     # ---- 4. the main path: the full paper grid on the card ------------- #
-    K.masked_primitive_update.launches = 0
-    K.masked_stream_advance.launches = 0
+    reset_counts(K)
     torch.cuda.synchronize()
     t0 = time.monotonic()
     res = run_grid(full, device="cuda")
@@ -1301,6 +1578,9 @@ def main() -> int:
     }
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
+    for name in ("masked_primitive_update", "masked_stream_advance"):
+        n = getattr(K, name).indexed_launches
+        check(n == 0, f"{name}: {n} law-indexed launches on the single-law main path")
     meta = res.meta
     check(meta["device"].startswith("cuda"), f"main path ran on {meta['device']}")
     for c in res.cells:
@@ -1321,20 +1601,7 @@ def main() -> int:
 
     # ---- 5. the card against the CPU, same port ------------------------ #
     val = GridSpec(tuple(paper_grid_cells("validation")), n_runs=8, seed=0)
-    on_gpu = run_grid(val, device="cuda")
-    on_cpu = run_grid(val, device="cpu")
-    worst = 0.0
-    for a, b in zip(on_gpu.cells, on_cpu.cells):
-        n = a.stats["n"]
-        ints_a = [a.n_exhausted, n] + [a.stats[k] * n for k in (
-            "mean_faults", "mean_proactive_ckpts", "mean_regular_ckpts", "mean_migrations")]
-        ints_b = [b.n_exhausted, b.stats["n"]] + [b.stats[k] * b.stats["n"] for k in (
-            "mean_faults", "mean_proactive_ckpts", "mean_regular_ckpts", "mean_migrations")]
-        check(ints_a == ints_b, f"{a.cell.label}: counters differ card vs CPU")
-        for k in ("mean_waste", "ci95_waste", "mean_makespan", "ci95_makespan"):
-            rel = abs(a.stats[k] - b.stats[k]) / abs(b.stats[k])
-            worst = max(worst, rel)
-            check(rel <= 1e-9, f"{a.cell.label}: {k} card vs CPU rel {rel}")
+    worst = card_vs_cpu(run_grid(val, device="cuda"), run_grid(val, device="cpu"))
     emit("card_vs_cpu", cells=len(val.cells), lanes=val.n_lanes,
          max_rel_float=worst, rtol=1e-9)
 
@@ -1351,75 +1618,32 @@ def main() -> int:
     n_fault = int(want_prim["flags"].bitwise_and(1).ne(0).sum())
     n_mask = int(x["mask"].sum())
 
-    def prim_call(s):
-        return lambda: K.masked_primitive_update(
-            s["prim"], s["cont"], s["target"], s["ckend"], s["nf"], s["t"],
-            s["saved"], s["unsaved"], s["pw"], s["W"], s["DR"], eps=1e-6,
-            reg_cont=1, stream=(s["key"], s["ctr"], s["nf"], s["mean"], s["horizon"]),
-            gap=(f_kind, f_param))
-
-    def prim_plain(s):
-        return lambda: K.primitive_update(
-            s["prim"], s["cont"], s["target"], s["ckend"], s["nf"], s["t"],
-            s["saved"], s["unsaved"], s["pw"], s["W"], s["DR"], eps=1e-6,
-            reg_cont=1, stream=(s["key"], s["ctr"], s["nf"], s["mean"], s["horizon"]),
-            gap=(f_kind, f_param))
-
-    def adv_call(s):
-        return lambda: K.masked_stream_advance(
-            s["mask"], s["ctr"], s["nf"], s["key"], s["mean"], s["horizon"],
-            kind=f_kind, param=f_param)
-
-    def adv_plain(s):
-        return lambda: K.stream_advance(
-            s["mask"], s["ctr"], s["nf"], s["key"], s["mean"], s["horizon"],
-            kind=f_kind, param=f_param)
-
-    def timed(make, src, n_copies, want=None, what=""):
-        cs = [{k: v.clone() for k, v in src.items()} for _ in range(n_copies)]
-        ms, out = device_ms([make(c) for c in cs], cs, src)
-        for (k, w), g in zip((want or {}).items(), out):
-            same = (int(ulp_dist(g, w).max()) <= TM_ULPS if k == "tm"
-                    else torch.equal(g, w))
-            check(same, f"{what}: a timed call's {k} is not the plain version's")
-        return ms
-
     saved_counts = dict(launches)
     timing = {}
-    for name, call, plain, want, nbytes, ops in (
-        ("masked_primitive_update", prim_call, prim_plain, want_prim,
+    for name, call, want, nbytes, ops in (
+        ("masked_primitive_update", prim_call, want_prim,
          BYTES_PRIM * L + BYTES_PRIM_FAULTED * n_fault,
          OPS_PRIM * L + OPS_GAP * n_fault),
-        ("masked_stream_advance", adv_call, adv_plain, want_adv,
+        ("masked_stream_advance", adv_call, want_adv,
          BYTES_ADV * L + BYTES_ADV_MASKED * n_mask, OPS_GAP * n_mask),
     ):
         n_copies = math.ceil(3 * L2_BYTES / nbytes)
         timing[name] = {
-            "ms": timed(call, x, n_copies, want, name),
-            "plain_ms": timed(plain, x, n_copies, want, name + " (plain)"),
-            "launch_floor_ms": timed(call, xs, 64),
-            "host_call_ms": eager_ms(call({k: v.clone() for k, v in x.items()}), 200),
+            "ms": timed(lambda c: call(K, c, f_kind, f_param), x, n_copies, want, name),
+            "plain_ms": timed(lambda c: call(K, c, f_kind, f_param, plain=True), x,
+                              n_copies, want, name + " (plain)"),
+            "launch_floor_ms": timed(lambda c: call(K, c, f_kind, f_param), xs, 64),
+            "host_call_ms": eager_ms(
+                call(K, {k: v.clone() for k, v in x.items()}, f_kind, f_param), 200),
             "bytes": nbytes, "ops": ops, "copies": n_copies,
         }
     replaces = {
         "masked_primitive_update": "src/repro/kernels/sim_step.py:516",
         "masked_stream_advance": "src/repro/kernels/sim_step.py:409",
     }
-    kernels = []
-    for name, tm in timing.items():
-        t_bytes = tm["bytes"] / PEAK_BYTES_S * 1e3
-        t_ops = tm["ops"] / PEAK_F64_S * 1e3
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/sim_step.cu",
-            "replaces": replaces[name], "launches": saved_counts[name],
-            "max_abs_err": err[name], "ms": tm["ms"], "plain_ms": tm["plain_ms"],
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "launch_floor_ms": tm["launch_floor_ms"],
-            "host_call_ms": tm["host_call_ms"], "lanes": L,
-            "faulted_lanes": n_fault, "masked_lanes": n_mask,
-        })
+    kernels = [sim_step_entry(name, replaces[name], tm, saved_counts[name], err[name],
+                              lanes=L, faulted_lanes=n_fault, masked_lanes=n_mask)
+               for name, tm in timing.items()]
     kernel_s = sum(k["launches"] * k["ms"] for k in kernels) / 1e3
     wrapper_s = sum(k["launches"] * k["host_call_ms"] for k in kernels) / 1e3
     emit("split", main_path_s=wall, kernel_device_s_est=kernel_s,
@@ -1432,6 +1656,9 @@ def main() -> int:
     kernels += serving_phases(dev, timing["masked_stream_advance"]["launch_floor_ms"])
     torch.cuda.empty_cache()  # the 7B path needs the card's memory
     kernels += rwkv_phases(dev)
+    torch.cuda.empty_cache()
+    kernels += mixed_law_phases(dev)
+    emit("total", seconds=time.monotonic() - t_script)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

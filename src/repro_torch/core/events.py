@@ -7,7 +7,8 @@ device through :mod:`repro_torch.kernels.sim_step`, and on the host with
 NumPy for the scalar traces), the scalar merged trace
 :func:`make_event_trace` (the server's wall-clock faults), the
 NumPy Threefry-2x32 / SplitMix64 generators that derive each lane's
-stream keys on the host, and the cell-indexed :class:`TraceSpec`.
+stream keys on the host, the cell-indexed :class:`TraceSpec` and its
+mixed-law layout (:func:`law_table`, :func:`gap_transform_indexed_np`).
 
 Stream layout (the reproducibility contract, shared with the reference):
 lane ``i`` owns the 64-bit stream id ``spec.stream[i]``; its per-kind
@@ -20,8 +21,8 @@ here against the reference bit for bit.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, field
-from typing import List, Optional, Sequence
+from dataclasses import dataclass, field, replace
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 
@@ -37,6 +38,10 @@ __all__ = [
     "make_event_trace",
     "TraceSpec",
     "make_trace_spec",
+    "law_constants",
+    "law_table",
+    "gap_transform_indexed_np",
+    "require_inverse_cdf",
     "mu_np",
     "mu_p",
     "mu_e",
@@ -329,15 +334,99 @@ def stream_key64_np(seed: int, stream, kind: int) -> np.ndarray:
 
 
 # --------------------------------------------------------------------------- #
+# Mixed-law layout: the failure law as per-cell data
+# --------------------------------------------------------------------------- #
+def require_inverse_cdf(dist: Distribution) -> None:
+    """Raise unless ``dist`` names a family the device sampler supports."""
+    if dist.kind not in LAW_INDEX:
+        raise ValueError(
+            f"distribution {dist.name!r} has no inverse-CDF kind; the device "
+            "sampler supports exponential/weibull/lognormal/uniform"
+        )
+
+
+def law_constants(kind: str, param: float):
+    """``(law, p1, p2)``: the law code and the two shape constants folded
+    on the host in Python doubles, as the reference folds them — Weibull
+    ``p1 = 1/Γ(1 + 1/k)``, ``p2 = 1/k``; lognormal ``p1 = σ``,
+    ``p2 = σ²/2``; none for the exponential and uniform laws."""
+    if kind not in LAW_INDEX:
+        raise ValueError(f"unsupported gap kind {kind!r}")
+    law = LAW_INDEX[kind]
+    if law == LAW_WEIBULL:
+        return law, 1.0 / math.gamma(1.0 + 1.0 / param), 1.0 / param
+    if law == LAW_LOGNORMAL:
+        return law, float(param), 0.5 * param * param
+    return law, 0.0, 0.0
+
+
+def law_table(dists):
+    """Per-cell law table of a distribution sequence: ``(law, lp)`` with
+    ``law`` an ``(n,)`` int32 law-code column and ``lp`` an ``(n, 4)`` f64
+    row ``[param, s1, s2, 0]``, the slots ``s1`` / ``s2`` being
+    :func:`law_constants`' ``p1`` / ``p2`` (the single-law sampler's
+    constants, so the law-indexed sampler gives each law its bits) and
+    ``param`` zero for the exponential and uniform laws."""
+    dists = tuple(dists)
+    law = np.zeros(len(dists), np.int32)
+    lp = np.zeros((len(dists), 4), np.float64)
+    for i, d in enumerate(dists):
+        require_inverse_cdf(d)
+        law[i], lp[i, 1], lp[i, 2] = law_constants(d.kind, d.param)
+        if law[i] in (LAW_WEIBULL, LAW_LOGNORMAL):
+            lp[i, 0] = d.param
+    return law, lp
+
+
+def gap_transform_indexed_np(law, s1, s2, mean, x0, x1):
+    """Law-indexed inverse-CDF gap of counter draws (NumPy): ``law``
+    selects the family per element, ``(s1, s2)`` are :func:`law_table`'s
+    slots; all inputs broadcast.  Every family's expression is evaluated
+    and a ``where`` chain selects, in the order of
+    ``kernels.sim_step.gap_transform_indexed``.  Clamped to the ``1e-9``
+    zero-gap guard."""
+    u = uniform24(x0)
+    nlog = -np.log1p(-u)
+    with np.errstate(over="ignore", invalid="ignore", divide="ignore"):
+        g_exp = nlog * mean
+        # NumPy's scalar pow fast paths (x ** 2.0 -> x * x, x ** 0.5 ->
+        # sqrt), so a data-driven exponent gives the single-law bits
+        p = np.power(nlog, s2)
+        p = np.where(s2 == 2.0, nlog * nlog, p)
+        p = np.where(s2 == 0.5, np.sqrt(nlog), p)
+        g_wei = (np.asarray(mean) * s1) * p
+        z = np.sqrt(-2.0 * np.log(u)) * np.cos(2.0 * np.pi * uniform24(x1))
+        g_log = np.exp(np.log(mean) - s2 + s1 * z)
+        g_uni = 2.0 * np.asarray(mean) * u
+    g = np.where(
+        law == LAW_WEIBULL, g_wei,
+        np.where(law == LAW_LOGNORMAL, g_log,
+                 np.where(law == LAW_UNIFORM, g_uni, g_exp)),
+    )
+    return np.maximum(g, 1e-9)
+
+
+# --------------------------------------------------------------------------- #
 # Trace specification
 # --------------------------------------------------------------------------- #
+#: one law for every cell, or a tuple of laws, one per cell row
+Laws = Union[Distribution, tuple]
+
+
 @dataclass
 class TraceSpec:
     """A generative, cell-indexed trace batch: one parameter row per
     experiment cell, plus per-lane RNG stream ids and the lane -> cell
     index.  Lane ``i``'s faults and predictions are a pure function of
     ``(seed, stream[i])``; lanes sharing a stream id face identical traces
-    (the paired experiment design)."""
+    (the paired experiment design).
+
+    **Mixed-law layout**: ``fault_dist`` / ``false_pred_dist`` may each be
+    a tuple of distributions, one per cell row.  The law then rides the
+    cell tables as data (:func:`law_table`) and the engine draws through
+    the law-indexed sampler, so a grid mixing laws runs as one dispatch.
+    Build such specs with :meth:`concat_cells`, :meth:`indexed` or by
+    passing distribution sequences to :func:`make_trace_spec`."""
 
     horizon: np.ndarray  # (n_cells,)
     mtbf: np.ndarray  # (n_cells,)
@@ -345,8 +434,8 @@ class TraceSpec:
     precision: np.ndarray  # (n_cells,)
     window: np.ndarray  # (n_cells,)
     lead: np.ndarray  # (n_cells,)
-    fault_dist: Distribution
-    false_pred_dist: Distribution
+    fault_dist: Laws
+    false_pred_dist: Laws
     seed: int
     stream: np.ndarray  # (L,) int64 global RNG stream ids
     cell_index: np.ndarray  # (L,) int32 lane -> cell row
@@ -364,17 +453,64 @@ class TraceSpec:
         """False-prediction mean inter-arrival, one row per cell."""
         return false_prediction_mtbf_batch(self.mtbf, self.recall, self.precision)
 
+    @classmethod
+    def concat_cells(cls, specs) -> "TraceSpec":
+        """Concatenate cell-indexed specs (one per law family, disjoint
+        stream ids, one seed) into one mixed-law spec: the cell tables
+        stack, each lane's cell index is offset into the stacked table,
+        and the per-cell law tuples make the law a data column.  Lanes
+        keep their order and stream ids, so their events are unchanged."""
+        specs = list(specs)
+        if not specs:
+            raise ValueError("concat_cells needs at least one spec")
+        seed = specs[0].seed
+        if any(s.seed != seed for s in specs):
+            raise ValueError("concat_cells requires a shared seed")
+
+        def rows(d, n):
+            return tuple(d) if isinstance(d, tuple) else (d,) * n
+
+        fd: list = []
+        fpd: list = []
+        ci = []
+        off = 0
+        for s in specs:
+            fd += rows(s.fault_dist, s.n_cells)
+            fpd += rows(s.false_pred_dist, s.n_cells)
+            ci.append(s.cell_index.astype(np.int64) + off)
+            off += s.n_cells
+
+        def cat(name):
+            return np.concatenate([getattr(s, name) for s in specs])
+
+        return cls(
+            horizon=cat("horizon"), mtbf=cat("mtbf"),
+            recall=cat("recall"), precision=cat("precision"),
+            window=cat("window"), lead=cat("lead"),
+            fault_dist=tuple(fd), false_pred_dist=tuple(fpd),
+            seed=seed, stream=cat("stream"),
+            cell_index=np.concatenate(ci).astype(np.int32),
+        )
+
+    def indexed(self) -> "TraceSpec":
+        """The same spec on the law-indexed sampler: a shared
+        ``Distribution`` becomes the per-row tuple (identity when already
+        tuple-valued).  The same streams, drawn through the law-indexed
+        transform: the bit-exact control of the one-dispatch mixed-law
+        run."""
+
+        def tup(d):
+            return d if isinstance(d, tuple) else (d,) * self.n_cells
+
+        return replace(
+            self,
+            fault_dist=tup(self.fault_dist),
+            false_pred_dist=tup(self.false_pred_dist),
+        )
+
 
 def _bc(x, n: int) -> np.ndarray:
     return np.broadcast_to(np.asarray(x, dtype=np.float64), (n,)).copy()
-
-
-def _require_inverse_cdf(dist: Distribution) -> None:
-    if dist.kind not in LAW_INDEX:
-        raise ValueError(
-            f"distribution {dist.name!r} has no inverse-CDF kind; the device "
-            "sampler supports exponential/weibull/lognormal/uniform"
-        )
 
 
 def make_trace_spec(
@@ -385,8 +521,8 @@ def make_trace_spec(
     precision,
     window=0.0,
     lead=math.inf,
-    fault_dist: Optional[Distribution] = None,
-    false_pred_dist: Optional[Distribution] = None,
+    fault_dist: Union[Distribution, Sequence[Distribution], None] = None,
+    false_pred_dist: Union[Distribution, Sequence[Distribution], None] = None,
     seed: int = 0,
     stream: Optional[Sequence[int]] = None,
     cell_index: Optional[Sequence[int]] = None,
@@ -395,7 +531,8 @@ def make_trace_spec(
     describe cells (broadcast to ``max(cell_index) + 1`` rows) and the
     ``n_traces`` lanes map onto them by ``cell_index``.  ``stream``
     defaults to ``arange(n_traces)``; ``false_pred_dist`` defaults to the
-    fault law."""
+    fault law.  Either law may also be a sequence of distributions, one
+    per cell: the mixed-law layout."""
     L = int(n_traces)
     if stream is None:
         stream = np.arange(L, dtype=np.int64)
@@ -413,15 +550,28 @@ def make_trace_spec(
     if L and cell_index.min() < 0:
         raise ValueError("cell_index entries must be >= 0")
     n_par = int(cell_index.max()) + 1 if L else 0
-    for d in (fault_dist, false_pred_dist):
-        if d is not None and not isinstance(d, Distribution):
-            raise NotImplementedError(
-                "mixed-law specs (one Distribution per cell) are not ported"
+
+    def dists(d, name):
+        if isinstance(d, Distribution):
+            require_inverse_cdf(d)
+            return d
+        d = tuple(d)
+        if len(d) != n_par:
+            raise ValueError(
+                f"{name} sequence must have one entry per cell ({n_par}), "
+                f"got {len(d)}"
             )
-    fault_dist = exponential() if fault_dist is None else fault_dist
-    false_pred_dist = fault_dist if false_pred_dist is None else false_pred_dist
-    _require_inverse_cdf(fault_dist)
-    _require_inverse_cdf(false_pred_dist)
+        for x in d:
+            require_inverse_cdf(x)
+        return d
+
+    fault_dist = dists(
+        exponential() if fault_dist is None else fault_dist, "fault_dist"
+    )
+    false_pred_dist = dists(
+        fault_dist if false_pred_dist is None else false_pred_dist,
+        "false_pred_dist",
+    )
     return TraceSpec(
         horizon=_bc(horizon, n_par),
         mtbf=_bc(mtbf, n_par),

@@ -2,8 +2,11 @@
 PyTorch, with its hot step in hand-written CUDA kernels.
 
 :func:`simulate_batch_torch` is the port of the reference engine's
-device trace mode (``repro.core.jax_sim._jit_run`` with a cell-indexed,
-single-law :class:`~repro_torch.core.events.TraceSpec`).  Every lane is
+device trace mode (``repro.core.jax_sim._jit_run`` with a cell-indexed
+:class:`~repro_torch.core.events.TraceSpec`).  A spec whose laws are
+per-cell tuples (the mixed-law layout) ships each cell's law code and
+shape slots as table columns, and every stream draw goes through the
+kernels' law-indexed variant.  Every lane is
 one Monte-Carlo run of one experiment cell; all lanes of a chunk advance
 together, one primitive (work segment, idle segment, checkpoint) per
 lane per outer iteration, with masked tensor updates.  A finished lane
@@ -143,16 +146,22 @@ _CELL_TABLE_KEYS = (
     "W", "C", "DR", "T_R", "T_P", "mode", "horizon", "window",
     "wpp", "lead_act", "tp_eff_default", "mtbf", "fp_mean", "recall", "q_eff",
 )
+#: ... and the mixed-law columns (law code, s1 / s2 slots) of each stream
+_LAW_TABLE_KEYS = ("fault_law", "fault_s1", "fault_s2", "fp_law", "fp_s1", "fp_s2")
 
 
 def _cell_tables(
     n_cells: int, n_tab: int, fdt,
     W, C, D, R, M, T_R, T_P, mode, horizon, window,
-    mtbf, fp_mean, recall, q_eff,
+    mtbf, fp_mean, recall, q_eff, fault_laws=None, fp_laws=None,
 ) -> dict:
     """Per-cell engine-parameter tables of a fused sweep: one row per
     cell plus ``n_tab - n_cells`` benign padding rows, each with a ``-1``
-    horizon (row ``n_cells`` is the row padding lanes index)."""
+    horizon (row ``n_cells`` is the row padding lanes index).
+    ``fault_laws`` / ``fp_laws`` (a :func:`~repro_torch.core.events.
+    law_table` pair, mixed-law specs) add each stream's law code and
+    ``s1`` / ``s2`` slot columns; padding rows are exponential with zero
+    slots."""
 
     def tab(x, fill=0.0, dt=None):
         a = np.full(n_tab, fill, dt or fdt)
@@ -164,7 +173,7 @@ def _cell_tables(
     modeh = tab(mode, 0, np.int32)
     T_Rh = tab(T_R, 2.0)
     windowh = tab(window)
-    return {
+    tables = {
         "W": tab(W, 1.0),
         "C": Ch,
         "DR": tab(np.asarray(D) + np.asarray(R)),
@@ -181,15 +190,24 @@ def _cell_tables(
         "recall": tab(recall),
         "q_eff": tab(q_eff),
     }
+    for prefix, laws in (("fault", fault_laws), ("fp", fp_laws)):
+        if laws is not None:
+            law, lp = laws
+            tables.update({
+                f"{prefix}_law": tab(law, 0, np.int32),
+                f"{prefix}_s1": tab(lp[:, 1]),
+                f"{prefix}_s2": tab(lp[:, 2]),
+            })
+    return tables
 
 
 def _pack_chunk_spec_cells(
     tables: dict, spec: TraceSpec, cidx, pad_cell: int,
     sl: slice, n_pad: int, fdt, idt,
 ):
-    """Chunk packing of the fused dispatch: the O(cells) tables, the
-    per-lane int32 cell index and the RNG stream identity, plus the
-    zeroed lane state."""
+    """Chunk packing of the fused dispatch: the O(cells) tables (the law
+    columns of a mixed-law spec among them), the per-lane int32 cell
+    index and the RNG stream identity, plus the zeroed lane state."""
     state = _chunk_state(sl, n_pad, fdt, idt)
     consts = dict(tables)
     consts["cidx"] = pad_lane_axis(cidx[sl].astype(np.int32), n_pad, pad_cell)
@@ -345,8 +363,10 @@ def _run_chunk(consts: dict, st: dict, *, gen, has_mig: bool, max_iters: int,
                eps: float, tally: _Tally) -> dict:
     """Run one packed chunk to completion (or ``max_iters``); returns the
     final lane state.  ``consts`` comes from :func:`tables_from_numpy`,
-    ``st`` is the chunk's zeroed state on the same device."""
-    c = cell_gather(consts, consts["cidx"], _CELL_TABLE_KEYS)
+    ``st`` is the chunk's zeroed state on the same device.  ``gen`` is
+    ``(fault kind, param, false-prediction kind, param)``; a kind
+    ``"indexed"`` draws that stream with the law columns of ``consts``."""
+    c = cell_gather(consts, consts["cidx"], _CELL_TABLE_KEYS + _LAW_TABLE_KEYS)
     W, C, DR = c["W"], c["C"], c["DR"]
     T_R, T_P, mode = c["T_R"], c["T_P"], c["mode"]
     horizon, window = c["horizon"], c["window"]
@@ -356,6 +376,12 @@ def _run_chunk(consts: dict, st: dict, *, gen, has_mig: bool, max_iters: int,
     recall, q_eff = c["recall"], c["q_eff"]
     fg_key, tc_key, fp_key = c["fg_key"], c["tc_key"], c["fp_key"]
     f_kind, f_param, fp_kind, fp_param = gen
+    # law-indexed streams: per-lane law code and (s1, s2) slots
+    f_law = f_lp = fp_law = fp_lp = None
+    if f_kind == "indexed":
+        f_law, f_lp = c["fault_law"], (c["fault_s1"], c["fault_s2"])
+    if fp_kind == "indexed":
+        fp_law, fp_lp = c["fp_law"], (c["fp_s1"], c["fp_s2"])
     dev = W.device
     inf, nan = math.inf, math.nan
     i64 = torch.int64
@@ -366,7 +392,8 @@ def _run_chunk(consts: dict, st: dict, *, gen, has_mig: bool, max_iters: int,
 
     def adv_fault(m, ctr, tm):
         masked_stream_advance(
-            m, ctr, tm, fg_key, mtbf, horizon, kind=f_kind, param=f_param
+            m, ctr, tm, fg_key, mtbf, horizon, kind=f_kind, param=f_param,
+            law=f_law, lp=f_lp,
         )
 
     s = dict(st)
@@ -378,7 +405,7 @@ def _run_chunk(consts: dict, st: dict, *, gen, has_mig: bool, max_iters: int,
         # one pass: with q in {0, 1} every drawn false prediction is visible
         masked_stream_advance(
             use_fp, s["fp_ctr"], s["fp_time"], fp_key, fp_mean, horizon,
-            kind=fp_kind, param=fp_param,
+            kind=fp_kind, param=fp_param, law=fp_law, lp=fp_lp,
         )
         act = use_tp
         # advance-then-check, ~1/recall expected passes
@@ -583,13 +610,15 @@ def _run_chunk(consts: dict, st: dict, *, gen, has_mig: bool, max_iters: int,
         # the hot step: the struck fault is consumed and the strike cursor
         # refilled inside the kernel (nf IS the strike cursor's date)
         nf = sf_time
+        stream = (fg_key, sf_ctr, nf, mtbf, horizon)
+        if f_kind == "indexed":
+            stream += (f_law, *f_lp)
         t, saved, unsaved, period_work, flags, sf_ctr, sf_time = (
             masked_primitive_update(
                 prim, cont, target, ckend, nf,
                 t, saved, unsaved, period_work, W, DR,
                 eps=eps, reg_cont=int(B._C_CKPTREG),
-                stream=(fg_key, sf_ctr, nf, mtbf, horizon),
-                gap=(f_kind, f_param),
+                stream=stream, gap=(f_kind, f_param),
             )
         )
         faulted = (flags & FLAG_FAULTED) != 0
@@ -673,6 +702,17 @@ def _cell_sums(s: dict, W: torch.Tensor, cidx: torch.Tensor, n_seg: int) -> torc
     )
 
 
+def _dist_static(d):
+    """A stream's sampler: ``(kind, param)`` of one law, or ``("indexed",
+    0.0)`` for a per-cell tuple of laws (which then ride the tables)."""
+    if isinstance(d, tuple):
+        for x in d:
+            E.require_inverse_cdf(x)
+        return "indexed", 0.0
+    E.require_inverse_cdf(d)
+    return d.kind, float(d.param)
+
+
 def simulate_batch_torch(
     work_c,
     plats_c,
@@ -688,8 +728,9 @@ def simulate_batch_torch(
     """Run a cell-indexed device-trace sweep through the lane machine.
 
     ``work_c`` / ``plats_c`` / ``strats_c`` describe the ``spec.n_cells``
-    cells; ``spec`` maps the lanes onto them and carries the single
-    failure law.  Runs on CUDA unless ``device`` names another device
+    cells; ``spec`` maps the lanes onto them and carries the failure law:
+    one :class:`~repro_torch.core.events.Distribution` (the single-law
+    kernels) or a tuple of them, one per cell (the law-indexed kernels).  Runs on CUDA unless ``device`` names another device
     (``device="cpu"`` runs the kernels' plain PyTorch versions).
 
     chunk       lanes resident at once ("auto": :func:`default_chunk_lanes`;
@@ -719,16 +760,17 @@ def simulate_batch_torch(
         raise NotImplementedError(
             "fractional trust (0 < q < 1) is a later slice of the port"
         )
-    gen = (
-        spec.fault_dist.kind, float(spec.fault_dist.param),
-        spec.false_pred_dist.kind, float(spec.false_pred_dist.param),
-    )
+    f_kind, f_param = _dist_static(spec.fault_dist)
+    fp_kind, fp_param = _dist_static(spec.false_pred_dist)
+    gen = (f_kind, f_param, fp_kind, fp_param)
     n_tab = max(8, 1 << int(n_cells).bit_length())
     fdt, idt = np.float64, np.int64
     tables = _cell_tables(
         n_cells, n_tab, fdt, W, C, D, R, M, T_R, T_P, mode,
         spec.horizon, spec.window,
         spec.mtbf, spec.fp_mean, spec.recall, q_eff,
+        fault_laws=E.law_table(spec.fault_dist) if f_kind == "indexed" else None,
+        fp_laws=E.law_table(spec.false_pred_dist) if fp_kind == "indexed" else None,
     )
     if chunk == "auto":
         chunk = default_chunk_lanes(dev)

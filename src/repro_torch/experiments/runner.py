@@ -11,8 +11,11 @@ RNG streams.  Cells with identical trace parameters (MTBF, predictor,
 window, horizon) share their stream ids — the paper's paired design,
 where every strategy faces the same failures.
 
-This slice runs single-law grids; a grid mixing failure-law families
-(the reference's law-indexed one-dispatch path) is a later slice.
+A grid mixing failure-law families runs as one dispatch too
+(``dispatch="fused"``): the per-family specs concatenate into one spec
+whose laws ride the cell tables, and the kernels' law-indexed variant
+draws each lane under its own law.  ``dispatch="perfamily"`` runs one
+call per family on the same law-indexed sampler, the bit-exact control.
 """
 
 from __future__ import annotations
@@ -130,6 +133,15 @@ class FusedLayout:
     def n_lanes(self) -> int:
         return int(self.offs[-1])
 
+    def concat_spec(self) -> TraceSpec:
+        """The one-dispatch spec: a multi-group grid concatenates its
+        per-group specs into one cell-indexed spec (law-indexed sampler);
+        a single-group grid keeps its law-specialized spec, with the same
+        results and cheaper draws."""
+        if len(self.specs) == 1:
+            return self.specs[0]
+        return TraceSpec.concat_cells(self.specs)
+
 
 def build_fused_layout(grid: GridSpec) -> FusedLayout:
     """Assemble the fused device-trace dispatch's :class:`FusedLayout`
@@ -173,48 +185,70 @@ def _stats_cell_result(cell: ExperimentCell, sums, i: int) -> CellResult:
 
 def run_grid(
     grid: GridSpec, *, device=None, chunk_lanes="auto", collect: str = "stats",
+    dispatch: str = "fused",
 ) -> SweepResult:
-    """Execute every cell of ``grid`` in one fused device-trace dispatch
-    and aggregate per-cell statistics.
+    """Execute every cell of ``grid`` on the device lane machine and
+    aggregate per-cell statistics.
 
     Runs on CUDA unless ``device`` names another device; without CUDA and
     without ``device`` it raises.  ``chunk_lanes`` caps the lanes
     resident at once ("auto", an int, or None for all).  ``collect``:
     "stats" reduces per-cell moments on the device; "lanes" returns
-    per-run arrays.  ``SweepResult.meta`` reports the device, the outer
-    iterations, the host syncs and the chunk count."""
+    per-run arrays.  ``dispatch``: "fused" runs the whole grid in one
+    call (a grid of several failure-law families on the law-indexed
+    kernels, one family on the single-law ones); "perfamily" runs one
+    call per family on the law-indexed kernels, lane for lane the fused
+    run's results.  ``SweepResult.meta`` reports the device, the dispatch
+    and its calls, the sampler ("indexed" or "single-law"), the outer
+    iterations, the host syncs and the chunk count (summed over calls)."""
     dev = resolve_device(device)
     if collect not in ("lanes", "stats"):
         raise ValueError(f"unknown collect {collect!r} (expected 'lanes' or 'stats')")
+    if dispatch not in ("fused", "perfamily"):
+        raise ValueError(
+            f"unknown dispatch {dispatch!r} (expected 'fused' or 'perfamily')"
+        )
     t0 = time.monotonic()
     layout = build_fused_layout(grid)
-    if layout.n_groups > 1:
-        raise NotImplementedError(
-            "grids mixing failure-law families need the law-indexed "
-            "sampler: a later slice of the port (mixed-law dispatch)"
-        )
-    meta: Dict = {}
+    # (first cell position, spec) of each engine call
+    if dispatch == "fused":
+        calls = [(0, layout.concat_spec())] if layout.n_lanes else []
+    else:
+        pos = np.cumsum([0] + [len(idx) for _, idx in layout.groups])
+        calls = [(int(p), spec.indexed()) for p, spec in zip(pos, layout.specs)]
+    meta: Dict = {"device": str(dev), "dispatch": dispatch,
+                  "dispatches": len(calls), "outer_iters": 0,
+                  "host_syncs": 0, "n_chunks": 0}
+    if calls:
+        meta["sampler"] = ("indexed" if isinstance(calls[0][1].fault_dist, tuple)
+                           else "single-law")
     cells: List[Optional[CellResult]] = [None] * len(grid.cells)
-    if layout.n_lanes:
+    for a, spec in calls:
+        b = a + spec.n_cells
+        info: Dict = {}
         res = simulate_batch_torch(
-            layout.work_c, layout.plats_c, layout.strats_c, layout.specs[0],
-            device=dev, chunk=chunk_lanes, collect=collect, info=meta,
+            layout.work_c[a:b], layout.plats_c[a:b], layout.strats_c[a:b], spec,
+            device=dev, chunk=chunk_lanes, collect=collect, info=info,
         )
-    for k, ci in enumerate(layout.cell_order):
-        if collect == "stats":
-            cells[ci] = _stats_cell_result(grid.cells[ci], res, k)
-            continue
-        sl = slice(int(layout.offs[k]), int(layout.offs[k + 1]))
-        cells[ci] = CellResult(
-            cell=grid.cells[ci],
-            waste=res.waste[sl],
-            makespan=res.makespan[sl],
-            n_faults=res.n_faults[sl],
-            n_proactive_ckpts=res.n_proactive_ckpts[sl],
-            n_regular_ckpts=res.n_regular_ckpts[sl],
-            n_migrations=res.n_migrations[sl],
-            n_exhausted=int(np.count_nonzero(res.trace_exhausted[sl])),
-        )
+        for k in ("outer_iters", "host_syncs", "n_chunks"):
+            meta[k] += info[k]
+        lane0 = int(layout.offs[a])
+        for k in range(a, b):
+            ci = layout.cell_order[k]
+            if collect == "stats":
+                cells[ci] = _stats_cell_result(grid.cells[ci], res, k - a)
+                continue
+            sl = slice(int(layout.offs[k]) - lane0, int(layout.offs[k + 1]) - lane0)
+            cells[ci] = CellResult(
+                cell=grid.cells[ci],
+                waste=res.waste[sl],
+                makespan=res.makespan[sl],
+                n_faults=res.n_faults[sl],
+                n_proactive_ckpts=res.n_proactive_ckpts[sl],
+                n_regular_ckpts=res.n_regular_ckpts[sl],
+                n_migrations=res.n_migrations[sl],
+                n_exhausted=int(np.count_nonzero(res.trace_exhausted[sl])),
+            )
     return SweepResult(
         grid=grid, cells=cells, engine="torch",
         wall_time_s=time.monotonic() - t0, collect=collect,

@@ -54,6 +54,14 @@ _SIGNATURES = {
         "sim_step_stream_advance": [
             _I64, _P, _P, _P, _P, _P, _P, _I32, _F64, _F64, _P,
         ],
+        # the law-indexed variants: per-lane law code and s1 / s2 pointers
+        "sim_step_primitive_update_indexed": [
+            _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F64,
+            _I32, _P, _P, _P, _P, _P, _P, _P, _P,
+        ],
+        "sim_step_stream_advance_indexed": [
+            _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        ],
     },
     "ckpt_codec": {
         "ckpt_quantize": [_I64, _P, _P, _P, _P, _I32, _P],

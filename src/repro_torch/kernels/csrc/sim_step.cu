@@ -14,6 +14,14 @@
 // advance a renewal-stream cursor (ctr, tm) by one event where the mask is
 // set.
 //
+// Both come in two variants, templated on Indexed: the single-law one takes
+// one (law, p1, p2) per launch; the law-indexed one (entry points
+// *_indexed) replaces the reference's kind="indexed" bodies of both Pallas
+// kernels (the mixed-law sweep) and reads each lane's law code and shape
+// slots from three more per-lane arrays.  Lanes are cell-ordered, so a
+// warp mixes laws only at a cell boundary and the per-lane switch diverges
+// little.
+//
 // Layout: one thread per lane, grid-stride, over flat contiguous (L,)
 // arrays (the TPU kernels' (rows, 128) slab layout is not carried over).
 // Times are f64, prim / cont / flags / ctr int32, the stream key an int64
@@ -30,8 +38,10 @@
 // ctr 4 B each; target, ckend, nf, t, saved, unsaved, pw, W, DR, key, mean,
 // horizon 8 B each; writes 48: t, saved, unsaved, pw, tm 8 B each, flags,
 // ctr 4 B each) and kernel 2 moves 49 B per lane (reads mask 1, ctr 4, tm,
-// key, mean, horizon 8 each; writes ctr 4, tm 8).  At the lane counts of
-// the paper grid (about 10^5 lanes, 5-17 MB a launch) a launch's bytes take
+// key, mean, horizon 8 each; writes ctr 4, tm 8); the law-indexed variant
+// reads 20 B more (law 4, s1 8, s2 8) on each lane that draws.  At the
+// lane counts of the paper grid (about 10^5 lanes, 5-17 MB a launch;
+// twice that for the mixed-law grid) a launch's bytes take
 // a few microseconds at 3.35 TB/s, the same order as the launch itself, so
 // the design keeps each step to one launch and one pass over the lanes:
 // coalesced loads (neighbouring threads on neighbouring lanes), every
@@ -141,6 +151,13 @@ __device__ __forceinline__ void advance(uint64_t key, int32_t* ctr, double* tm,
   *tm = t2;
 }
 
+// Indexed = true is the law-indexed variant (the reference's kind="indexed"
+// bodies): each lane reads its own law code and shape slots (law_i, s1,
+// s2) and passes them to the same gap_transform, whose switch computes the
+// lane's branch only.  So a lane of law X gets the single-law launch's bits
+// for X by construction.  Indexed = false compiles the per-launch (law, p1,
+// p2) variant without those loads.
+template <bool Indexed>
 __global__ void primitive_update_kernel(
     int64_t n, const int32_t* __restrict__ prim,
     const int32_t* __restrict__ cont, const double* __restrict__ target,
@@ -151,7 +168,8 @@ __global__ void primitive_update_kernel(
     int32_t* __restrict__ flags, double eps, int32_t reg_cont, int32_t gen,
     const int64_t* __restrict__ key, int32_t* __restrict__ ctr,
     const double* __restrict__ mean, const double* __restrict__ horizon,
-    int32_t law, double p1, double p2) {
+    int32_t law, double p1, double p2, const int32_t* __restrict__ law_i,
+    const double* __restrict__ s1, const double* __restrict__ s2) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < n; i += stride) {
@@ -205,27 +223,39 @@ __global__ void primitive_update_kernel(
       // date) with the stream's next event
       int32_t c = ctr[i];
       double tm = f;
-      advance(static_cast<uint64_t>(key[i]), &c, &tm, mean[i], horizon[i], law,
-              p1, p2);
+      if constexpr (Indexed) {
+        advance(static_cast<uint64_t>(key[i]), &c, &tm, mean[i], horizon[i],
+                law_i[i], s1[i], s2[i]);
+      } else {
+        advance(static_cast<uint64_t>(key[i]), &c, &tm, mean[i], horizon[i],
+                law, p1, p2);
+      }
       ctr[i] = c;
       nf[i] = tm;
     }
   }
 }
 
+template <bool Indexed>
 __global__ void stream_advance_kernel(
     int64_t n, const bool* __restrict__ mask, int32_t* __restrict__ ctr,
     double* __restrict__ tm, const int64_t* __restrict__ key,
     const double* __restrict__ mean, const double* __restrict__ horizon,
-    int32_t law, double p1, double p2) {
+    int32_t law, double p1, double p2, const int32_t* __restrict__ law_i,
+    const double* __restrict__ s1, const double* __restrict__ s2) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < n; i += stride) {
     if (!mask[i]) continue;
     int32_t c = ctr[i];
     double m = tm[i];
-    advance(static_cast<uint64_t>(key[i]), &c, &m, mean[i], horizon[i], law, p1,
-            p2);
+    if constexpr (Indexed) {
+      advance(static_cast<uint64_t>(key[i]), &c, &m, mean[i], horizon[i],
+              law_i[i], s1[i], s2[i]);
+    } else {
+      advance(static_cast<uint64_t>(key[i]), &c, &m, mean[i], horizon[i], law,
+              p1, p2);
+    }
     ctr[i] = c;
     tm[i] = m;
   }
@@ -246,10 +276,29 @@ extern "C" int sim_step_primitive_update(
     const double* mean, const double* horizon, int32_t law, double p1,
     double p2, void* stream) {
   if (n <= 0) return 0;
-  primitive_update_kernel<<<blocks_for(n), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
+  primitive_update_kernel<false><<<blocks_for(n), kThreads, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
       n, prim, cont, target, ckend, nf, t, saved, unsaved, pw, W, DR, flags,
-      eps, reg_cont, gen, key, ctr, mean, horizon, law, p1, p2);
+      eps, reg_cont, gen, key, ctr, mean, horizon, law, p1, p2, nullptr,
+      nullptr, nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The law-indexed variant (always refills the strike cursor): law_i is the
+// per-lane int32 law code, s1 / s2 the per-lane f64 shape slots.
+extern "C" int sim_step_primitive_update_indexed(
+    int64_t n, const int32_t* prim, const int32_t* cont, const double* target,
+    const double* ckend, double* nf, double* t, double* saved, double* unsaved,
+    double* pw, const double* W, const double* DR, int32_t* flags, double eps,
+    int32_t reg_cont, const int64_t* key, int32_t* ctr, const double* mean,
+    const double* horizon, const int32_t* law_i, const double* s1,
+    const double* s2, void* stream) {
+  if (n <= 0) return 0;
+  primitive_update_kernel<true><<<blocks_for(n), kThreads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      n, prim, cont, target, ckend, nf, t, saved, unsaved, pw, W, DR, flags,
+      eps, reg_cont, 1, key, ctr, mean, horizon, kLawExponential, 0.0, 0.0,
+      law_i, s1, s2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -259,8 +308,21 @@ extern "C" int sim_step_stream_advance(int64_t n, const bool* mask,
                                        const double* horizon, int32_t law,
                                        double p1, double p2, void* stream) {
   if (n <= 0) return 0;
-  stream_advance_kernel<<<blocks_for(n), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      n, mask, ctr, tm, key, mean, horizon, law, p1, p2);
+  stream_advance_kernel<false><<<blocks_for(n), kThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      n, mask, ctr, tm, key, mean, horizon, law, p1, p2, nullptr, nullptr,
+      nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int sim_step_stream_advance_indexed(
+    int64_t n, const bool* mask, int32_t* ctr, double* tm, const int64_t* key,
+    const double* mean, const double* horizon, const int32_t* law_i,
+    const double* s1, const double* s2, void* stream) {
+  if (n <= 0) return 0;
+  stream_advance_kernel<true><<<blocks_for(n), kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      n, mask, ctr, tm, key, mean, horizon, kLawExponential, 0.0, 0.0, law_i,
+      s1, s2);
   return static_cast<int>(cudaGetLastError());
 }

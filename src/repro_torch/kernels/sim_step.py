@@ -10,9 +10,17 @@ CUDA kernels (``csrc/sim_step.cu``, built by :mod:`.build`) that replace
 the reference's Pallas kernels of the same names; both update their state
 arguments in place and return them.
 
+Both kernels come in two variants.  The single-law one takes one
+``(kind, param)`` per launch; the law-indexed one (``kind="indexed"``,
+the mixed-law sweep) takes three more per-lane inputs, the int32 law
+code and the ``s1`` / ``s2`` shape slots of
+:func:`~repro_torch.core.events.law_table`, and draws each lane's gap
+under its own law.  Each wrapper counts the launches of the two
+variants apart: ``.launches`` and ``.indexed_launches``.
+
 Every function the kernels compute also exists here as plain PyTorch:
 the counter-based RNG (Threefry-2x32, SplitMix64, ``uniform24``), the
-inverse-CDF gap transform, :func:`stream_advance` and
+inverse-CDF gap transforms, :func:`stream_advance` and
 :func:`primitive_update`.  A wrapper given CPU tensors runs the plain
 version; given CUDA tensors it launches its kernel or raises.  torch has
 no ``>>`` for unsigned 64-bit integers on the CPU and ``>>`` on int64 is
@@ -30,8 +38,8 @@ import torch
 
 from ..core.events import (
     _SM_GAMMA, _SM_MIX1, _SM_MIX2, _TF_PARITY, _TF_ROTATIONS, THREEFRY_ROUNDS,
-    LAW_EXPONENTIAL, LAW_INDEX, LAW_LOGNORMAL, LAW_WEIBULL, STREAM_FAULT_GAP,
-    stream_key64_np,
+    LAW_EXPONENTIAL, LAW_LOGNORMAL, LAW_UNIFORM, LAW_WEIBULL, STREAM_FAULT_GAP,
+    law_constants, stream_key64_np,
 )
 
 __all__ = [
@@ -39,9 +47,11 @@ __all__ = [
     "FLAG_FAULTED", "FLAG_OK", "FLAG_FIN", "FLAG_CKPT_OK", "FLAG_REG",
     "threefry2x32", "splitmix64", "uniform24", "stream_key",
     "counter_words", "counter_uniform", "counter_uniform2",
-    "law_constants", "gap_transform", "stream_advance", "primitive_update",
+    "law_constants", "gap_transform", "gap_transform_indexed",
+    "stream_advance", "primitive_update",
     "masked_stream_advance", "masked_primitive_update",
-    "cell_gather", "segment_cell_sums", "sample_lane_state", "lane_state_tensors",
+    "cell_gather", "segment_cell_sums", "sample_lane_state", "SAMPLE_LAWS",
+    "sample_lane_laws", "lane_state_tensors",
 ]
 
 #: primitive kinds (0-3 shared with repro_torch.core.batch_sim's _PR_* codes;
@@ -132,21 +142,6 @@ def counter_uniform2(key: torch.Tensor, ctr: torch.Tensor):
 # --------------------------------------------------------------------------- #
 # Inverse-CDF gap transform
 # --------------------------------------------------------------------------- #
-def law_constants(kind: str, param: float):
-    """``(law, p1, p2)``: the law code and the two shape constants folded
-    on the host in Python doubles, as the reference folds them — Weibull
-    ``p1 = 1/Γ(1 + 1/k)``, ``p2 = 1/k``; lognormal ``p1 = σ``,
-    ``p2 = σ²/2``; none for the exponential and uniform laws."""
-    if kind not in LAW_INDEX:
-        raise ValueError(f"unsupported gap kind {kind!r}")
-    law = LAW_INDEX[kind]
-    if law == LAW_WEIBULL:
-        return law, 1.0 / math.gamma(1.0 + 1.0 / param), 1.0 / param
-    if law == LAW_LOGNORMAL:
-        return law, float(param), 0.5 * param * param
-    return law, 0.0, 0.0
-
-
 def gap_transform(kind: str, param: float, mean, x0, x1) -> torch.Tensor:
     """Inverse-CDF inter-arrival gap of one counter draw (f64).  Only the
     lognormal law consumes the second word (Box–Muller phase).  Clamped to
@@ -173,13 +168,49 @@ def gap_transform(kind: str, param: float, mean, x0, x1) -> torch.Tensor:
     return torch.clamp(g, min=1e-9)
 
 
-def stream_advance(mask, ctr, tm, key, mean, horizon, *, kind: str, param: float):
+def gap_transform_indexed(law, s1, s2, mean, x0, x1) -> torch.Tensor:
+    """Law-indexed :func:`gap_transform`: ``law`` is the per-lane int32 law
+    code, ``(s1, s2)`` the per-lane shape slots of
+    :func:`~repro_torch.core.events.law_table` (the ``p1`` / ``p2`` of
+    :func:`law_constants`).  Every family's expression is evaluated and
+    one ``where`` chain selects, as the reference's
+    ``gap_transform_indexed``; each branch is :func:`gap_transform`'s
+    expression, with the ``s2 == 2.0`` / ``s2 == 0.5`` strength
+    reductions as selects, so each law's lanes get the single-law bits."""
+    u = uniform24(x0)
+    nlog = -torch.log1p(-u)
+    g_exp = nlog * mean
+    p = torch.pow(nlog, s2)
+    p = torch.where(s2 == 2.0, nlog * nlog, p)
+    p = torch.where(s2 == 0.5, torch.sqrt(nlog), p)
+    g_wei = (mean * s1) * p
+    z = torch.sqrt(-2.0 * torch.log(u)) * torch.cos(_TWO_PI * uniform24(x1))
+    g_log = torch.exp((torch.log(mean) - s2) + s1 * z)
+    g_uni = (2.0 * mean) * u
+    g = torch.where(
+        law == LAW_WEIBULL, g_wei,
+        torch.where(law == LAW_LOGNORMAL, g_log,
+                    torch.where(law == LAW_UNIFORM, g_uni, g_exp)),
+    )
+    return torch.clamp(g, min=1e-9)
+
+
+def stream_advance(mask, ctr, tm, key, mean, horizon, *, kind: str, param: float,
+                   law=None, lp=None):
     """Advance a renewal-stream cursor ``(ctr, tm)`` by one event where
     ``mask``: draw gap ``ctr + 1``, accumulate the event date, retire the
-    stream (``+inf``) past the horizon.  Returns new tensors."""
+    stream (``+inf``) past the horizon.  Returns new tensors.
+
+    ``kind="indexed"`` draws through :func:`gap_transform_indexed`:
+    ``law`` is the per-lane law code and ``lp`` the ``(s1, s2)`` slot
+    pair (``param`` is ignored)."""
     c2 = ctr + 1
     x0, x1 = counter_words(key, c2)
-    t2 = tm + gap_transform(kind, param, mean, x0, x1)
+    if kind == "indexed":
+        g = gap_transform_indexed(law, lp[0], lp[1], mean, x0, x1)
+    else:
+        g = gap_transform(kind, param, mean, x0, x1)
+    t2 = tm + g
     t2 = torch.where(t2 > horizon, math.inf, t2)
     return torch.where(mask, c2, ctr), torch.where(mask, t2, tm)
 
@@ -199,7 +230,9 @@ def primitive_update(
     With ``stream = (key, ctr, tm, mean, horizon)`` (``tm`` the strike
     cursor date, equal to ``nf``) and ``gap = (kind, param)``, the lanes
     that faulted draw their next fault and the advanced ``(ctr, tm)`` is
-    appended to the returned tuple."""
+    appended to the returned tuple.  The law-indexed variant takes the
+    8-tuple ``(key, ctr, tm, mean, horizon, law, s1, s2)`` and ``gap =
+    ("indexed", 0.0)``."""
     creditb = prim == PRIM_WORK
     workm = creditb | (prim == PRIM_WORK_NC)
     idlem = prim == PRIM_IDLE
@@ -240,9 +273,11 @@ def primitive_update(
     )
     if stream is None:
         return t4, saved2, unsaved3, pw3, flags
-    skey, sctr, stm, smean, shorizon = stream
+    skey, sctr, stm, smean, shorizon = stream[:5]
+    law, lp = (stream[5], stream[6:8]) if len(stream) == 8 else (None, None)
     sctr, stm = stream_advance(
-        faulted, sctr, stm, skey, smean, shorizon, kind=gap[0], param=gap[1]
+        faulted, sctr, stm, skey, smean, shorizon, kind=gap[0], param=gap[1],
+        law=law, lp=lp,
     )
     return t4, saved2, unsaved3, pw3, flags, sctr, stm
 
@@ -294,43 +329,71 @@ def _raise_on(name: str, rc: int) -> None:
         raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc})")
 
 
-def masked_stream_advance(mask, ctr, tm, key, mean, horizon, *, kind: str, param: float):
+def _law_specs(kind: str, law, lp) -> list:
+    """``_check`` specs of the law-indexed variant's three per-lane inputs
+    (none for a single-law call, which must not pass them)."""
+    if kind != "indexed":
+        if law is not None or lp is not None:
+            raise ValueError(f"law / lp belong to kind='indexed', not {kind!r}")
+        return []
+    if law is None or lp is None or len(lp) != 2:
+        raise ValueError("kind='indexed' needs law and lp=(s1, s2)")
+    return [("law", law, torch.int32), ("s1", lp[0], torch.float64),
+            ("s2", lp[1], torch.float64)]
+
+
+def masked_stream_advance(mask, ctr, tm, key, mean, horizon, *, kind: str, param: float,
+                          law=None, lp=None):
     """Advance the renewal-stream cursor ``(ctr, tm)`` by one event where
     ``mask`` (:func:`stream_advance`), **in place**: ``ctr`` (int32) and
     ``tm`` (f64) are both inputs and outputs, and are returned.  ``mask``
     is bool, ``key`` int64, ``mean`` / ``horizon`` f64, all flat ``(L,)``.
+    ``kind="indexed"`` also takes the per-lane ``law`` (int32) and ``lp =
+    (s1, s2)`` (f64).
 
-    CUDA tensors launch ``sim_step_stream_advance``; CPU tensors run the
-    plain version.  ``masked_stream_advance.launches`` counts the kernel
-    launches."""
+    CUDA tensors launch ``sim_step_stream_advance`` (its ``_indexed``
+    variant for ``kind="indexed"``); CPU tensors run the plain version.
+    ``masked_stream_advance.launches`` counts the single-law kernel's
+    launches, ``.indexed_launches`` the law-indexed kernel's."""
     f64 = torch.float64
     dev = _check("masked_stream_advance", [
         ("mask", mask, torch.bool), ("ctr", ctr, torch.int32),
         ("tm", tm, f64), ("key", key, torch.int64),
         ("mean", mean, f64), ("horizon", horizon, f64),
-    ])
+    ] + _law_specs(kind, law, lp))
     if dev.type == "cpu":
         c2, t2 = stream_advance(
-            mask, ctr, tm, key, mean, horizon, kind=kind, param=param
+            mask, ctr, tm, key, mean, horizon, kind=kind, param=param,
+            law=law, lp=lp,
         )
         ctr.copy_(c2)
         tm.copy_(t2)
         return ctr, tm
     from . import build
 
-    law, p1, p2 = law_constants(kind, param)
-    rc = build.load("sim_step").sim_step_stream_advance(
-        tm.numel(), mask.data_ptr(), ctr.data_ptr(), tm.data_ptr(),
-        key.data_ptr(), mean.data_ptr(), horizon.data_ptr(),
-        law, p1, p2, _stream_ptr(dev),
-    )
+    lib = build.load("sim_step")
+    args = (tm.numel(), mask.data_ptr(), ctr.data_ptr(), tm.data_ptr(),
+            key.data_ptr(), mean.data_ptr(), horizon.data_ptr())
+    if kind == "indexed":
+        rc = lib.sim_step_stream_advance_indexed(
+            *args, law.data_ptr(), lp[0].data_ptr(), lp[1].data_ptr(),
+            _stream_ptr(dev),
+        )
+    else:
+        rc = lib.sim_step_stream_advance(
+            *args, *law_constants(kind, param), _stream_ptr(dev)
+        )
     _raise_on("masked_stream_advance", rc)
     if tm.numel():
-        masked_stream_advance.launches += 1
+        if kind == "indexed":
+            masked_stream_advance.indexed_launches += 1
+        else:
+            masked_stream_advance.launches += 1
     return ctr, tm
 
 
 masked_stream_advance.launches = 0
+masked_stream_advance.indexed_launches = 0
 
 
 def masked_primitive_update(
@@ -346,12 +409,15 @@ def masked_primitive_update(
     param)`` (device trace mode), ``tm`` must be the tensor ``nf`` itself:
     the lanes that faulted refill the strike cursor, ``ctr`` and
     ``nf`` are updated in place too, and ``(ctr, nf)`` is appended to the
-    returned tuple.  prim / cont / ctr are int32, key int64, the rest f64,
+    returned tuple.  The law-indexed variant takes the 8-tuple ``(key,
+    ctr, tm, mean, horizon, law, s1, s2)`` with ``gap = ("indexed",
+    0.0)``.  prim / cont / ctr / law are int32, key int64, the rest f64,
     all flat ``(L,)``.
 
-    CUDA tensors launch ``sim_step_primitive_update``; CPU tensors run the
-    plain version.  ``masked_primitive_update.launches`` counts the kernel
-    launches."""
+    CUDA tensors launch ``sim_step_primitive_update`` (its ``_indexed``
+    variant for the 8-tuple); CPU tensors run the plain version.
+    ``masked_primitive_update.launches`` counts the single-law kernel's
+    launches, ``.indexed_launches`` the law-indexed kernel's."""
     f64, i32 = torch.float64, torch.int32
     specs = [
         ("prim", prim, i32), ("cont", cont, i32), ("target", target, f64),
@@ -359,16 +425,21 @@ def masked_primitive_update(
         ("saved", saved, f64), ("unsaved", unsaved, f64), ("pw", pw, f64),
         ("W", W, f64), ("DR", DR, f64),
     ]
+    indexed = False
     if stream is not None:
-        skey, sctr, stm, smean, shorizon = stream
+        if len(stream) not in (5, 8):
+            raise ValueError("masked_primitive_update: stream must be a 5- or 8-tuple")
+        skey, sctr, stm, smean, shorizon = stream[:5]
         if stm is not nf:
             raise ValueError(
                 "masked_primitive_update: stream[2] must be the nf tensor"
             )
+        indexed = gap[0] == "indexed"
+        law, lp = (stream[5], stream[6:8]) if len(stream) == 8 else (None, None)
         specs += [
             ("key", skey, torch.int64), ("ctr", sctr, i32),
             ("mean", smean, f64), ("horizon", shorizon, f64),
-        ]
+        ] + _law_specs(gap[0], law, lp)
     dev = _check("masked_primitive_update", specs)
     if dev.type == "cpu":
         out = primitive_update(
@@ -384,31 +455,45 @@ def masked_primitive_update(
         return t, saved, unsaved, pw, out[4], sctr, nf
     from . import build
 
+    lib = build.load("sim_step")
     flags = torch.empty_like(prim)
-    if stream is None:
-        law, p1, p2 = LAW_EXPONENTIAL, 0.0, 0.0
-        gen, kptr, cptr, mptr, hptr = 0, None, None, None, None
-    else:
-        law, p1, p2 = law_constants(*gap)
-        gen = 1
-        kptr, cptr = skey.data_ptr(), sctr.data_ptr()
-        mptr, hptr = smean.data_ptr(), shorizon.data_ptr()
-    rc = build.load("sim_step").sim_step_primitive_update(
+    head = (
         t.numel(), prim.data_ptr(), cont.data_ptr(), target.data_ptr(),
         ckend.data_ptr(), nf.data_ptr(), t.data_ptr(), saved.data_ptr(),
         unsaved.data_ptr(), pw.data_ptr(), W.data_ptr(), DR.data_ptr(),
-        flags.data_ptr(), float(eps), int(reg_cont), gen,
-        kptr, cptr, mptr, hptr, law, p1, p2, _stream_ptr(dev),
+        flags.data_ptr(), float(eps), int(reg_cont),
     )
+    if indexed:
+        rc = lib.sim_step_primitive_update_indexed(
+            *head, skey.data_ptr(), sctr.data_ptr(), smean.data_ptr(),
+            shorizon.data_ptr(), *(x.data_ptr() for x in stream[5:8]),
+            _stream_ptr(dev),
+        )
+    else:
+        if stream is None:
+            law, p1, p2 = LAW_EXPONENTIAL, 0.0, 0.0
+            gen, kptr, cptr, mptr, hptr = 0, None, None, None, None
+        else:
+            law, p1, p2 = law_constants(*gap)
+            gen = 1
+            kptr, cptr = skey.data_ptr(), sctr.data_ptr()
+            mptr, hptr = smean.data_ptr(), shorizon.data_ptr()
+        rc = lib.sim_step_primitive_update(
+            *head, gen, kptr, cptr, mptr, hptr, law, p1, p2, _stream_ptr(dev),
+        )
     _raise_on("masked_primitive_update", rc)
     if t.numel():
-        masked_primitive_update.launches += 1
+        if indexed:
+            masked_primitive_update.indexed_launches += 1
+        else:
+            masked_primitive_update.launches += 1
     if stream is None:
         return t, saved, unsaved, pw, flags
     return t, saved, unsaved, pw, flags, sctr, nf
 
 
 masked_primitive_update.launches = 0
+masked_primitive_update.indexed_launches = 0
 
 
 # --------------------------------------------------------------------------- #
@@ -468,6 +553,25 @@ def sample_lane_state(L: int, seed: int) -> dict:
         "horizon": np.where(rng.random(L) < 0.9, 12 * W, t + 1e4),
         "mask": rng.random(L) < 0.5,
     }
+
+
+#: the laws the law-indexed checks draw lanes from: every family, and both
+#: Weibull strength reductions (k = 0.5 gives s2 = 2.0, k = 2.0 s2 = 0.5)
+SAMPLE_LAWS = (("exponential", 0.0), ("weibull", 0.7), ("weibull", 0.5),
+               ("weibull", 2.0), ("lognormal", 1.0), ("uniform", 0.0))
+
+
+def sample_lane_laws(L: int, seed: int, block: int = 1) -> dict:
+    """Seeded per-lane inputs of the law-indexed variant: each run of
+    ``block`` lanes takes one law of :data:`SAMPLE_LAWS` (``block=1``
+    mixes laws lane by lane; the sweep's lanes come in runs of one cell).
+    ``pick`` is each lane's index into :data:`SAMPLE_LAWS`; ``law``,
+    ``s1``, ``s2`` are :func:`law_constants`' values."""
+    rng = np.random.default_rng(seed)
+    pick = np.repeat(rng.integers(0, len(SAMPLE_LAWS), -(-L // block)), block)[:L]
+    consts = np.array([law_constants(k, p) for k, p in SAMPLE_LAWS])
+    return {"pick": pick, "law": consts[pick, 0].astype(np.int32),
+            "s1": consts[pick, 1], "s2": consts[pick, 2]}
 
 
 def lane_state_tensors(x: dict, device) -> dict:

@@ -31,6 +31,7 @@ import torch
 from .. import configs
 from ..configs.base import ArchConfig
 from ..core.events import make_event_trace
+from ..core.torch_sim import resolve_device
 from .steps import build_decode_step, build_model, build_prefill_step
 
 __all__ = ["serve", "fault_trace", "main"]
@@ -66,8 +67,9 @@ def serve(cfg: ArchConfig, *, requests: int, prompt_len: int, gen: int,
           device=None) -> dict:
     """Serve ``requests`` prompts of ``prompt_len`` tokens (drawn from
     ``np.random.default_rng(seed)`` as the reference draws them) and
-    generate ``gen`` tokens each, greedily, on ``device`` (CUDA by
-    default).  Weights come from a ``torch.Generator`` seeded with
+    generate ``gen`` tokens each, greedily, on ``device`` (the current
+    CUDA device by default; without CUDA and without ``device`` it raises
+    before building the model).  Weights come from a ``torch.Generator`` seeded with
     ``seed`` on that device.  A fault at wall time
     ``fault_times[i]`` (s from the start of prefill) restores the last
     snapshot.
@@ -75,7 +77,7 @@ def serve(cfg: ArchConfig, *, requests: int, prompt_len: int, gen: int,
     Returns ``tokens`` (``(requests, gen)`` int32, on the CPU), ``faults``,
     ``redecoded`` (tokens decoded again after a restore), ``decode_steps``
     (all decode steps run), ``prefill_s``, ``decode_s`` and ``wall_s``."""
-    dev = torch.device("cuda" if device is None else device)
+    dev = resolve_device(device)
     model = build_model(cfg)
     g = torch.Generator(device=dev)
     g.manual_seed(seed)

@@ -1,11 +1,13 @@
 """The port's copies of the reference host code, held against the
 reference: rate identities, laws, periods, strategies, lane codes,
-per-lane packing, the fused layout, the chunk packers and the host
+per-lane packing, the fused layout, the chunk packers, the mixed-law
+layout (law tables, concatenated specs, law columns) and the host
 checkpoint codec.  Everything
 here is NumPy or Python doubles on both sides, so every comparison is
 exact."""
 
 import math
+from dataclasses import replace
 
 import jax
 import numpy as np
@@ -263,6 +265,128 @@ def test_tables_from_numpy_round_trips():
     state = PT._to_device(sb, "cpu")
     state["t"][0] = math.pi
     assert state["saved"][0] == 0.0 and sb["t"][0] == 0.0
+
+
+# --------------------------------------------------------------------------- #
+# the mixed-law layout
+# --------------------------------------------------------------------------- #
+#: (reference law, port law) pairs of every family and both Weibull
+#: strength reductions
+MIXED = [(RE.exponential(), PE.exponential()), (RE.weibull(0.7), PE.weibull(0.7)),
+         (RE.weibull(0.5), PE.weibull(0.5)), (RE.weibull(2.0), PE.weibull(2.0)),
+         (RE.lognormal(1.0), PE.lognormal(1.0)), (RE.lognormal(0.5), PE.lognormal(0.5)),
+         (RE.uniform(), PE.uniform())]
+
+
+def _mixed_grids(laws, preset="validation", n_runs=3):
+    ref = [replace(c, label=f"{i}/{c.label}", fault_dist=r)
+           for i, (r, _) in enumerate(laws) for c in ref_cells(preset)]
+    port = [replace(c, label=f"{i}/{c.label}", fault_dist=p)
+            for i, (_, p) in enumerate(laws) for c in paper_grid_cells(preset)]
+    return RGridSpec(tuple(ref), n_runs=n_runs, seed=5), GridSpec(tuple(port), n_runs=n_runs, seed=5)
+
+
+def _same_spec(a, b):
+    for k in ("horizon", "mtbf", "recall", "precision", "window", "lead", "stream",
+              "cell_index", "fp_mean"):
+        np.testing.assert_array_equal(getattr(a, k), getattr(b, k), err_msg=k)
+        assert getattr(a, k).dtype == getattr(b, k).dtype, k
+    assert a.seed == b.seed
+    for k in ("fault_dist", "false_pred_dist"):
+        da, db = getattr(a, k), getattr(b, k)
+        assert isinstance(da, tuple) == isinstance(db, tuple), k
+        da, db = (da, db) if isinstance(da, tuple) else ((da,), (db,))
+        assert [(d.kind, d.param) for d in da] == [(d.kind, d.param) for d in db], k
+
+
+def test_law_table_matches():
+    ref, port = zip(*(MIXED * 2))
+    la, lpa = PE.law_table(port)
+    lb, lpb = RE.law_table(ref)
+    np.testing.assert_array_equal(la, lb)
+    np.testing.assert_array_equal(lpa, lpb)
+    assert la.dtype == lb.dtype and lpa.dtype == lpb.dtype
+    # the slots are the single-law kernels' folded constants, bit for bit
+    from repro_torch.kernels.sim_step import law_constants
+    for d, code, row in zip(port, la, lpa):
+        assert law_constants(d.kind, d.param) == (code, row[1], row[2])
+
+
+def test_gap_transform_indexed_np_matches():
+    rng = np.random.default_rng(13)
+    law, lp = RE.law_table([r for r, _ in MIXED])
+    pick = rng.integers(0, len(MIXED), 5000)
+    x0, x1 = (rng.integers(0, 2**32, 5000, dtype=np.uint32) for _ in range(2))
+    mean = np.where(rng.random(5000) < 0.05, np.inf, rng.uniform(1e2, 3e5, 5000))
+    args = (law[pick], lp[pick, 1], lp[pick, 2], mean, x0, x1)
+    np.testing.assert_array_equal(PE.gap_transform_indexed_np(*args),
+                                  RE.gap_transform_indexed_np(*args))
+
+
+def test_require_inverse_cdf_matches():
+    for r, p in MIXED:
+        PE.require_inverse_cdf(p)
+        RE.require_inverse_cdf(r)
+    with pytest.raises(ValueError, match="inverse-CDF"):
+        PE.require_inverse_cdf(PE.Distribution("custom", "custom"))
+
+
+def test_mixed_trace_specs_match():
+    """The mixed-law layout's specs: concat_cells of the per-family specs,
+    indexed(), and make_trace_spec given one law per cell."""
+    ref, port = _mixed_grids(MIXED[:3])
+    a, b = build_fused_layout(port), ref_layout(ref, "device")
+    assert a.n_groups == b.n_groups == 3
+    _same_spec(a.concat_spec(), b.concat_spec())
+    _same_spec(PE.TraceSpec.concat_cells(a.specs), RE.TraceSpec.concat_cells(b.specs))
+    for sa, sb in zip(a.specs, b.specs):
+        _same_spec(sa, sb)
+        _same_spec(sa.indexed(), sb.indexed())
+        _same_spec(sa.indexed().indexed(), sb.indexed())
+    spec = a.concat_spec()
+    assert isinstance(spec.fault_dist, tuple) and len(spec.fault_dist) == spec.n_cells
+    laws_p = tuple(PE.weibull(0.5 + 0.1 * i) for i in range(4))
+    laws_r = tuple(RE.weibull(0.5 + 0.1 * i) for i in range(4))
+    kw = dict(horizon=1e6, mtbf=[1e3, 2e3, 3e3, 4e3], recall=0.5, precision=0.7,
+              stream=np.arange(10) + 7, cell_index=np.arange(10) % 4, seed=3)
+    _same_spec(PE.make_trace_spec(10, fault_dist=laws_p, **kw),
+               RE.make_trace_spec(10, fault_dist=laws_r, **kw))
+    _same_spec(PE.make_trace_spec(10, fault_dist=laws_p, false_pred_dist=PE.uniform(), **kw),
+               RE.make_trace_spec(10, fault_dist=laws_r, false_pred_dist=RE.uniform(), **kw))
+    with pytest.raises(ValueError, match="one entry per cell"):
+        PE.make_trace_spec(10, fault_dist=laws_p[:3], **kw)
+    with pytest.raises(ValueError, match="shared seed"):
+        PE.TraceSpec.concat_cells([a.specs[0], replace(a.specs[1], seed=6)])
+
+
+def test_mixed_cell_tables_match():
+    """The law columns of the cell tables (fault and false-prediction
+    streams; padding rows exponential with zero slots) and their chunk."""
+    ref, port = _mixed_grids(MIXED[1:5], n_runs=2)
+    la, lb = build_fused_layout(port), ref_layout(ref, "device")
+    sa, sb = la.concat_spec(), lb.concat_spec()
+    n_cells = sb.n_cells
+    n_tab = max(8, 1 << n_cells.bit_length())
+    W, C, D, R, M, T_R, T_P, mode, q = PB._lane_params(la.work_c, la.plats_c, la.strats_c, n_cells)
+    q_eff = np.where(mode == PB._M_NONE, 0.0, np.clip(q, 0.0, 1.0))
+    args = (n_cells, n_tab, np.float64, W, C, D, R, M, T_R, T_P, mode, sb.horizon, sb.window)
+    laws = dict(fault_laws=PE.law_table(sa.fault_dist), fp_laws=PE.law_table(sa.false_pred_dist))
+    ta = PT._cell_tables(*args, sa.mtbf, sa.fp_mean, sa.recall, q_eff, **laws)
+    tb = RJ._cell_tables(*args, -1.0, mtbf=sb.mtbf, fp_mean=sb.fp_mean, recall=sb.recall,
+                         q_eff=q_eff, fault_laws=RE.law_table(sb.fault_dist),
+                         fp_laws=RE.law_table(sb.false_pred_dist))
+    assert set(ta) == set(PT._CELL_TABLE_KEYS + PT._LAW_TABLE_KEYS) <= set(RJ._CELL_TABLE_KEYS)
+    for k, v in ta.items():
+        np.testing.assert_array_equal(v, tb[k], err_msg=k)
+        assert v.dtype == tb[k].dtype, k
+    assert (ta["fault_law"][n_cells:] == 0).all() and (ta["fp_s2"][n_cells:] == 0).all()
+    sl = slice(5, 5 + 300)
+    ca, _ = PT._pack_chunk_spec_cells(ta, sa, sa.cell_index, n_cells, sl, 384,
+                                      np.float64, np.int64)
+    cb, _ = RJ._pack_chunk_spec_cells(tb, sb, sb.cell_index, n_cells, sl, 384,
+                                      np.float64, np.int64)
+    for k in PT._LAW_TABLE_KEYS + ("cidx",):
+        np.testing.assert_array_equal(ca[k], cb[k], err_msg=k)
 
 
 # --------------------------------------------------------------------------- #

@@ -177,6 +177,21 @@ def test_init_cache_runs_on_cuda_unless_told_otherwise(monkeypatch):
         smollm.init_cache(2, 16)
 
 
+def test_serve_needs_a_device_without_cuda(monkeypatch):
+    """serve() resolves its device as every entry point does: without CUDA
+    and without ``device`` it raises the port's own error before it builds
+    the model."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def no_model(cfg):
+        raise AssertionError("serve() built the model before resolving its device")
+
+    monkeypatch.setattr(SV, "build_model", no_model)
+    for name in ("rwkv6-7b", "smollm-135m"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            SV.serve(configs.get(name).reduced(), requests=1, prompt_len=4, gen=2)
+
+
 # --------------------------------------------------------------------------- #
 # Prefill and decode against the reference model
 # --------------------------------------------------------------------------- #

@@ -198,9 +198,22 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
         PT.resolve_device(None)
 
 
-def test_mixed_law_grid_is_a_later_slice():
-    cells = paper_grid_cells("validation", n_list=[2**14])[:2]
-    cells.append(paper_grid_cells("validation", n_list=[2**16],
-                                  fault_dist=PE.weibull(0.7))[0])
-    with pytest.raises(NotImplementedError, match="later slice"):
-        run_grid(GridSpec(tuple(cells), n_runs=2), device="cpu")
+def test_mixed_law_grid_runs_as_the_reference():
+    """A grid mixing two law families runs in one dispatch on the
+    law-indexed sampler, cell for cell the reference's fused run."""
+    def cells(mk, law):
+        out = mk("validation", n_list=[2**14])[:2]
+        return out + [mk("validation", n_list=[2**16], fault_dist=law)[0]]
+
+    ref_grid = RGridSpec(tuple(cells(ref_cells, RE.weibull(0.7))), n_runs=2)
+    grid = GridSpec(tuple(cells(paper_grid_cells, PE.weibull(0.7))), n_runs=2)
+    spec = PE.make_trace_spec(2, 1e6, 1e3, 0.5, 0.7, fault_dist=[PE.weibull(0.7)],
+                              cell_index=[0, 0])
+    assert spec.fault_dist == spec.false_pred_dist == (PE.weibull(0.7),)
+    port = run_grid(grid, device="cpu", collect="lanes")
+    ref = _ref(ref_grid, "lanes")
+    assert port.meta["dispatches"] == 1 and port.meta["sampler"] == "indexed"
+    assert port.labels() == ref.labels()
+    for a, b in zip(ref.cells, port.cells):
+        assert _diff_lanes(a, b) == [], a.cell.label
+        np.testing.assert_allclose(b.makespan, a.makespan, rtol=1e-9, atol=0)

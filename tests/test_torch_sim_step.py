@@ -308,3 +308,53 @@ def test_kernels_match_plain_versions_on_card(cuda_device, kind, param):
                                      s["horizon"], kind=kind, param=param)
     assert torch.equal(gc, wc)
     assert _ulps(gt, wt) <= 4
+
+
+def _indexed_lanes(dev, L: int, seed: int, block: int):
+    x = {**K.sample_lane_state(L, seed), **K.sample_lane_laws(L, seed + 1, block)}
+    return {k: v.to(dev) for k, v in K.lane_state_tensors(x, "cpu").items()}
+
+
+def _indexed_run(tx, plain: bool):
+    s = {k: v.clone() for k, v in tx.items()}
+    prim = K.primitive_update if plain else K.masked_primitive_update
+    adv = K.stream_advance if plain else K.masked_stream_advance
+    p = prim(*(s[k] for k in _PRIM_ARGS), eps=1e-6, reg_cont=1, gap=("indexed", 0.0),
+             stream=(s["key"], s["ctr"], s["nf"], s["mean"], s["horizon"],
+                     s["law"], s["s1"], s["s2"]))
+    s = {k: v.clone() for k, v in tx.items()}
+    a = adv(s["mask"], s["ctr"], s["nf"], s["key"], s["mean"], s["horizon"],
+            kind="indexed", param=0.0, law=s["law"], lp=(s["s1"], s["s2"]))
+    return p, a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [1, 1000])
+def test_indexed_kernels_match_plain_versions_on_card(cuda_device, block):
+    tx = _indexed_lanes(cuda_device, 100_000, 13, block)
+    n0 = (K.masked_primitive_update.indexed_launches, K.masked_stream_advance.indexed_launches)
+    (gp, ga), (wp, wa) = _indexed_run(tx, False), _indexed_run(tx, True)
+    assert (K.masked_primitive_update.indexed_launches,
+            K.masked_stream_advance.indexed_launches) == (n0[0] + 1, n0[1] + 1)
+    for g, w in zip(gp[:6], wp[:6]):
+        assert torch.equal(g, w)
+    assert _ulps(gp[6], wp[6]) <= 4
+    assert torch.equal(ga[0], wa[0]) and _ulps(ga[1], wa[1]) <= 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("li", range(len(K.SAMPLE_LAWS)))
+def test_indexed_kernels_give_single_law_bits_on_card(cuda_device, li):
+    kind, param = K.SAMPLE_LAWS[li]
+    tx = _indexed_lanes(cuda_device, 100_000, 14, 1)
+    gp, ga = _indexed_run(tx, False)
+    s = {k: v.clone() for k, v in tx.items()}
+    sp = K.masked_primitive_update(*(s[k] for k in _PRIM_ARGS), eps=1e-6, reg_cont=1,
+                                   stream=(s["key"], s["ctr"], s["nf"], s["mean"],
+                                           s["horizon"]), gap=(kind, param))
+    s = {k: v.clone() for k, v in tx.items()}
+    sa = K.masked_stream_advance(s["mask"], s["ctr"], s["nf"], s["key"], s["mean"],
+                                 s["horizon"], kind=kind, param=param)
+    on = tx["pick"] == li
+    for g, w in zip(gp + ga, sp + sa):
+        assert torch.equal(g[on], w[on])  # 0 ulp on this law's lanes
