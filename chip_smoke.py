@@ -21,15 +21,19 @@ codec's error bound, with 30 kernel launches a codec save or restore),
 a buddy save and restore after node loss; and the codec kernels' times.
 
 Then the serving path of SmolLM-135M (phases 11-14): the two attention
-kernels (``flash_attention_bhsd``, ``decode_attention_bhd``) against their
+kernels (``flash_attention_bhsd``: the tensor-core kernel on bf16, the f32
+one on f32, each case's variant checked; ``decode_attention_bhd``: split
+and combine kernels, at pos -1, a split's edges and beyond) against their
 plain versions at the path's shapes, in bf16 and f32; the model on the
 card against the port on the CPU (full width, 2 layers, f32); the path
 itself, ``repro_torch.launch.serve`` at full width and depth (8 requests
 of 1024 prompt tokens, 128 generated), once without faults and once with
 wall-clock faults, whose tokens must equal the fault-free ones, with 30
-flash launches a prefill and 30 decode launches a decode step, and a
-dense-attention run held to the kernel run; and the kernels' times beside
-their bounds, plain versions and ``scaled_dot_product_attention``.
+flash launches a prefill (all on the tensor-core kernel) and 30 decode
+calls a decode step, and a dense-attention run held to the kernel run;
+and the kernels' times beside their bounds, plain versions and
+``scaled_dot_product_attention`` (and the device kernels of one decode
+call, counted in a profiler trace).
 
 Then the serving path of RWKV6-7B (phases 15-18): the WKV6 kernel
 (``wkv6_bhsd``) against its plain version at the path's prefill and
@@ -717,6 +721,19 @@ def flash_inputs(B, S, T, H, KV, hd, dt, seed, dev):
                  for shape in ((B, S, H, hd), (B, T, KV, hd), (B, T, KV, hd)))
 
 
+def device_kernels(fn, names) -> dict:
+    """How many times each device kernel named in ``names`` ran in one
+    call of ``fn``, counted in a ``torch.profiler`` trace of the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {n: sum(n in e.name for e in prof.events()) for n in names}
+
+
 def serving_phases(dev, launch_floor_ms: float) -> list:
     """Phases 11-14: the attention kernels against their plain versions,
     the model on the card against the port on the CPU, the serving path,
@@ -756,21 +773,27 @@ def serving_phases(dev, launch_floor_ms: float) -> list:
                 q = q.transpose(1, 2).reshape(B * H, s_, hd).contiguous()
                 k = k.repeat_interleave(H // KV, dim=2).transpose(1, 2).reshape(B * H, t_, hd).contiguous()
                 v = v.repeat_interleave(H // KV, dim=2).transpose(1, 2).reshape(B * H, t_, hd).contiguous()
+            tc0 = FA.flash_attention_bhsd.tc_launches
+            if bhsd:
                 got, want = FA.flash_attention_bhsd(q, k, v, causal), FA.flash_attention_ref(q, k, v, causal)
             else:
                 got, want = ops.flash_attention(q, k, v, causal), FA.attention_ref(q, k, v, causal)
             torch.cuda.synchronize()
+            variant = "tc" if FA.flash_attention_bhsd.tc_launches > tc0 else "simt"
+            check(variant == ("tc" if dt == torch.bfloat16 else "simt"),
+                  f"flash_attention_bhsd/{what}/{dn} took the {variant} kernel")
             e = attn_close(got, want, f"flash_attention_bhsd/{what}/{dn}")
             err["flash_attention_bhsd"] = max(err["flash_attention_bhsd"], e)
             cases.append({"kernel": "flash_attention_bhsd", "case": what, "dtype": dn,
-                          "q": list(q.shape), "k": list(k.shape), "causal": causal,
-                          "max_abs_err": e})
+                          "variant": variant, "q": list(q.shape), "k": list(k.shape),
+                          "causal": causal, "max_abs_err": e})
         g = torch.Generator(device=dev)
         g.manual_seed(20)
         kc = torch.randn((B, max_seq, KV, hd), generator=g, device=dev).to(torch.bfloat16)
         vc = torch.randn((B, max_seq, KV, hd), generator=g, device=dev).to(torch.bfloat16)
         qd = torch.randn((B, 1, H, hd), generator=g, device=dev).to(dt)
-        for pos in (0, 511, 1023, max_seq - 1):
+        R = DA.SPLIT_ROWS  # pos -1: every split live; R - 1 and R: a split's edge
+        for pos in (-1, 0, R - 1, R, 511, 1023, max_seq - 1):
             p = torch.tensor(pos, dtype=torch.int32, device=dev)
             got = ops.decode_attention(qd, kc, vc, p)
             want = DA.attention_ref(qd[:, 0], kc, vc, p).unsqueeze(1)
@@ -832,14 +855,18 @@ def serving_phases(dev, launch_floor_ms: float) -> list:
     kw = dict(requests=REQUESTS, prompt_len=PROMPT_LEN, gen=GEN,
               snapshot_every=SNAPSHOT_EVERY, seed=SERVE_SEED, device=dev)
     FA.flash_attention_bhsd.launches = 0
+    FA.flash_attention_bhsd.tc_launches = 0
     DA.decode_attention_bhd.launches = 0
     torch.cuda.synchronize()
     clean = serve(cfg, **kw)
     launches = {"flash_attention_bhsd": FA.flash_attention_bhsd.launches,
                 "decode_attention_bhd": DA.decode_attention_bhd.launches}
+    tc_launches = FA.flash_attention_bhsd.tc_launches
     check(clean["decode_steps"] == GEN - 1, f"fault-free run took {clean['decode_steps']} steps")
     check(launches["flash_attention_bhsd"] == L,
           f"flash_attention_bhsd launched {launches['flash_attention_bhsd']} times in one prefill")
+    check(tc_launches == L, f"{tc_launches} of the prefill's {L} flash launches took the "
+          "tensor-core kernel")
     check(launches["decode_attention_bhd"] == L * clean["decode_steps"],
           f"decode_attention_bhd launched {launches['decode_attention_bhd']} times in "
           f"{clean['decode_steps']} decode steps")
@@ -850,10 +877,13 @@ def serving_phases(dev, launch_floor_ms: float) -> list:
     mtbf = clean["decode_s"] / 4
     times = fault_trace(SERVE_SEED, mtbf)[:MAX_FAULTS]
     FA.flash_attention_bhsd.launches = 0
+    FA.flash_attention_bhsd.tc_launches = 0
     DA.decode_attention_bhd.launches = 0
     faulted = serve(cfg, fault_times=times, **kw)
     f_launch = {"flash_attention_bhsd": FA.flash_attention_bhsd.launches,
                 "decode_attention_bhd": DA.decode_attention_bhd.launches}
+    check(FA.flash_attention_bhsd.tc_launches == L,
+          "the faulted run's prefill did not take the tensor-core flash kernel")
     check(faulted["faults"] >= 1, "no fault landed in the faulted run")
     check(torch.equal(faulted["tokens"], toks_clean),
           f"faulted run's tokens differ from the fault-free run's in "
@@ -897,6 +927,7 @@ def serving_phases(dev, launch_floor_ms: float) -> list:
          prefill_s=clean["prefill_s"], decode_s=clean["decode_s"],
          decode_ms_per_token=steps_ms, tokens_per_s=REQUESTS * GEN / clean["wall_s"],
          wall_s=clean["wall_s"], launches=launches,
+         flash_tc_launches=tc_launches,
          faulted={"mtbf_s": mtbf, "fault_times_s": times, "faults": faulted["faults"],
                   "redecoded": faulted["redecoded"], "decode_steps": faulted["decode_steps"],
                   "wall_s": faulted["wall_s"], "decode_s": faulted["decode_s"],
@@ -914,7 +945,10 @@ def serving_phases(dev, launch_floor_ms: float) -> list:
     set_bytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
     n_sets = math.ceil(3 * L2_BYTES / set_bytes)
     sets = [flash_inputs(B, S, S, H, KV, hd, torch.bfloat16, 100 + i, dev) for i in range(n_sets)]
+    tc0 = FA.flash_attention_bhsd.tc_launches
     ms, out = device_ms([lambda x=x: ops.flash_attention(*x, True) for x in sets])
+    check(FA.flash_attention_bhsd.tc_launches > tc0, "the timed flash calls did not take the "
+          "tensor-core kernel")
     pms, pout = device_ms([lambda x=x: FA.attention_ref(*x, True) for x in sets])
     lms, lout = device_ms([lambda x=x: F.scaled_dot_product_attention(
         x[0].transpose(1, 2), x[1].transpose(1, 2), x[2].transpose(1, 2),
@@ -929,6 +963,7 @@ def serving_phases(dev, launch_floor_ms: float) -> list:
         "bytes": set_bytes, "input_sets": n_sets,
         "host_call_ms": eager_ms(lambda: ops.flash_attention(*sets[0], True), 50),
         "shape": f"q ({B}, {S}, {H}, {hd}), k/v ({B}, {S}, {KV}, {hd}) bf16, causal",
+        "variant": "tc",
     }
     del sets, out, pout, lout
     # decode: one decode step's 30 launches, each on its layer's cache, at
@@ -947,6 +982,9 @@ def serving_phases(dev, launch_floor_ms: float) -> list:
         enable_gqa=True) for x in layers])
     attn_close(out, pout.unsqueeze(1), "decode_attention_bhd (timed) against its plain version")
     attn_close(out, lout.transpose(1, 2), "decode_attention_bhd (timed) against sdpa")
+    dk = device_kernels(lambda: ops.decode_attention(*layers[0], p),
+                        ("decode_split_kernel", "decode_combine_kernel"))
+    check(all(n == 1 for n in dk.values()), f"one decode call ran the device kernels {dk}")
     d_bytes = 2 * B * (pos + 1) * KV * hd * 2 + 2 * B * H * hd * 2 + 4
     d_ops = 4 * hd * B * H * (pos + 1)
     t_ops, t_bytes = d_ops / PEAK_BF16_S * 1e3, d_bytes / PEAK_BYTES_S * 1e3
@@ -956,6 +994,8 @@ def serving_phases(dev, launch_floor_ms: float) -> list:
         "bytes": d_bytes, "pos": pos, "launch_floor_ms": launch_floor_ms,
         "host_call_ms": eager_ms(lambda: ops.decode_attention(*layers[0], p), 200),
         "shape": f"q ({B}, 1, {H}, {hd}), cache ({B}, {max_seq}, {KV}, {hd}) bf16, pos {pos}",
+        "device_kernels": sum(dk.values()), "device_kernels_by_name": dk,
+        "split_rows": DA.SPLIT_ROWS, "splits": DA.split_count(max_seq),
     }
     del layers, out, pout, lout
     # one whole decode step of the path, replayed as a CUDA graph (device
@@ -977,12 +1017,14 @@ def serving_phases(dev, launch_floor_ms: float) -> list:
 
     kernels = []
     for name, t in timing.items():
+        extra = ({"variant": t["variant"]} if name == "flash_attention_bhsd" else
+                 {"device_kernels": t["device_kernels"], "split_rows": t["split_rows"]})
         kernels.append({
             "name": name, "route": "cuda", "source": ATTN_SOURCE.format(name.rsplit("_", 1)[0]),
             "replaces": ATTN_REPLACES[name], "launches": launches[name],
             "max_abs_err": err[name], **{k: t[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-            "host_call_ms": t["host_call_ms"], "shape": t["shape"],
+            "host_call_ms": t["host_call_ms"], "shape": t["shape"], **extra,
         })
     return kernels
 

@@ -70,10 +70,13 @@ _SIGNATURES = {
     "flash_attention": {
         # q, k, v, o; dtype, B, H, KV, S, T, hd, causal, vec; 12 strides
         "flash_attention_fwd": [_P] * 4 + [_I32] * 9 + [_I64] * 12 + [_P],
+        # q, k, v, o; B, H, KV, S, T, hd, causal; 12 strides
+        "flash_attention_tc_fwd": [_P] * 4 + [_I32] * 7 + [_I64] * 12 + [_P],
     },
     "decode_attention": {
-        # q, k, v, pos, o; q / kv dtype, B, H, KV, S, hd, vec; 10 strides
-        "decode_attention_fwd": [_P] * 5 + [_I32] * 8 + [_I64] * 10 + [_P],
+        # q, k, v, pos, scratch, o; q / kv dtype, B, H, KV, S, hd, vec;
+        # 10 strides
+        "decode_attention_fwd": [_P] * 6 + [_I32] * 8 + [_I64] * 10 + [_P],
     },
     "rwkv6": {
         # r, k, v, w, u, s0, y, sT; B, S, H, hd; 23 strides

@@ -6,19 +6,29 @@ kernel wrapper.
 which rows ``0..pos`` take part (the reference's kernel layout; query row
 ``bh`` reads cache row ``bh // (BH // BHk)``).  :func:`attention` is the
 same function in the model layout, ``q`` ``(B, H, hd)`` over the serving
-cache ``(B, S_max, KV, hd)``.  Both wrap the hand-written CUDA kernel
-``csrc/decode_attention.cu`` (built by :mod:`.build`), which replaces the
+cache ``(B, S_max, KV, hd)``.  Both wrap the hand-written CUDA kernels of
+``csrc/decode_attention.cu`` (built by :mod:`.build`), which replace the
 reference's Pallas kernel of the same name.
 
-``pos`` is a 0-d int32 tensor on the operands' device: the kernel reads
-it there, so a step never waits for the host.  Scores and softmax are
-f32; ``q`` may be f32 over a bf16 cache; the output has ``q``'s dtype.
+A call on CUDA tensors launches two device kernels on the current stream
+(flash-decoding): a split pass over ``split_count(S_max)`` blocks per
+(KV head, batch), each taking ``SPLIT_ROWS`` (128, a constant of the
+kernel's source) cache rows and writing its running max, sum and
+unnormalised accumulator to an f32 scratch ``(B, H, splits, hd + 2)``
+that the wrapper allocates; then a combine pass that merges the live
+splits in split order.  The grid depends on ``S_max`` only, never on
+``pos``.
+
+``pos`` is a 0-d int32 tensor on the operands' device: the kernels read
+it there, so a step never waits for the host and can be replayed as a
+CUDA graph at any ``pos``.  Scores and softmax are f32; ``q`` may be f32
+over a bf16 cache; the output has ``q``'s dtype.
 :func:`decode_attention_ref` is the plain version (the math of the
 reference's ``kernels/ref.decode_attention_ref`` and
 ``models/layers.attention_decode``).  A wrapper given CPU tensors runs
-the plain version; given CUDA tensors it launches the kernel or raises.
-``decode_attention_bhd.launches`` counts the kernel's launches from
-either entry.
+the plain version; given CUDA tensors it launches the kernels or raises.
+``decode_attention_bhd.launches`` counts calls (one per attention, two
+device kernels each) from either entry.
 """
 
 from __future__ import annotations
@@ -32,7 +42,19 @@ from .flash_attention import (
 )
 from .sim_step import _raise_on, _stream_ptr
 
-__all__ = ["decode_attention_ref", "decode_attention_bhd", "attention", "attention_ref"]
+__all__ = ["decode_attention_ref", "decode_attention_bhd", "attention", "attention_ref",
+           "split_count", "SPLIT_ROWS"]
+
+#: cache rows per block of the split pass: ``kSplitRows`` of
+#: ``csrc/decode_attention.cu`` (PERF.md has the sweep that chose it)
+SPLIT_ROWS = 128
+
+
+def split_count(s_max: int) -> int:
+    """Blocks of the split pass per (KV head, batch) for a cache of
+    ``s_max`` rows: ``ceil(s_max / SPLIT_ROWS)``.  Depends on the cache's
+    size only, never on ``pos``."""
+    return -(-s_max // SPLIT_ROWS)
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -88,18 +110,20 @@ def _check(name, q, k, v, pos):
 
 
 def _launch(q3, k4, v4, pos, o3) -> None:
-    """Launch the kernel on (batch, head, hd) and (batch, seq, head, hd)
-    views."""
+    """Launch the split and combine kernels on (batch, head, hd) and
+    (batch, seq, head, hd) views."""
     from . import build
 
     B, H, hd = q3.shape
     S, KV = k4.shape[1], k4.shape[2]
-    if B > 65535:
-        raise ValueError("decode_attention_bhd: batch must be <= 65535")
+    if B > 65535 or KV > 65535:
+        raise ValueError("decode_attention_bhd: batch and KV heads must each be <= 65535")
+    part = torch.empty(B * H * split_count(S) * (hd + 2), dtype=torch.float32,
+                       device=q3.device)
     rc = build.load("decode_attention").decode_attention_fwd(
-        q3.data_ptr(), k4.data_ptr(), v4.data_ptr(), pos.data_ptr(), o3.data_ptr(),
-        _DTYPE_CODE[q3.dtype], _DTYPE_CODE[k4.dtype], B, H, KV, S, hd,
-        int(_rows_aligned((k4, v4), hd)),
+        q3.data_ptr(), k4.data_ptr(), v4.data_ptr(), pos.data_ptr(), part.data_ptr(),
+        o3.data_ptr(), _DTYPE_CODE[q3.dtype], _DTYPE_CODE[k4.dtype], B, H, KV, S, hd,
+        int(_rows_aligned((q3, k4, v4), hd)),
         q3.stride(0), q3.stride(1), k4.stride(0), k4.stride(1), k4.stride(2),
         v4.stride(0), v4.stride(1), v4.stride(2), o3.stride(0), o3.stride(1),
         _stream_ptr(q3.device),
@@ -115,7 +139,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``k`` / ``v`` ``(B, S_max, KV, hd)``, ``pos`` a one-element int32
     tensor -> a fresh ``(B, H, hd)`` in ``q``'s dtype.
 
-    CUDA tensors launch the kernel; CPU tensors run :func:`attention_ref`."""
+    CUDA tensors launch the kernels; CPU tensors run :func:`attention_ref`."""
     dev = _check("attention", q, k, v, pos)
     if dev.type == "cpu":
         return attention_ref(q, k, v, pos.reshape(()))
@@ -130,7 +154,7 @@ def decode_attention_bhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``k`` / ``v`` ``(BHk, S_max, hd)`` with ``BH % BHk == 0``, ``pos`` a
     one-element int32 tensor -> a fresh ``(BH, hd)``.
 
-    CUDA tensors launch the kernel; CPU tensors run
+    CUDA tensors launch the kernels; CPU tensors run
     :func:`decode_attention_ref`."""
     for arg, x, nd in (("q", q, 2), ("k", k, 3), ("v", v, 3)):
         if not isinstance(x, torch.Tensor) or x.dim() != nd:

@@ -8,20 +8,28 @@ hd)`` and ``k`` / ``v`` ``(BHk, T, hd)``; query row ``bh`` reads K/V row
 K/V (GQA) both work.  :func:`attention` is the same function in the model
 layout, ``q`` ``(B, S, H, hd)`` and ``k`` / ``v`` ``(B, T, KV, hd)``,
 where query head ``h`` reads KV head ``h // (H // KV)``.  Both wrap the
-hand-written CUDA kernel ``csrc/flash_attention.cu`` (built by
-:mod:`.build`), which replaces the reference's Pallas kernel of the same
-name; the kernel takes strided operands, so neither layout is copied and
+hand-written CUDA kernels of ``csrc/flash_attention.cu`` (built by
+:mod:`.build`), which replace the reference's Pallas kernel of the same
+name; the kernels take strided operands, so neither layout is copied and
 the GQA repeat is never made.
+
+A call on CUDA tensors launches one device kernel, chosen by the
+operands alone (:func:`kernel_variant`): bf16 operands whose rows start
+16-byte aligned, with ``hd % 8 == 0``, take the tensor-core kernel
+(``"tc"``: ``wgmma`` products, P rounded once to bf16 before P V, as
+SDPA does); everything else -- f32, or unaligned bf16 -- takes the f32
+kernel on the CUDA cores (``"simt"``, exact to 2e-6).
 
 The causal mask lets row ``r`` see column ``c <= r + (T - S)`` (the
 prefix offset of the reference's ``models/layers._dense_attn``); masked
 scores are -1e30, so a row that sees no column averages ``v``.  Scores,
-softmax and the weighted sum are f32; the output has ``q``'s dtype (f32
-or bf16).  :func:`flash_attention_ref` is the plain version (the math of
-the reference's ``kernels/ref.flash_attention_ref``, a materialised f32
-softmax).  A wrapper given CPU tensors runs the plain version; given CUDA
-tensors it launches the kernel or raises.  ``flash_attention_bhsd.launches``
-counts the kernel's launches from either entry.
+softmax and the weighted sum accumulate in f32; the output has ``q``'s
+dtype (f32 or bf16).  :func:`flash_attention_ref` is the plain version
+(the math of the reference's ``kernels/ref.flash_attention_ref``, a
+materialised f32 softmax).  A wrapper given CPU tensors runs the plain
+version; given CUDA tensors it launches a kernel or raises.
+``flash_attention_bhsd.launches`` counts the launches from either entry,
+``flash_attention_bhsd.tc_launches`` those of the tensor-core kernel.
 """
 
 from __future__ import annotations
@@ -33,7 +41,8 @@ import torch
 
 from .sim_step import _raise_on, _stream_ptr
 
-__all__ = ["flash_attention_ref", "flash_attention_bhsd", "attention", "attention_ref"]
+__all__ = ["flash_attention_ref", "flash_attention_bhsd", "attention", "attention_ref",
+           "kernel_variant"]
 
 MASKED = -1e30
 #: kernel dtype codes
@@ -130,8 +139,20 @@ def _check(name, q, k, v):
     return _check_device(name, (q, k, v))
 
 
+def kernel_variant(q4: torch.Tensor, k4: torch.Tensor, v4: torch.Tensor,
+                   o4: torch.Tensor) -> str:
+    """The device kernel a call on these 4-D (batch, seq, head, hd)
+    operands launches: ``"tc"`` (tensor cores) for bf16 whose rows all
+    start 16-byte aligned with ``hd % 8 == 0``, else ``"simt"`` (f32 on
+    the CUDA cores).  Reads dtypes, shapes, strides and addresses only."""
+    if q4.dtype == torch.bfloat16 and _rows_aligned((q4, k4, v4, o4), q4.shape[-1]):
+        return "tc"
+    return "simt"
+
+
 def _launch(q4, k4, v4, o4, causal: bool) -> None:
-    """Launch the kernel on 4-D (batch, seq, head, hd) views."""
+    """Launch the kernel :func:`kernel_variant` picks on 4-D (batch, seq,
+    head, hd) views."""
     from . import build
 
     B, S, H, hd = q4.shape
@@ -143,15 +164,21 @@ def _launch(q4, k4, v4, o4, causal: bool) -> None:
         s = x.stride()
         return s[0], s[1], s[2]
 
-    rc = build.load("flash_attention").flash_attention_fwd(
-        q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
-        _DTYPE_CODE[q4.dtype], B, H, KV, S, T, hd, int(causal),
-        int(_rows_aligned((q4, k4, v4, o4), hd)),
-        *bsh(q4), *bsh(k4), *bsh(v4), *bsh(o4), _stream_ptr(q4.device),
-    )
+    lib = build.load("flash_attention")
+    strides = (*bsh(q4), *bsh(k4), *bsh(v4), *bsh(o4))
+    ptrs = (q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr())
+    tc = kernel_variant(q4, k4, v4, o4) == "tc"
+    if tc:
+        rc = lib.flash_attention_tc_fwd(*ptrs, B, H, KV, S, T, hd, int(causal), *strides,
+                                        _stream_ptr(q4.device))
+    else:
+        rc = lib.flash_attention_fwd(*ptrs, _DTYPE_CODE[q4.dtype], B, H, KV, S, T, hd,
+                                     int(causal), int(_rows_aligned((q4, k4, v4, o4), hd)),
+                                     *strides, _stream_ptr(q4.device))
     _raise_on("flash_attention_bhsd", rc)
     if q4.numel():
         flash_attention_bhsd.launches += 1
+        flash_attention_bhsd.tc_launches += int(tc)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -190,3 +217,4 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_bhsd.launches = 0
+flash_attention_bhsd.tc_launches = 0

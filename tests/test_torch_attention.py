@@ -3,8 +3,16 @@ wrappers) against the reference: the Pallas kernels in interpret mode and
 the ``kernels/ref.py`` oracles, over the reference kernel tests' shapes
 plus grouped-query (GQA) cases, in f32 (2e-6) and bf16 (2e-2), the
 reference kernel tests' tolerances.  Then the wrappers' dispatch, argument
-checks and launch counters.  The CUDA kernels themselves are held to
-their plain versions on a card by ``test_torch_attention_card.py``."""
+checks and launch counters.  Then what the card computes, emulated here
+in plain torch and held to the same references: the tensor-core flash
+kernel's arithmetic (64-key tiles, P rounded to bf16 before P V) and the
+split-then-combine decode at a split's edges and pos -1; and the
+wrappers' pure choices (flash variant, decode split count).  The CUDA
+kernels themselves are held to their plain versions on a card by
+``test_torch_attention_card.py``."""
+
+import math
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -209,3 +217,149 @@ def test_argument_checks():
         ops.decode_attention(f32[:, :1], kv, kv.bfloat16(), pos)
     with pytest.raises(ValueError):  # cache of another batch
         ops.decode_attention(f32[:, :1], kv[:1], kv[:1], pos)
+
+
+# --------------------------------------------------------------------------- #
+# What the card computes: the kernels' arithmetic emulated on the CPU
+# --------------------------------------------------------------------------- #
+def _flash_tc_emulation(q, k, v, causal: bool, blk: int = 64) -> torch.Tensor:
+    """The tensor-core flash kernel's arithmetic in plain torch: key tiles
+    of ``blk``, scores in log2 units, an online softmax in f32, P rounded
+    once to bf16 before P V (f32 accumulation), the row sum of the f32 P,
+    the output rounded once.  ``(BH, S, hd)`` operands, group 1."""
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    BH, S, hd = q32.shape
+    T = k32.shape[1]
+    c2 = math.log2(math.e) / math.sqrt(hd)
+    rows = torch.arange(S)[:, None]
+    m = torch.full((BH, S, 1), -math.inf)
+    l = torch.zeros(BH, S, 1)
+    acc = torch.zeros(BH, S, hd)
+    for kv0 in range(0, T, blk):
+        kt, vt = k32[:, kv0:kv0 + blk], v32[:, kv0:kv0 + blk]
+        s = (q32 @ kt.transpose(1, 2)) * c2
+        if causal:
+            cols = kv0 + torch.arange(kt.shape[1])[None, :]
+            s = torch.where(cols <= rows + (T - S), s, torch.tensor(FA.MASKED))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp2(s - m_new)
+        corr = torch.exp2(m - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + p.to(torch.bfloat16).float() @ vt
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).to(q.dtype)
+
+
+def test_flash_tensor_core_arithmetic_fits_the_bf16_tolerance():
+    """P rounded to bf16 before P V (what the card's tensor-core kernel and
+    SDPA do) stays within the bf16 tolerance, 2e-2, of the Pallas kernel
+    (interpret mode), the reference oracle and the port's plain version,
+    at the serving path's head dim 64, causal S = T = 256."""
+    rng = np.random.default_rng(17)
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(_normal(rng, (3, 256, 64)), jnp.bfloat16, torch.bfloat16)
+                                    for _ in range(3))
+    got = _flash_tc_emulation(qt, kt, vt, causal=True)
+    with _x32():
+        kern = pallas_flash(qj, kj, vj, causal=True, blk_q=64, blk_k=64, interpret=True)
+        oracle = RREF.flash_attention_ref(qj, kj, vj, causal=True)
+    _close(got, kern, torch.bfloat16)
+    _close(got, oracle, torch.bfloat16)
+    _close(got, FA.flash_attention_ref(qt, kt, vt, causal=True).float(), torch.bfloat16)
+
+
+def _split_decode_emulation(q, k, v, pos: int, rows: int) -> torch.Tensor:
+    """The split / combine decode kernels' arithmetic in plain torch on
+    ``(BH, hd)`` queries over ``(BH, S_max, hd)`` caches: splits of
+    ``rows`` cache rows, each with its own max, sum and unnormalised
+    accumulator, then merged in split order.  ``pos < 0`` leaves every row
+    at -1e30 (a uniform softmax over all S_max rows)."""
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    S, hd = k32.shape[1], q32.shape[1]
+    n = S if pos < 0 else min(pos, S - 1) + 1
+    parts = []
+    for t0 in range(0, n, rows):
+        kt, vt = k32[:, t0:min(t0 + rows, n)], v32[:, t0:min(t0 + rows, n)]
+        s = torch.einsum("bd,btd->bt", q32, kt) / math.sqrt(hd)
+        if pos < 0:
+            s = torch.full_like(s, FA.MASKED)
+        m_s = s.amax(-1, keepdim=True)
+        p = torch.exp(s - m_s)
+        parts.append((m_s, p.sum(-1, keepdim=True), torch.einsum("bt,btd->bd", p, vt)))
+    m = torch.stack([ms for ms, _, _ in parts]).amax(0)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(q32)
+    for m_s, l_s, a_s in parts:
+        w = torch.exp(m_s - m)
+        l = l + w * l_s
+        acc = acc + w * a_s
+    return (acc / l.clamp_min(1e-30)).to(q.dtype)
+
+
+@pytest.mark.parametrize("jdt,tdt", DTYPES)
+@pytest.mark.parametrize("pos", [-1, 0, 127, 128, 319])
+def test_split_decode_arithmetic_matches_pallas_and_oracle(jdt, tdt, pos):
+    """Split-then-combine decode with the wrapper's split size (128 rows)
+    at the edges of a split, pos -1 and the last row, against the Pallas
+    kernel (interpret mode), the reference oracle and the port's plain
+    version: f32 within 2e-6, bf16 within 2e-2.  At pos -1 the Pallas
+    kernel skips every cache tile and returns zeros; the oracle's softmax
+    (and the port's) is uniform over all rows, so only those two are held
+    there."""
+    rows = DA.SPLIT_ROWS
+    assert rows == 128
+    rng = np.random.default_rng(23 + pos)
+    qj, qt = _pair(_normal(rng, (4, 64)), jdt, tdt)
+    kj, kt = _pair(_normal(rng, (4, 320, 64)), jdt, tdt)
+    vj, vt = _pair(_normal(rng, (4, 320, 64)), jdt, tdt)
+    got = _split_decode_emulation(qt, kt, vt, pos, rows)
+    with _x32():
+        pj = jnp.asarray(pos, jnp.int32)
+        oracle = RREF.decode_attention_ref(qj, kj, vj, pj)
+        kern = pallas_decode(qj, kj, vj, pj, blk_k=64, interpret=True) if pos >= 0 else None
+    _close(got, oracle, tdt)
+    if kern is not None:
+        _close(got, kern, tdt)
+    _close(got, DA.decode_attention_ref(qt, kt, vt, torch.tensor(pos, dtype=torch.int32)).float(),
+           tdt)
+
+
+# --------------------------------------------------------------------------- #
+# The wrappers' pure choices: flash variant, decode split count
+# --------------------------------------------------------------------------- #
+def _model_views(dt, hd, how):
+    """(q, k, v, o) 4-D views of one kind: contiguous, a head slice of a
+    wider tensor (the model's strided layout), or a start shifted by one
+    element (rows not 16-byte aligned)."""
+    B, S, H, KV = 2, 16, 6, 2
+    if how == "contiguous":
+        q = torch.zeros(B, S, H, hd, dtype=dt)
+        k = torch.zeros(B, S, KV, hd, dtype=dt)
+    elif how == "head_slice":
+        q = torch.zeros(B, S, 3 * H, hd, dtype=dt)[:, :, H:2 * H]
+        k = torch.zeros(B, S, 2 * KV, hd, dtype=dt)[:, :, KV:]
+    else:  # shifted
+        q = torch.zeros(B, S, H, hd + 1, dtype=dt)[..., 1:]
+        k = torch.zeros(B, S, KV, hd + 1, dtype=dt)[..., 1:]
+    return q, k, k, torch.empty(B, S, H, hd, dtype=dt)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128, 32, 36])
+@pytest.mark.parametrize("how", ["contiguous", "head_slice", "shifted"])
+def test_flash_variant_choice(dt, hd, how):
+    """The tensor-core kernel takes bf16 operands whose rows all start
+    16-byte aligned with hd % 8 == 0; every other case takes the f32
+    kernel.  The choice reads the operands alone."""
+    q, k, v, o = _model_views(dt, hd, how)
+    want = "tc" if dt == torch.bfloat16 and hd % 8 == 0 and how != "shifted" else "simt"
+    assert FA.kernel_variant(q, k, v, o) == want
+
+
+def test_decode_split_count():
+    """ceil(S_max / 128): from the cache's size alone, never from pos; the
+    wrapper's split size is the kernel source's, which sizes the scratch."""
+    src = (Path(DA.__file__).parent / "csrc" / "decode_attention.cu").read_text()
+    assert f"constexpr int kSplitRows = {DA.SPLIT_ROWS};" in src
+    assert DA.SPLIT_ROWS == 128
+    assert [DA.split_count(s) for s in (1, 127, 128, 129, 1160, 4096, 4097)] == \
+        [1, 1, 1, 2, 10, 32, 33]
