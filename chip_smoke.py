@@ -5,11 +5,14 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
 ``build/repro_torch/``, holds each kernel against its plain PyTorch
-version on the card, drives the main path — the full paper grid (108
-cells, 1000 Monte-Carlo runs each) through
-``repro_torch.experiments.run_grid`` on CUDA — checks that both kernels
-ran on it, checks the card's results against the port's CPU path on the
-validation grid, and times each kernel (phases 1-6).
+version on the card (the cursor walks on the main path's own lanes: the
+arguments of one outer iteration's walks, captured from a short run of
+the grid), drives the main path — the full paper grid (108 cells, 1000
+Monte-Carlo runs each) through ``repro_torch.experiments.run_grid`` on
+CUDA — checks that the sim_step kernels ran on it, with its outer
+iterations unchanged and at most one host sync and four cursor launches
+an iteration, checks the card's results against the port's CPU path on
+the validation grid, and times each kernel (phases 1-6).
 
 Then the checkpoint path (phases 7-10): the int8 / int8-delta codec
 kernels against their plain versions on edge-case leaves and on
@@ -47,7 +50,7 @@ and 32 a decode step, one decode step replayed as a CUDA graph against
 the same step issued eagerly; and the kernel's times at both shapes
 beside its bound and its plain version.
 
-Then the mixed-law sweep (phases 19-21): the law-indexed variant of both
+Then the mixed-law sweep (phases 19-21): the law-indexed variant of the
 sim_step kernels against its plain version and, on each law's lanes,
 against the single-law launch (0 ulp); the reference benchmark's
 mixed-law grid (the bench grid under the exponential, Weibull 0.7 and
@@ -96,6 +99,33 @@ BYTES_LAW = 20
 #: f64 operations, approximate: ~20 adds / compares / selects per lane of
 #: the update, ~40 for one gap draw (uniform, log1p, scale, add, retire)
 OPS_PRIM, OPS_GAP = 20, 40
+#: the walks' bytes on given data: a walk reads what decides whether a lane
+#: walks, then the record of the lanes that walk (their counters moved),
+#: and writes those lanes' outputs once, however many events they draw.
+#: Skip walk (prediction walk with the clock): the mask (1 B) on every
+#: lane; t, lead_act, tp_t0, fp_time (32 B) on masked lanes; a walking
+#: lane reads la_ctr, tp_ctr, fp_ctr (4 B), la_time, tp_ft, three keys,
+#: f_mean, fp_mean, recall, window, horizon (8 B) = 92 B and writes the
+#: seven cursors (44 B).  Refill (pop and priming): both masks (2 B) on
+#: every lane; a walking lane reads 92 B plus tp_t0, fp_time and writes
+#: 44 B.  Strike walk: res (1 B); t, sf_time, sf_ctr (20 B) and, with
+#: migration, three cancel slots (12 B) on the lanes of res; a walking lane
+#: reads DR, key, mean, horizon, n_faults (40 B) and writes t, sf_ctr,
+#: sf_time, n_faults (28 B).
+BYTES_SKIP_MASK, BYTES_SKIP_HEAD, BYTES_SKIP_WALK = 1, 32, 92 + 44
+BYTES_REFILL_MASK, BYTES_REFILL_WALK = 2, 92 + 16 + 44
+BYTES_STRIKE_MASK, BYTES_STRIKE_HEAD, BYTES_CANCELS, BYTES_STRIKE_WALK = 1, 20, 12, 40 + 28
+#: the walk kernels' wrappers, and all three cursor kernels'
+WALKS = ("masked_prediction_walk", "masked_strike_walk")
+CURSOR_KERNELS = ("masked_stream_advance",) + WALKS
+#: the TPU kernel the walks loop (one event per launch there)
+REPLACES_ADV = "src/repro/kernels/sim_step.py:409"
+#: the outer iteration whose walks phases 3, 6, 19 and indexed_timing replay
+CAPTURE_ITER = 40
+#: outer iterations of the full and the mixed-law grid with the one-event
+#: cursor loops: each lane draws the same events in the same order in the
+#: walks, so these must not move
+OUTER_ITERS = {"full": 1168, "mixed": 1240}
 #: the card's L2; timed calls cycle through input copies three times larger
 L2_BYTES = 50e6
 RUNS_PER_CELL = 1000
@@ -313,6 +343,279 @@ def card_vs_cpu(on_gpu, on_cpu) -> float:
     return worst
 
 
+# --------------------------------------------------------------------------- #
+# The cursor walks
+# --------------------------------------------------------------------------- #
+def _flatten(v, path: str, flat: dict):
+    """Encode a walk call's argument: tensors go to ``flat`` under their
+    path, tuples and lists recurse (and come back as tuples), anything else
+    is kept as it is."""
+    import torch
+
+    if isinstance(v, torch.Tensor):
+        flat[path] = v.clone()
+        return ("tensor", path)
+    if isinstance(v, (tuple, list)):
+        return ("tuple", [_flatten(x, f"{path}.{i}", flat) for i, x in enumerate(v)])
+    return ("value", v)
+
+
+def _rebuild(code, d: dict):
+    kind, v = code
+    if kind == "tensor":
+        return d[v]
+    if kind == "tuple":
+        return tuple(_rebuild(x, d) for x in v)
+    return v
+
+
+class WalkCall:
+    """One captured walk call: its tensors (``flat``, clones taken before
+    the call) and the recipe that rebuilds its arguments from them, so the
+    call can be replayed on copies, under another law, with the kernel or
+    with the plain version."""
+
+    def __init__(self, name: str, args, kw):
+        self.name = name  # "skip", "pop" or "strike"
+        self.flat = {}
+        self.args = [_flatten(a, f"a{i}", self.flat) for i, a in enumerate(args)]
+        self.kw = {k: _flatten(v, k, self.flat) for k, v in kw.items() if k != "tally"}
+
+    @property
+    def lanes(self) -> int:
+        return self.flat["a0"].numel()
+
+    def call(self, K, d: dict, *, plain: bool = False, law=None):
+        """A call without arguments on the tensors ``d`` (a copy of
+        ``flat``); ``law`` replaces the laws: ``(kind, param)`` for every
+        stream, or ``("indexed", laws)`` with the per-lane ``laws`` dict
+        (law, s1, s2) on every stream."""
+        args = [_rebuild(a, d) for a in self.args]
+        kw = {k: _rebuild(v, d) for k, v in self.kw.items()}
+        if law is not None:
+            if law[0] == "indexed":
+                lk = dict(law=law[1]["law"], lp=(law[1]["s1"], law[1]["s2"]))
+                gap = ("indexed", 0.0)
+            else:
+                lk, gap = dict(law=None, lp=None), law
+            if self.name == "strike":
+                kw.update(kind=gap[0], param=gap[1], **lk)
+            else:
+                kw.update(f_gap=gap, fp_gap=gap, f_law=lk["law"], f_lp=lk["lp"],
+                          fp_law=lk["law"], fp_lp=lk["lp"])
+        if self.name == "strike":
+            fn = K.strike_walk if plain else K.masked_strike_walk
+        else:
+            fn = K.prediction_walk if plain else K.masked_prediction_walk
+        return lambda: fn(*args, **kw)
+
+    def copy(self) -> dict:
+        return {k: v.clone() for k, v in self.flat.items()}
+
+    def run(self, K, *, plain: bool = False, law=None) -> tuple:
+        import torch
+
+        out = self.call(K, self.copy(), plain=plain, law=law)()
+        torch.cuda.synchronize()
+        return out
+
+
+def capture_walks(grid, dev, at: int) -> dict:
+    """Run ``grid`` on the card for ``at + 1`` outer iterations (one chunk,
+    as the main path runs it) and keep the arguments of iteration ``at``'s
+    three walks as they were before each call: ``{"skip", "strike",
+    "pop"}`` -> :class:`WalkCall`.  torch_sim's two walk wrappers are
+    wrapped for the run and restored after it."""
+    from repro_torch.core import torch_sim as PT
+    from repro_torch.experiments import build_fused_layout
+
+    real = {n: getattr(PT, n) for n in WALKS}
+    seen = {"skip": 0, "strike": 0}
+    cap = {}
+
+    def pred(*args, **kw):
+        if kw.get("until") is not None:
+            if seen["skip"] == at:
+                cap["skip"] = WalkCall("skip", args, kw)
+            seen["skip"] += 1
+        elif seen["strike"] == at + 1 and "pop" not in cap:
+            cap["pop"] = WalkCall("pop", args, kw)
+        return real["masked_prediction_walk"](*args, **kw)
+
+    def strike(*args, **kw):
+        if seen["strike"] == at:
+            cap["strike"] = WalkCall("strike", args, kw)
+        seen["strike"] += 1
+        return real["masked_strike_walk"](*args, **kw)
+
+    layout = build_fused_layout(grid)
+    PT.masked_prediction_walk, PT.masked_strike_walk = pred, strike
+    try:
+        PT.simulate_batch_torch(layout.work_c, layout.plats_c, layout.strats_c,
+                                layout.concat_spec(), device=dev, max_iters=at + 1)
+        raise SmokeFailure(f"the grid finished within {at + 1} iterations")
+    except RuntimeError as e:
+        if "did not converge" not in str(e):
+            raise
+    finally:
+        for n, fn in real.items():
+            setattr(PT, n, fn)
+    check(sorted(cap) == ["pop", "skip", "strike"], f"captured walks {sorted(cap)}")
+    return cap
+
+
+def walk_outputs(name: str, out) -> dict:
+    keys = (("t", "sf_ctr", "sf_time", "n_faults") if name == "strike"
+            else ("la_ctr", "la_time", "tp_t0", "tp_ft", "tp_ctr", "fp_ctr", "fp_time"))
+    return dict(zip(keys, out))
+
+
+def walk_diff(got: dict, want: dict, what: str) -> tuple:
+    """Hold a walk's outputs to the plain version's: integers equal, dates
+    within ``TM_ULPS`` with nan and inf in the same places.  Returns the
+    largest ulp distance and absolute error."""
+    import torch
+
+    ulps = 0
+    for k, w in want.items():
+        g = got[k]
+        if w.dtype.is_floating_point:
+            check(torch.equal(torch.isnan(g), torch.isnan(w)), f"{what}: {k} nan differs")
+            u = int(ulp_dist(g, w).max())
+            check(u <= TM_ULPS, f"{what}: {k} off by {u} ulp")
+            ulps = max(ulps, u)
+        else:
+            check(torch.equal(g, w), f"{what}: {k} differs from the plain version")
+    return ulps, max_abs_err((got[k], want[k]) for k in want)
+
+
+def walk_work(c: WalkCall, out: dict, indexed: bool) -> dict:
+    """What one call must do on its inputs: the draws (counter steps of
+    every cursor), the lanes that walk, and the bytes (``BYTES_SKIP_*``,
+    ``BYTES_REFILL_*``, ``BYTES_STRIKE_*``), with ``BYTES_LAW`` more per
+    walking lane and stream when ``indexed``."""
+    f = c.flat
+    if c.name == "strike":
+        walk = out["sf_ctr"] != f["a2"]
+        draws = int((out["sf_ctr"] - f["a2"]).sum())
+        masked = int(f["a0"].sum())
+        head = BYTES_STRIKE_HEAD + (BYTES_CANCELS if "cancels.0" in f else 0)
+        nbytes = (BYTES_STRIKE_MASK * c.lanes + head * masked
+                  + BYTES_STRIKE_WALK * int(walk.sum()))
+    else:
+        dl, df = out["la_ctr"] - f["a2"], out["fp_ctr"] - f["a7"]
+        walk = (dl != 0) | (df != 0)
+        draws = int(dl.sum() + df.sum())
+        if c.name == "skip":
+            nbytes = (BYTES_SKIP_MASK * c.lanes + BYTES_SKIP_HEAD * int(f["a0"].sum())
+                      + BYTES_SKIP_WALK * int(walk.sum()))
+        else:
+            nbytes = BYTES_REFILL_MASK * c.lanes + BYTES_REFILL_WALK * int(walk.sum())
+    if indexed:
+        nbytes += BYTES_LAW * (1 if c.name == "strike" else 2) * int(walk.sum())
+    return {"bytes": nbytes, "ops": OPS_GAP * draws, "draws": draws,
+            "walking_lanes": int(walk.sum())}
+
+
+def restored_eager_ms(make, src: dict, samples: int = 5) -> float:
+    """Median time of one call issued from Python on a copy of ``src``
+    restored before each sample (CUDA events around the call alone): the
+    plain walks sync the host inside, so no CUDA graph can hold them."""
+    import torch
+
+    d = {k: v.clone() for k, v in src.items()}
+    fn = make(d)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ms = []
+    for _ in range(samples + 1):
+        for k, v in d.items():
+            v.copy_(src[k])
+        torch.cuda.synchronize()
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+    ms = ms[1:]  # the first is a warm-up
+    return sorted(ms)[len(ms) // 2]
+
+
+def time_walks(K, cap: dict, law, indexed: bool, what: str) -> dict:
+    """Times of the walks of one captured iteration under ``law``: each
+    kernel call on copies restored before every replay (``device_ms``),
+    its outputs held to the plain version's, the plain version eagerly,
+    the wrapper's host cost and the launch floor (128 lanes); bound
+    inputs from :func:`walk_work`.  Returns {name: times}."""
+    import torch
+
+    out = {}
+    for name, c in cap.items():
+        want = walk_outputs(name, c.run(K, plain=True, law=law))
+        work = walk_work(c, want, indexed)
+        copy_bytes = sum(v.numel() * v.element_size() for v in c.flat.values())
+        n_copies = max(2, math.ceil(3 * L2_BYTES / copy_bytes))
+        cs = [c.copy() for _ in range(n_copies)]
+        ms, first = device_ms([c.call(K, d, law=law) for d in cs], cs, c.flat)
+        walk_diff(walk_outputs(name, first), want, f"{what} {name} (timed)")
+        small = {k: v[:128].clone() for k, v in c.flat.items()}
+        floor_copies = [{k: v.clone() for k, v in small.items()} for _ in range(64)]
+        out[name] = {
+            "ms": ms,
+            "plain_ms": restored_eager_ms(lambda d: c.call(K, d, plain=True, law=law), c.flat),
+            "host_call_ms": eager_ms(c.call(K, c.copy(), law=law), 200),
+            "launch_floor_ms": device_ms([c.call(K, d, law=law) for d in floor_copies],
+                                         floor_copies, small)[0],
+            "copies": n_copies, **work,
+        }
+        torch.cuda.synchronize()
+    return out
+
+
+def walk_entries(times: dict, launches: dict, err: dict, regs: dict, suffix: str,
+                 **extra) -> list:
+    """The two walk kernels' entries of the ``kernels`` line: the
+    prediction walk's numbers are the means of its two calls of an outer
+    iteration (the skip walk and the pop), each also given alone."""
+    pred = {k: (times["skip"][k] + times["pop"][k]) / 2
+            for k in ("ms", "plain_ms", "host_call_ms", "launch_floor_ms", "bytes", "ops")}
+    out = []
+    for name, tm, parts in (("masked_prediction_walk", pred, ("skip", "pop")),
+                            ("masked_strike_walk", times["strike"], ("strike",))):
+        full = name + suffix
+        out.append(sim_step_entry(
+            full, REPLACES_ADV, tm, launches[full], err[full],
+            calls={p: times[p] for p in parts}, registers=regs.get(full), **extra))
+    return out
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers and spill bytes of each sim_step kernel from nvcc's
+    ``-Xptxas -v`` output: {wrapper name: {...}}."""
+    import re
+
+    names = {"primitive_update_kernel": "masked_primitive_update",
+             "stream_advance_kernel": "masked_stream_advance",
+             "prediction_walk_kernel": "masked_prediction_walk",
+             "strike_walk_kernel": "masked_strike_walk"}
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            cur = next((w + ("[indexed]" if "ILb1E" in m.group(1) else "")
+                        for k, w in names.items() if k in m.group(1)), None)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            out.setdefault(cur, {}).update(spill_stores=int(m.group(1)),
+                                           spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.setdefault(cur, {})["registers"] = int(m.group(1))
+    return out
+
+
 def eager_ms(fn, reps: int) -> float:
     """Mean time of one call issued from Python, CUDA events around
     ``reps`` back-to-back calls after a warm-up.  Where the host issues
@@ -355,7 +658,7 @@ def device_ms(calls, copies=None, src=None, samples: int = 10):
     prep = None
     if copies is not None:
         flush = torch.ones(int(3 * L2_BYTES) // 4, dtype=torch.float32,
-                           device=src["t"].device)
+                           device=next(iter(src.values())).device)
         prep = torch.cuda.CUDAGraph()
         with torch.cuda.graph(prep):
             for c in copies:
@@ -1372,23 +1675,46 @@ def mixed_grid(preset: str, n_runs: int):
     return GridSpec(tuple(cells), n_runs=n_runs, seed=MIXED_SEED), [law for law, _ in laws]
 
 
+def sim_step_wrappers(K) -> tuple:
+    return (K.masked_primitive_update, K.masked_stream_advance,
+            K.masked_prediction_walk, K.masked_strike_walk)
+
+
 def counts(K) -> dict:
     return {f"{fn.__name__}{tag}": getattr(fn, attr)
-            for fn in (K.masked_primitive_update, K.masked_stream_advance)
+            for fn in sim_step_wrappers(K)
             for tag, attr in (("", "launches"), ("[indexed]", "indexed_launches"))}
 
 
 def reset_counts(K) -> None:
-    for fn in (K.masked_primitive_update, K.masked_stream_advance):
+    for fn in sim_step_wrappers(K):
         fn.launches = fn.indexed_launches = 0
 
 
-def mixed_law_phases(dev) -> list:
-    """Phases 19-21: the law-indexed variant of both sim_step kernels
-    against its plain version and against the single-law launch, the
-    mixed-law paper grid in one dispatch on the card, the card against the
-    CPU and the fused dispatch against the per-family one; then the
-    variant's times.  Returns its two entries of the ``kernels`` line."""
+def path_launches(launches: dict, meta: dict, suffix: str) -> dict:
+    """Phase 4 / 20's launch record: per kernel and per outer iteration,
+    the three cursor kernels together and the host syncs per iteration;
+    fails unless the walks launched, the iterations are those of every run
+    before them, and the syncs and cursor launches per iteration are at
+    most 1 and 4."""
+    iters = max(meta["outer_iters"], 1)
+    for name in WALKS:
+        check(launches[name + suffix] > 0, f"{name}{suffix} was not launched on the path")
+    cursor = sum(launches[n + suffix] for n in CURSOR_KERNELS)
+    syncs = meta["host_syncs"] / iters
+    check(syncs <= 1.0, f"{syncs} host syncs per outer iteration")
+    check(cursor / iters <= 4.0, f"{cursor / iters} cursor launches per outer iteration")
+    return {"launches_per_iter": {k: v / iters for k, v in launches.items() if v},
+            "cursor_launches_per_iter": cursor / iters, "syncs_per_iter": syncs}
+
+
+def mixed_law_phases(dev, regs: dict) -> list:
+    """Phases 19-21: the law-indexed variant of the four sim_step kernels
+    against its plain version (the walks on the mixed grid's own lanes) and
+    the one-event kernels against the single-law launch, the mixed-law
+    paper grid in one dispatch on the card, the card against the CPU and
+    the fused dispatch against the per-family one; then the variant's
+    times.  Returns its four entries of the ``kernels`` line."""
     import numpy as np
     import torch
     from repro_torch.experiments import run_grid
@@ -1433,11 +1759,27 @@ def mixed_law_phases(dev) -> list:
                       "launch on this law's lanes")
         per_law[f"{kind}({param})"] = {"lanes": int(on.sum()),
                                        "faulted": int((on & faulted).sum())}
+    # the law-indexed walks on the mixed grid's own lanes (iteration
+    # CAPTURE_ITER), against their plain versions
+    cap = capture_walks(grid, dev, CAPTURE_ITER)
+    check(all(c.flat.get("f_law") is not None for n, c in cap.items() if n != "strike")
+          and "law" in cap["strike"].flat, "the mixed grid's walks are not law-indexed")
+    for n in WALKS:
+        err[n + "[indexed]"] = 0.0
+    for name, c in cap.items():
+        wrapper = ("masked_strike_walk" if name == "strike" else "masked_prediction_walk") \
+            + "[indexed]"
+        u, e = walk_diff(walk_outputs(name, c.run(K)), walk_outputs(name, c.run(K, plain=True)),
+                         f"{wrapper} {name}")
+        ulps[f"{wrapper} {name}"] = u
+        err[wrapper] = max(err[wrapper], e)
     torch.cuda.synchronize()
     emit("indexed_check", seconds=time.monotonic() - t0, lanes=L, tm_ulps=ulps,
-         laws=per_law, compared="ctr, flags, t, saved, unsaved, pw equal to the plain "
+         laws=per_law, walk_iteration=CAPTURE_ITER,
+         compared="ctr, flags, t, saved, unsaved, pw equal to the plain "
          f"version, tm within {TM_ULPS} ulp; every output equal (0 ulp) to the single-law "
-         "launch on each law's lanes")
+         "launch on each law's lanes; the walks on the mixed grid's lanes: counters equal, "
+         f"dates within {TM_ULPS} ulp")
 
     # ---- 20. the mixed-law grid on the card, one dispatch -------------- #
     reset_counts(K)
@@ -1452,10 +1794,14 @@ def mixed_law_phases(dev) -> list:
     check(meta["dispatches"] == 1 and meta["n_chunks"] == 1 and meta["sampler"] == "indexed",
           f"mixed path: {meta}")
     for name, n in launches.items():
-        if name.endswith("[indexed]"):
+        if name.startswith(("masked_primitive_update", "masked_stream_advance")) \
+                and name.endswith("[indexed]"):
             check(n > 0, f"{name} was not launched on the mixed-law path")
-        else:
+        elif not name.endswith("[indexed]"):
             check(n == 0, f"{name}: {n} single-law launches on the mixed-law path")
+    check(meta["outer_iters"] == OUTER_ITERS["mixed"],
+          f"{meta['outer_iters']} outer iterations, {OUTER_ITERS['mixed']} before the walks")
+    per_iter = path_launches(launches, meta, "[indexed]")
     for c in res.cells:
         check(c.n_runs == RUNS_PER_CELL, f"{c.cell.label}: {c.n_runs} runs")
         check(0.0 < c.mean_waste < 1.0 and np.isfinite(c.ci95_waste),
@@ -1471,9 +1817,9 @@ def mixed_law_phases(dev) -> list:
     emit("mixed_path", cells=len(res.cells), runs_per_cell=RUNS_PER_CELL, lanes=L,
          laws=law_names, seed=MIXED_SEED, seconds=wall, lanes_per_s=L / wall,
          outer_iters=meta["outer_iters"], host_syncs=meta["host_syncs"],
-         syncs_per_iter=meta["host_syncs"] / max(meta["outer_iters"], 1),
-         dispatches=meta["dispatches"], n_chunks=meta["n_chunks"], launches=launches,
-         waste_N65536=anchors)
+         dispatches=meta["dispatches"], n_chunks=meta["n_chunks"],
+         launches={k: v for k, v in launches.items() if k.endswith("[indexed]")},
+         **per_iter, waste_N65536=anchors)
 
     # ---- 21. card against CPU, fused against per-family --------------- #
     t0 = time.monotonic()
@@ -1534,13 +1880,23 @@ def mixed_law_phases(dev) -> list:
          note="device_ms over input copies restored before each replay; ms: laws in runs "
               "of 1000 lanes (the path's cells); lane_mixed_ms: a law per lane; "
               "single_law_ms: each law's single-law launch on the same lanes")
+    t0 = time.monotonic()
+    walk_times = time_walks(K, cap, None, True, "mixed path")
+    emit("indexed_walk_timing", seconds=time.monotonic() - t0, lanes=L,
+         iteration=CAPTURE_ITER, times=walk_times,
+         registers={n + "[indexed]": regs.get(n + "[indexed]") for n in WALKS},
+         note="the mixed grid's captured iteration, laws per cell as on the path; "
+              "ms: device_ms over restored copies; plain_ms: eager, CUDA events")
     replaces = {"masked_primitive_update[indexed]": "src/repro/kernels/sim_step.py:516",
-                "masked_stream_advance[indexed]": "src/repro/kernels/sim_step.py:409"}
+                "masked_stream_advance[indexed]": REPLACES_ADV}
     return [sim_step_entry(name, replaces[name], tm, launches[name], err[name],
                            lane_mixed_ms=tm["lane_mixed_ms"],
                            single_law_mean_ms=tm["single_law_mean_ms"],
-                           lanes=L, faulted_lanes=n_fault, masked_lanes=n_mask)
-            for name, tm in timing.items()]
+                           lanes=L, faulted_lanes=n_fault, masked_lanes=n_mask,
+                           registers=regs.get(name))
+            for name, tm in timing.items()] + walk_entries(
+                walk_times, launches, err, regs, "[indexed]", lanes=L,
+                iteration=CAPTURE_ITER)
 
 
 def main() -> int:
@@ -1575,8 +1931,9 @@ def main() -> int:
     logs = build.build_all()
     ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
+    regs = ptxas_report(logs.get("sim_step", ""))
     emit("build", seconds=time.monotonic() - t0, built=sorted(logs),
-         ptxas=ptxas)
+         ptxas=ptxas, sim_step_registers=regs)
 
     from repro_torch.kernels import sim_step as K
 
@@ -1607,6 +1964,46 @@ def main() -> int:
             err["masked_stream_advance"], max_abs_err([(got["tm"], want["tm"])]))
         emit("kernel_check", law=kind, lanes=L, prim_tm_ulps=u, adv_tm_ulps=u2)
 
+    # the walks on the main path's own lanes: iteration CAPTURE_ITER's three
+    # walk calls of the full grid, replayed under every law, and under
+    # per-lane laws (runs of 1000 lanes, the path's cells) on the indexed
+    # variant, whose lanes of each law must be the single-law walks' bits
+    t0 = time.monotonic()
+    cap = capture_walks(full, dev, CAPTURE_ITER)
+    for n in WALKS:
+        err[n] = err[n + "[indexed]"] = 0.0
+    walk_ulps = {}
+    lane_laws = {k: torch.from_numpy(v).to(dev)
+                 for k, v in K.sample_lane_laws(L, 120, RUNS_PER_CELL).items()}
+    for kind, param in LAWS + (("indexed", lane_laws),):
+        for name, c in cap.items():
+            wrapper = "masked_strike_walk" if name == "strike" else "masked_prediction_walk"
+            if kind == "indexed":
+                wrapper += "[indexed]"
+            got = walk_outputs(name, c.run(K, law=(kind, param)))
+            want = walk_outputs(name, c.run(K, plain=True, law=(kind, param)))
+            u, e = walk_diff(got, want, f"{wrapper} {name}/{kind}")
+            walk_ulps[f"{name}/{kind}"] = u
+            err[wrapper] = max(err[wrapper], e)
+            if kind == "indexed":
+                for li, sl in enumerate(K.SAMPLE_LAWS):
+                    on = lane_laws["pick"] == li
+                    single = walk_outputs(name, c.run(K, law=sl))
+                    for k, w in single.items():
+                        g = got[k]
+                        if w.dtype.is_floating_point:
+                            g, w = g.view(torch.int64), w.view(torch.int64)
+                        check(torch.equal(g[on], w[on]), f"{name}: indexed {k} differs from "
+                              f"the single-law walk on the {sl} lanes")
+    work = {name: walk_work(c, walk_outputs(name, c.run(K, plain=True)), False)
+            for name, c in cap.items()}
+    emit("walk_check", seconds=time.monotonic() - t0, lanes=L, iteration=CAPTURE_ITER,
+         has_migration="cancels.0" in cap["strike"].flat, work=work, tm_ulps=walk_ulps,
+         compared=f"counters and fault counts equal to the plain version, dates within "
+                  f"{TM_ULPS} ulp (nan and inf in place), under {[k for k, _ in LAWS]} and "
+                  "per-lane laws; per-lane laws equal (0 ulp) to each law's single-law walk "
+                  "on that law's lanes")
+
     # ---- 4. the main path: the full paper grid on the card ------------- #
     reset_counts(K)
     torch.cuda.synchronize()
@@ -1614,17 +2011,17 @@ def main() -> int:
     res = run_grid(full, device="cuda")
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches = {
-        "masked_primitive_update": K.masked_primitive_update.launches,
-        "masked_stream_advance": K.masked_stream_advance.launches,
-    }
-    for name, n in launches.items():
-        check(n > 0, f"{name} was not launched on the main path")
+    launches = counts(K)
     for name in ("masked_primitive_update", "masked_stream_advance"):
-        n = getattr(K, name).indexed_launches
-        check(n == 0, f"{name}: {n} law-indexed launches on the single-law main path")
+        check(launches[name] > 0, f"{name} was not launched on the main path")
+    for name, n in launches.items():
+        if name.endswith("[indexed]"):
+            check(n == 0, f"{name}: {n} law-indexed launches on the single-law main path")
     meta = res.meta
     check(meta["device"].startswith("cuda"), f"main path ran on {meta['device']}")
+    check(meta["outer_iters"] == OUTER_ITERS["full"],
+          f"{meta['outer_iters']} outer iterations, {OUTER_ITERS['full']} before the walks")
+    per_iter = path_launches(launches, meta, "")
     for c in res.cells:
         check(c.n_runs == RUNS_PER_CELL, f"{c.cell.label}: {c.n_runs} runs")
         check(0.0 < c.mean_waste < 1.0 and np.isfinite(c.ci95_waste),
@@ -1637,9 +2034,9 @@ def main() -> int:
         anchors[pk] = {"Young": y, "Exact": e}
     emit("main_path", cells=len(res.cells), runs_per_cell=RUNS_PER_CELL, lanes=L,
          seconds=wall, lanes_per_s=L / wall, outer_iters=meta["outer_iters"],
-         host_syncs=meta["host_syncs"],
-         syncs_per_iter=meta["host_syncs"] / max(meta["outer_iters"], 1),
-         n_chunks=meta["n_chunks"], launches=launches, waste_N65536=anchors)
+         host_syncs=meta["host_syncs"], n_chunks=meta["n_chunks"],
+         launches={k: v for k, v in launches.items() if not k.endswith("[indexed]")},
+         **per_iter, waste_N65536=anchors)
 
     # ---- 5. the card against the CPU, same port ------------------------ #
     val = GridSpec(tuple(paper_grid_cells("validation")), n_runs=8, seed=0)
@@ -1660,7 +2057,6 @@ def main() -> int:
     n_fault = int(want_prim["flags"].bitwise_and(1).ne(0).sum())
     n_mask = int(x["mask"].sum())
 
-    saved_counts = dict(launches)
     timing = {}
     for name, call, want, nbytes, ops in (
         ("masked_primitive_update", prim_call, want_prim,
@@ -1679,27 +2075,37 @@ def main() -> int:
                 call(K, {k: v.clone() for k, v in x.items()}, f_kind, f_param), 200),
             "bytes": nbytes, "ops": ops, "copies": n_copies,
         }
+    walk_times = time_walks(K, cap, None, False, "main path")
+    emit("walk_timing", lanes=L, iteration=CAPTURE_ITER, times=walk_times,
+         registers={n: regs.get(n) for n in WALKS},
+         note="ms: device_ms over copies of the captured iteration's lanes restored "
+              "before each replay; plain_ms: the plain walk issued eagerly (its loop "
+              "conditions sync the host), CUDA events around the call")
     replaces = {
         "masked_primitive_update": "src/repro/kernels/sim_step.py:516",
-        "masked_stream_advance": "src/repro/kernels/sim_step.py:409",
+        "masked_stream_advance": REPLACES_ADV,
     }
-    kernels = [sim_step_entry(name, replaces[name], tm, saved_counts[name], err[name],
-                              lanes=L, faulted_lanes=n_fault, masked_lanes=n_mask)
+    kernels = [sim_step_entry(name, replaces[name], tm, launches[name], err[name],
+                              lanes=L, faulted_lanes=n_fault, masked_lanes=n_mask,
+                              registers=regs.get(name))
                for name, tm in timing.items()]
+    kernels += walk_entries(walk_times, launches, err, regs, "", lanes=L,
+                            iteration=CAPTURE_ITER)
     kernel_s = sum(k["launches"] * k["ms"] for k in kernels) / 1e3
     wrapper_s = sum(k["launches"] * k["host_call_ms"] for k in kernels) / 1e3
     emit("split", main_path_s=wall, kernel_device_s_est=kernel_s,
          kernel_share=kernel_s / wall, wrapper_host_s_est=wrapper_s,
-         glue_s_est=wall - kernel_s,
+         glue_s_est=wall - kernel_s - wrapper_s,
          launches_per_iter={k["name"]: k["launches"] / max(meta["outer_iters"], 1)
                             for k in kernels},
-         note="estimates: main-path launches x the per-launch times of phase 6")
+         note="estimates: main-path launches x the per-launch times of phase 6 (the "
+              "walks at the captured iteration); glue: the wall time less both")
     kernels += checkpoint_phases(dev)
     kernels += serving_phases(dev, timing["masked_stream_advance"]["launch_floor_ms"])
     torch.cuda.empty_cache()  # the 7B path needs the card's memory
     kernels += rwkv_phases(dev)
     torch.cuda.empty_cache()
-    kernels += mixed_law_phases(dev)
+    kernels += mixed_law_phases(dev, regs)
     emit("total", seconds=time.monotonic() - t_script)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,23 +16,32 @@ Events are sampled on the device from per-lane counter-based streams
 (the layout of ``repro_torch.core.events``): a strike cursor (the next
 fault to hit), a lookahead cursor plus a pending true-positive slot (the
 next *visible* predicted fault and its window start), and a
-false-prediction cursor.  The strike cursor is refilled inside the
-primitive-update kernel (:func:`~repro_torch.kernels.sim_step.
-masked_primitive_update`); every other cursor step is one launch of
-:func:`~repro_torch.kernels.sim_step.masked_stream_advance`.  Migration
-cancels the vacated node's predicted fault by counter index in three
-slots; a fourth *simultaneously pending* cancellation is dropped, exactly
-as in the reference.
+false-prediction cursor.  The strike cursor is primed by one launch of
+:func:`~repro_torch.kernels.sim_step.masked_stream_advance` and refilled
+inside the primitive-update kernel (:func:`~repro_torch.kernels.sim_step.
+masked_primitive_update`).  Migration cancels the vacated node's
+predicted fault by counter index in three slots; a fourth
+*simultaneously pending* cancellation is dropped, exactly as in the
+reference.
 
-Each ``lax.while_loop`` of the reference becomes a Python loop whose
-condition is one host sync (``bool(mask.any())``).  The reference's
+The reference's ``lax.while_loop``s over the cursors become walks, one
+launch each, in which every lane advances its own cursor as far as its
+own stop condition needs (:func:`~repro_torch.kernels.sim_step.
+masked_prediction_walk`, :func:`~repro_torch.kernels.sim_step.
+masked_strike_walk`): the TP-lookahead loop and the skip over passed
+predictions are one prediction walk, the final pop of the merged head is
+one more, and the stale-fault cascade is one strike walk.  On the card an
+outer iteration is then three cursor launches and one primitive update,
+with no host sync inside; the chunk's priming adds a stream advance and
+a prediction walk.  On the CPU the walks' plain versions run the loops as
+masked passes over all lanes, each pass's condition one host sync
+(``bool(mask.any())``), counted in :class:`_Tally`.  The reference's
 ``lax.cond`` gates are dropped: every update inside them is masked, so
-running the bodies unconditionally gives identical results and saves a
-sync each.  The TP-lookahead and false-prediction cursor loops advance
-disjoint state per lane, and with trust ``q`` in {0, 1} the
-false-prediction loop is a single pass, so it runs as one launch without
-a sync.  The outer loop polls for termination every :data:`POLL`
-iterations (finished lanes are inert) and never runs past ``max_iters``.
+running the bodies unconditionally gives identical results.  With trust
+``q`` in {0, 1} the false-prediction loop is a single draw.  The outer
+loop polls for termination every :data:`POLL` iterations (finished lanes
+are inert; the poll is the card path's only host sync) and never runs
+past ``max_iters``.
 
 Work is f64 throughout; event counters are int64 and stream counters
 int32, as in the reference's x64 packing.  The per-lane stream subkeys
@@ -55,9 +64,9 @@ from .batch_sim import pad_lane_axis
 from .events import TraceSpec
 from .simulator import _EPS
 from ..kernels.sim_step import (
-    FLAG_CKPT_OK, FLAG_FAULTED, FLAG_FIN, FLAG_OK, FLAG_REG, PRIM_WORK_NC,
-    cell_gather, counter_uniform2, masked_primitive_update,
-    masked_stream_advance, segment_cell_sums,
+    FLAG_CKPT_OK, FLAG_FAULTED, FLAG_FIN, FLAG_OK, FLAG_REG, PREDICTION_CURSORS,
+    PRIM_WORK_NC, cell_gather, masked_prediction_walk, masked_primitive_update,
+    masked_stream_advance, masked_strike_walk, segment_cell_sums,
 )
 
 __all__ = [
@@ -389,39 +398,18 @@ def _run_chunk(consts: dict, st: dict, *, gen, has_mig: bool, max_iters: int,
     MODE2PH = torch.tensor(B._MODE2PH, dtype=torch.int32, device=dev)
     is_mig = mode == B._M_MIGRATION
     tp_w = torch.where(torch.isnan(T_P), tp_eff_default, T_P) - C
-
-    def adv_fault(m, ctr, tm):
-        masked_stream_advance(
-            m, ctr, tm, fg_key, mtbf, horizon, kind=f_kind, param=f_param,
-            law=f_law, lp=f_lp,
-        )
+    fault = dict(kind=f_kind, param=f_param, law=f_law, lp=f_lp)
 
     s = dict(st)
 
-    def consume(use_tp, use_fp):
-        """Refill the prediction cursors: walk the lookahead fault cursor
-        to the next visible true positive where ``use_tp``, draw the next
-        false prediction where ``use_fp``."""
-        # one pass: with q in {0, 1} every drawn false prediction is visible
-        masked_stream_advance(
-            use_fp, s["fp_ctr"], s["fp_time"], fp_key, fp_mean, horizon,
-            kind=fp_kind, param=fp_param, law=fp_law, lp=fp_lp,
+    def predict(mask, fp_mask, until=None):
+        """Refill the prediction cursors of ``s`` in place (one walk)."""
+        masked_prediction_walk(
+            mask, fp_mask, *(s[k] for k in PREDICTION_CURSORS),
+            fg_key, mtbf, tc_key, recall, window, fp_key, fp_mean, horizon,
+            f_gap=(f_kind, f_param), fp_gap=(fp_kind, fp_param), f_law=f_law,
+            f_lp=f_lp, fp_law=fp_law, fp_lp=fp_lp, until=until, tally=tally,
         )
-        act = use_tp
-        # advance-then-check, ~1/recall expected passes
-        while tally.any(act):
-            ctr, tm = s["la_ctr"], s["la_time"]
-            adv_fault(act, ctr, tm)
-            u_coin, u_off = counter_uniform2(tc_key, ctr)
-            alive = torch.isfinite(tm)
-            good = act & (u_coin < recall) & alive
-            dead = act & ~alive
-            s["tp_t0"] = torch.where(
-                good, torch.clamp(tm - u_off * window, min=0.0), s["tp_t0"]
-            ).masked_fill(dead, inf)
-            s["tp_ft"] = torch.where(good, tm, s["tp_ft"]).masked_fill(dead, nan)
-            s["tp_ctr"] = torch.where(good, ctr, s["tp_ctr"])
-            act = act & ~(good | dead)
 
     # prime the cursors: first strike fault, first visible TP, first false
     # prediction; inert (padding) lanes never activate a stream
@@ -439,10 +427,11 @@ def _run_chunk(consts: dict, st: dict, *, gen, has_mig: bool, max_iters: int,
         tp_t0=torch.full_like(horizon, inf), tp_ft=torch.full_like(horizon, nan),
         tp_ctr=neg1(), fp_ctr=neg1(), fp_time=zf(),
     )
-    adv_fault(live, s["sf_ctr"], s["sf_time"])
+    masked_stream_advance(live, s["sf_ctr"], s["sf_time"], fg_key, mtbf, horizon,
+                          **fault)
     pvis = live & (q_eff > 0.0)
     fp_act = pvis & torch.isfinite(fp_mean)
-    consume(pvis & (recall > 0.0), fp_act)
+    predict(pvis & (recall > 0.0), fp_act)
     s["fp_time"] = s["fp_time"].masked_fill(~fp_act, inf)
     if has_mig:
         s.update(
@@ -479,13 +468,7 @@ def _run_chunk(consts: dict, st: dict, *, gen, has_mig: bool, max_iters: int,
         mn = phase == B._PH_MAIN
         # skip predictions whose action point passed: consume from the
         # merged (pending-TP, next-FP) head
-        while True:
-            head = torch.minimum(s["tp_t0"], s["fp_time"])
-            adv = mn & (head - lead_act < t)
-            if not tally.any(adv):
-                break
-            use_tp = adv & (s["tp_t0"] <= s["fp_time"])
-            consume(use_tp, adv & ~use_tp)
+        predict(mn, None, until=(t, lead_act))
         na = torch.minimum(s["tp_t0"], s["fp_time"]) - lead_act
 
         # clean-period fast-forward
@@ -590,22 +573,10 @@ def _run_chunk(consts: dict, st: dict, *, gen, has_mig: bool, max_iters: int,
 
         # resolve stale faults (a fault during downtime restarts the
         # recovery); cancelled faults are skipped
-        n_faults = s["n_faults"]
-        while True:
-            stale = sf_time < t
-            if has_mig:
-                cc = is_cancelled(sf_ctr)
-                stepm = res & (cc | stale)
-            else:
-                stepm = res & stale
-            if not tally.any(stepm):
-                break
-            hit = stepm & (sf_time >= t - DR)
-            if has_mig:
-                hit &= ~cc
-            t = torch.where(hit, sf_time + DR, t)
-            n_faults = n_faults + hit.to(i64)
-            adv_fault(stepm, sf_ctr, sf_time)
+        t, sf_ctr, sf_time, n_faults = masked_strike_walk(
+            res, t, sf_ctr, sf_time, s["n_faults"], DR, fg_key, mtbf, horizon,
+            **fault, cancels=cancels if has_mig else None, tally=tally,
+        )
 
         # the hot step: the struck fault is consumed and the strike cursor
         # refilled inside the kernel (nf IS the strike cursor's date)
@@ -663,7 +634,7 @@ def _run_chunk(consts: dict, st: dict, *, gen, has_mig: bool, max_iters: int,
             )
             s.update(ep_ft=ep_ft, ep_fctr=ep_fctr, cancel0=cancels[0],
                      cancel1=cancels[1], cancel2=cancels[2])
-        consume(use_tp, pop & ~use_tp)
+        predict(use_tp, pop & ~use_tp)
 
         s.update(
             t=t, saved=saved, unsaved=unsaved, period_work=period_work,

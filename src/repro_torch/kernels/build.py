@@ -62,6 +62,18 @@ _SIGNATURES = {
         "sim_step_stream_advance_indexed": [
             _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         ],
+        # the walks: masks and clock (4), cursors (7), lane constants (8),
+        # then each stream's law; a null pointer is a None argument
+        "sim_step_prediction_walk": [_I64] + [_P] * 19 + [
+            _I32, _F64, _F64, _I32, _F64, _F64, _P,
+        ],
+        "sim_step_prediction_walk_indexed": [_I64] + [_P] * 19 + [
+            _I32, _F64, _F64, _P, _P, _P, _I32, _F64, _F64, _P, _P, _P, _P,
+        ],
+        # res, t, sf_ctr, sf_time, n_faults, DR, key, mean, horizon, three
+        # cancel slots; the law
+        "sim_step_strike_walk": [_I64] + [_P] * 12 + [_I32, _F64, _F64, _P],
+        "sim_step_strike_walk_indexed": [_I64] + [_P] * 12 + [_P, _P, _P, _P],
     },
     "ckpt_codec": {
         "ckpt_quantize": [_I64, _P, _P, _P, _P, _I32, _P],

@@ -12,46 +12,90 @@
 // sim_step_stream_advance replaces the TPU kernel
 //   src/repro/kernels/sim_step.py::masked_stream_advance (_advance_kernel):
 // advance a renewal-stream cursor (ctr, tm) by one event where the mask is
-// set.
+// set.  The lane machine launches it once per chunk, to prime the strike
+// cursor; every other cursor step runs in the two walks below.
 //
-// Both come in two variants, templated on Indexed: the single-law one takes
-// one (law, p1, p2) per launch; the law-indexed one (entry points
-// *_indexed) replaces the reference's kind="indexed" bodies of both Pallas
-// kernels (the mixed-law sweep) and reads each lane's law code and shape
-// slots from three more per-lane arrays.  Lanes are cell-ordered, so a
-// warp mixes laws only at a cell boundary and the per-lane switch diverges
-// little.
+// sim_step_prediction_walk and sim_step_strike_walk are the same cursor
+// step redesigned as a per-lane walk: one launch advances each lane's cursor
+// as many events as the lane's own stop condition needs, where the TPU
+// kernel advances every lane by one event per launch and the reference
+// wraps it in a lax.while_loop (src/repro/core/jax_sim.py tp_consume and
+// p_cond / p_body, l.319-352 and l.433-457; s_cond / s_body, l.664-688).
+// On the card each pass of such a loop was a launch and a host sync, and the
+// loop ran until the slowest of ~10^5 lanes stopped; here a lane stops on
+// its own and a warp costs the longest walk of its 32 lanes.
+//   - prediction walk: the refill of the prediction cursors.  With a clock
+//     (t, lead_act) it consumes from the merged (pending-TP, next-FP) head
+//     while the head's action point min(tp_t0, fp_time) - lead_act is
+//     before t, on the lanes of mask; each step either walks the lookahead
+//     fault cursor to the next visible true positive (coin u < recall, a
+//     finite date; tp_t0 = max(0, tm - u_off * window)) or to its death
+//     (tp_t0 = inf, tp_ft = nan), or draws the next false prediction (with
+//     trust q in {0, 1} one event).  Without a clock it does one such
+//     refill: the lookahead walk where mask, one false prediction where
+//     fp_mask (the cursors' priming, and the pop of the merged head).
+//   - strike walk: the stale-fault cascade.  On the lanes of res, while the
+//     strike cursor's date is before t (or, with migration, its counter is
+//     one of three cancelled ones): a fault within the repair window
+//     restarts the repair (t = date + DR, one more fault), then the cursor
+//     draws its next fault.
+// Each lane executes the same operations in the same order as the plain
+// versions' masked passes (kernels/sim_step.py prediction_walk and
+// strike_walk), through the same device advance(), so a walk is lane for
+// lane the bits of the one-event kernel looped.
+//
+// Law variants.  Every kernel comes in two, templated on Indexed: the
+// single-law one takes one (law, p1, p2) per launch and stream; the
+// law-indexed one (entry points *_indexed) replaces the reference's
+// kind="indexed" bodies (the mixed-law sweep) and reads each lane's law code
+// and shape slots from three more per-lane arrays.  In the prediction walk
+// the fault stream and the false-prediction stream choose apart: the
+// indexed entry takes a (law, p1, p2) and a (law_i, s1, s2) pointer triple
+// per stream, and a null law_i draws that stream with the scalars (null
+// pointers, not more template flags: two instantiations, and the choice is
+// uniform over the launch).  Lanes are cell-ordered, so the law, recall and
+// window are warp-uniform except at a cell boundary and the per-lane law
+// switch diverges little.
 //
 // Layout: one thread per lane, grid-stride, over flat contiguous (L,)
 // arrays (the TPU kernels' (rows, 128) slab layout is not carried over).
-// Times are f64, prim / cont / flags / ctr int32, the stream key an int64
-// bit pattern read as uint64_t, the mask one byte (torch.bool).  State is
-// updated in place, as the Pallas input_output_aliases do: t / saved /
-// unsaved / pw and the strike cursor (ctr, nf) in kernel 1, (ctr, tm) in
-// kernel 2.  Kernels allocate nothing and launch on the caller's stream;
-// each C entry point returns cudaGetLastError().
+// Times are f64, prim / cont / flags / ctr / cancel slots int32, the fault
+// count int64, the stream key an int64 bit pattern read as uint64_t, masks
+// one byte (torch.bool).  State is updated in place, as the Pallas
+// input_output_aliases do.  Kernels use no shared memory and no atomics,
+// allocate nothing and launch on the caller's stream; each C entry point
+// returns cudaGetLastError().
 //
-// What bounds them on an H100: both are elementwise with a handful of f64
-// operations per lane (the transcendental gap only on the lanes that
-// draw), so device memory, not arithmetic, is the roofline.  Kernel 1
-// moves 156 B per lane in its generating variant (reads 108: prim, cont,
-// ctr 4 B each; target, ckend, nf, t, saved, unsaved, pw, W, DR, key, mean,
-// horizon 8 B each; writes 48: t, saved, unsaved, pw, tm 8 B each, flags,
-// ctr 4 B each) and kernel 2 moves 49 B per lane (reads mask 1, ctr 4, tm,
-// key, mean, horizon 8 each; writes ctr 4, tm 8); the law-indexed variant
-// reads 20 B more (law 4, s1 8, s2 8) on each lane that draws.  At the
-// lane counts of the paper grid (about 10^5 lanes, 5-17 MB a launch;
-// twice that for the mixed-law grid) a launch's bytes take
-// a few microseconds at 3.35 TB/s, the same order as the launch itself, so
-// the design keeps each step to one launch and one pass over the lanes:
-// coalesced loads (neighbouring threads on neighbouring lanes), every
-// intermediate in registers, no shared memory, no synchronisation.
+// What bounds them on an H100: the two one-event kernels are elementwise
+// with a handful of f64 operations per lane (the transcendental gap only on
+// the lanes that draw), so device memory, not arithmetic, is the roofline.
+// Kernel 1 moves 156 B per lane in its generating variant (reads 108: prim,
+// cont, ctr 4 B each; target, ckend, nf, t, saved, unsaved, pw, W, DR, key,
+// mean, horizon 8 B each; writes 48: t, saved, unsaved, pw, tm 8 B each,
+// flags, ctr 4 B each) and kernel 2 moves 49 B per lane (reads mask 1, ctr
+// 4, tm, key, mean, horizon 8 each; writes ctr 4, tm 8); the law-indexed
+// variant reads 20 B more (law 4, s1 8, s2 8) on each lane that draws.  At
+// the paper grid's ~10^5 lanes a launch's bytes take a few microseconds at
+// 3.35 TB/s, the same order as the launch itself, so each launch is one
+// pass over the lanes: coalesced loads (neighbouring threads on
+// neighbouring lanes), every intermediate in registers.
+// The walks read a lane's record once and write it once whatever the walk's
+// length, and most lanes do not walk at all, so they are read in two
+// rounds: first what decides whether the lane walks (the masks; with a
+// clock t, lead_act, tp_t0, fp_time; in the strike walk t, the cursor and
+// the cancel slots), then, as predicated loads (inline PTX, one predicate
+// per lane, no branch), the rest of the record of the lanes that walk, all
+// in flight together before the first use.  The cursor stays in registers
+// for the whole walk and each output is stored once.  A walk's time is then
+// the latency of its longest warp's chain of draws (each a SplitMix64, a
+// log1p or the lognormal's log / cos / exp in f64, dependent on the last),
+// not bytes: the bound counts both.
 //
 // Numerics: build with --fmad=false.  Otherwise nvcc contracts
-// tm + g and the lognormal exponent into FMAs, and the kernels differ in
-// the last bits from their plain PyTorch versions (and from the
-// reference).  The Weibull exponent mirrors the reference's pow strength
-// reductions (exponent 2 -> x * x, 0.5 -> sqrt).
+// tm + g, tm - u_off * window and the lognormal exponent into FMAs, and the
+// kernels differ in the last bits from their plain PyTorch versions (and
+// from the reference).  The Weibull exponent mirrors the reference's pow
+// strength reductions (exponent 2 -> x * x, 0.5 -> sqrt).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -261,6 +305,264 @@ __global__ void stream_advance_kernel(
   }
 }
 
+// ---- the walks -------------------------------------------------------- //
+
+// Predicated loads: the value at p where in, else 0.  One predicate per
+// lane and no branch, so the compiler issues a lane's loads back to back
+// and they are in flight together; the memory clobber keeps them before
+// the stores of the same record.
+__device__ __forceinline__ double ld_f64(const double* p, bool in) {
+  double v;
+  asm volatile(
+      "{\n.reg .pred q;\nsetp.ne.b32 q, %2, 0;\n"
+      "mov.f64 %0, 0d0000000000000000;\n@q ld.global.f64 %0, [%1];\n}\n"
+      : "=d"(v)
+      : "l"(p), "r"(static_cast<int>(in))
+      : "memory");
+  return v;
+}
+
+__device__ __forceinline__ int32_t ld_i32(const int32_t* p, bool in) {
+  int32_t v;
+  asm volatile(
+      "{\n.reg .pred q;\nsetp.ne.b32 q, %2, 0;\n"
+      "mov.b32 %0, 0;\n@q ld.global.b32 %0, [%1];\n}\n"
+      : "=r"(v)
+      : "l"(p), "r"(static_cast<int>(in))
+      : "memory");
+  return v;
+}
+
+__device__ __forceinline__ uint64_t ld_u64(const int64_t* p, bool in) {
+  uint64_t v;
+  asm volatile(
+      "{\n.reg .pred q;\nsetp.ne.b32 q, %2, 0;\n"
+      "mov.b64 %0, 0;\n@q ld.global.b64 %0, [%1];\n}\n"
+      : "=l"(v)
+      : "l"(p), "r"(static_cast<int>(in))
+      : "memory");
+  return v;
+}
+
+// NaN-propagating minimum, as torch.minimum / jnp.minimum
+__device__ __forceinline__ double nan_min(double a, double b) {
+  if (a != a || b != b) return a + b;
+  return a < b ? a : b;
+}
+
+// the canonical quiet NaN (torch's float("nan"))
+__device__ __forceinline__ double quiet_nan() {
+  return __longlong_as_double(0x7ff8000000000000LL);
+}
+
+// One stream's law: per launch (law, p1, p2), or per lane where Indexed
+// and law_i is not null.
+struct LawRef {
+  int32_t law;
+  double p1, p2;
+  const int32_t* law_i;
+  const double* s1;
+  const double* s2;
+};
+
+struct Law {
+  int law;
+  double p1, p2;
+};
+
+template <bool Indexed>
+__device__ __forceinline__ Law lane_law(const LawRef& r, int64_t i, bool in) {
+  if constexpr (Indexed) {
+    if (r.law_i != nullptr) {
+      return {ld_i32(r.law_i + i, in), ld_f64(r.s1 + i, in),
+              ld_f64(r.s2 + i, in)};
+    }
+  }
+  return {r.law, r.p1, r.p2};
+}
+
+struct PredictionArgs {
+  const bool* mask;
+  const bool* fp_mask;    // null with a clock
+  const double* t;        // the clock: null for one refill
+  const double* lead_act;
+  int32_t* la_ctr;
+  double* la_time;
+  double* tp_t0;
+  double* tp_ft;
+  int32_t* tp_ctr;
+  int32_t* fp_ctr;
+  double* fp_time;
+  const int64_t* f_key;
+  const double* f_mean;
+  const int64_t* tc_key;
+  const double* recall;
+  const double* window;
+  const int64_t* fp_key;
+  const double* fp_mean;
+  const double* horizon;
+  LawRef f_law, fp_law;
+};
+
+// The lookahead walk: draw faults until one is a visible true positive
+// (the pending-TP slot takes its window start, date and counter) or the
+// cursor dies past the horizon (the slot empties: inf / nan).
+__device__ __forceinline__ void tp_walk(uint64_t f_key, uint64_t tc_key,
+                                        double f_mean, double horizon,
+                                        const Law& fl, double recall,
+                                        double window, int32_t* lc, double* lt,
+                                        double* t0, double* ft, int32_t* tc) {
+  for (;;) {
+    advance(f_key, lc, lt, f_mean, horizon, fl.law, fl.p1, fl.p2);
+    uint32_t w0, w1;
+    splitmix64(tc_key, *lc, &w0, &w1);
+    if (!isfinite(*lt)) {
+      *t0 = INFINITY;
+      *ft = quiet_nan();
+      return;
+    }
+    if (uniform24(w0) < recall) {
+      const double x = *lt - uniform24(w1) * window;
+      *t0 = x < 0.0 ? 0.0 : x;  // torch.clamp(min=0): x is finite here
+      *ft = *lt;
+      *tc = *lc;
+      return;
+    }
+  }
+}
+
+template <bool Indexed>
+__global__ void prediction_walk_kernel(int64_t n, PredictionArgs a) {
+  const bool until = a.t != nullptr;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n; i += stride) {
+    // round 1: what decides whether the lane walks
+    const bool m = a.mask[i];
+    bool walks, mf = false;
+    double tt = 0.0, lead = 0.0, t0 = 0.0, fpt = 0.0;
+    if (until) {
+      tt = a.t[i];
+      lead = a.lead_act[i];
+      t0 = a.tp_t0[i];
+      fpt = a.fp_time[i];
+      walks = m && nan_min(t0, fpt) - lead < tt;
+    } else {
+      mf = a.fp_mask[i];
+      walks = m || mf;
+    }
+    // round 2: the rest of the record, predicated, all in flight together
+    int32_t lc = ld_i32(a.la_ctr + i, walks);
+    double lt = ld_f64(a.la_time + i, walks);
+    double ft = ld_f64(a.tp_ft + i, walks);
+    int32_t tc = ld_i32(a.tp_ctr + i, walks);
+    int32_t fc = ld_i32(a.fp_ctr + i, walks);
+    if (!until) {
+      t0 = ld_f64(a.tp_t0 + i, walks);
+      fpt = ld_f64(a.fp_time + i, walks);
+    }
+    const uint64_t f_key = ld_u64(a.f_key + i, walks);
+    const uint64_t tc_key = ld_u64(a.tc_key + i, walks);
+    const uint64_t fp_key = ld_u64(a.fp_key + i, walks);
+    const double f_mean = ld_f64(a.f_mean + i, walks);
+    const double fp_mean = ld_f64(a.fp_mean + i, walks);
+    const double recall = ld_f64(a.recall + i, walks);
+    const double window = ld_f64(a.window + i, walks);
+    const double horizon = ld_f64(a.horizon + i, walks);
+    const Law fl = lane_law<Indexed>(a.f_law, i, walks);
+    const Law fpl = lane_law<Indexed>(a.fp_law, i, walks);
+    if (!walks) continue;
+
+    if (until) {
+      // consume from the merged head while its action point has passed
+      while (nan_min(t0, fpt) - lead < tt) {
+        if (t0 <= fpt) {
+          tp_walk(f_key, tc_key, f_mean, horizon, fl, recall, window, &lc, &lt,
+                  &t0, &ft, &tc);
+        } else {
+          advance(fp_key, &fc, &fpt, fp_mean, horizon, fpl.law, fpl.p1,
+                  fpl.p2);
+        }
+      }
+    } else {
+      if (mf) {
+        advance(fp_key, &fc, &fpt, fp_mean, horizon, fpl.law, fpl.p1, fpl.p2);
+      }
+      if (m) {
+        tp_walk(f_key, tc_key, f_mean, horizon, fl, recall, window, &lc, &lt,
+                &t0, &ft, &tc);
+      }
+    }
+    a.la_ctr[i] = lc;
+    a.la_time[i] = lt;
+    a.tp_t0[i] = t0;
+    a.tp_ft[i] = ft;
+    a.tp_ctr[i] = tc;
+    a.fp_ctr[i] = fc;
+    a.fp_time[i] = fpt;
+  }
+}
+
+struct StrikeArgs {
+  const bool* res;
+  double* t;
+  int32_t* sf_ctr;
+  double* sf_time;
+  int64_t* n_faults;
+  const double* DR;
+  const int64_t* key;
+  const double* mean;
+  const double* horizon;
+  const int32_t* cancel0;  // the three cancel slots: null without migration
+  const int32_t* cancel1;
+  const int32_t* cancel2;
+  LawRef law;
+};
+
+template <bool Indexed>
+__global__ void strike_walk_kernel(int64_t n, StrikeArgs a) {
+  const bool has_mig = a.cancel0 != nullptr;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n; i += stride) {
+    // round 1: what decides whether the lane steps
+    const bool r = a.res[i];
+    double tt = a.t[i];
+    double st = a.sf_time[i];
+    int32_t sc = a.sf_ctr[i];
+    int32_t c0 = -1, c1 = -1, c2 = -1;
+    if (has_mig) {
+      c0 = a.cancel0[i];
+      c1 = a.cancel1[i];
+      c2 = a.cancel2[i];
+    }
+    const bool walks =
+        r && (st < tt || (has_mig && (sc == c0 || sc == c1 || sc == c2)));
+    // round 2: predicated, all in flight together
+    const double dr = ld_f64(a.DR + i, walks);
+    int64_t nflt = static_cast<int64_t>(ld_u64(a.n_faults + i, walks));
+    const uint64_t key = ld_u64(a.key + i, walks);
+    const double mean = ld_f64(a.mean + i, walks);
+    const double horizon = ld_f64(a.horizon + i, walks);
+    const Law lw = lane_law<Indexed>(a.law, i, walks);
+    if (!walks) continue;
+
+    for (;;) {
+      const bool cc = has_mig && (sc == c0 || sc == c1 || sc == c2);
+      if (!(cc || st < tt)) break;
+      if (!cc && st >= tt - dr) {  // a fault during the repair restarts it
+        tt = st + dr;
+        ++nflt;
+      }
+      advance(key, &sc, &st, mean, horizon, lw.law, lw.p1, lw.p2);
+    }
+    a.t[i] = tt;
+    a.sf_ctr[i] = sc;
+    a.sf_time[i] = st;
+    a.n_faults[i] = nflt;
+  }
+}
+
 unsigned int blocks_for(int64_t n) {
   int64_t b = (n + kThreads - 1) / kThreads;
   return static_cast<unsigned int>(b < kMaxBlocks ? b : kMaxBlocks);
@@ -324,5 +626,82 @@ extern "C" int sim_step_stream_advance_indexed(
                                 static_cast<cudaStream_t>(stream)>>>(
       n, mask, ctr, tm, key, mean, horizon, kLawExponential, 0.0, 0.0, law_i,
       s1, s2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The prediction walk.  With t (and lead_act) not null: the merged-head
+// walk on the lanes of mask, fp_mask null.  With t null: one refill, the
+// lookahead walk where mask and one false prediction where fp_mask.
+extern "C" int sim_step_prediction_walk(
+    int64_t n, const bool* mask, const bool* fp_mask, const double* t,
+    const double* lead_act, int32_t* la_ctr, double* la_time, double* tp_t0,
+    double* tp_ft, int32_t* tp_ctr, int32_t* fp_ctr, double* fp_time,
+    const int64_t* f_key, const double* f_mean, const int64_t* tc_key,
+    const double* recall, const double* window, const int64_t* fp_key,
+    const double* fp_mean, const double* horizon, int32_t f_law, double f_p1,
+    double f_p2, int32_t fp_law, double fp_p1, double fp_p2, void* stream) {
+  if (n <= 0) return 0;
+  const PredictionArgs a{
+      mask, fp_mask, t, lead_act, la_ctr, la_time, tp_t0, tp_ft, tp_ctr,
+      fp_ctr, fp_time, f_key, f_mean, tc_key, recall, window, fp_key, fp_mean,
+      horizon, LawRef{f_law, f_p1, f_p2, nullptr, nullptr, nullptr},
+      LawRef{fp_law, fp_p1, fp_p2, nullptr, nullptr, nullptr}};
+  prediction_walk_kernel<false><<<blocks_for(n), kThreads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(n, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The law-indexed prediction walk: each stream takes its scalars (f_law,
+// f_p1, f_p2) where its per-lane triple (f_law_i, f_s1, f_s2) is null.
+extern "C" int sim_step_prediction_walk_indexed(
+    int64_t n, const bool* mask, const bool* fp_mask, const double* t,
+    const double* lead_act, int32_t* la_ctr, double* la_time, double* tp_t0,
+    double* tp_ft, int32_t* tp_ctr, int32_t* fp_ctr, double* fp_time,
+    const int64_t* f_key, const double* f_mean, const int64_t* tc_key,
+    const double* recall, const double* window, const int64_t* fp_key,
+    const double* fp_mean, const double* horizon, int32_t f_law, double f_p1,
+    double f_p2, const int32_t* f_law_i, const double* f_s1,
+    const double* f_s2, int32_t fp_law, double fp_p1, double fp_p2,
+    const int32_t* fp_law_i, const double* fp_s1, const double* fp_s2,
+    void* stream) {
+  if (n <= 0) return 0;
+  const PredictionArgs a{
+      mask, fp_mask, t, lead_act, la_ctr, la_time, tp_t0, tp_ft, tp_ctr,
+      fp_ctr, fp_time, f_key, f_mean, tc_key, recall, window, fp_key, fp_mean,
+      horizon, LawRef{f_law, f_p1, f_p2, f_law_i, f_s1, f_s2},
+      LawRef{fp_law, fp_p1, fp_p2, fp_law_i, fp_s1, fp_s2}};
+  prediction_walk_kernel<true><<<blocks_for(n), kThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(n, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The strike walk; cancel0..2 null without migration.
+extern "C" int sim_step_strike_walk(
+    int64_t n, const bool* res, double* t, int32_t* sf_ctr, double* sf_time,
+    int64_t* n_faults, const double* DR, const int64_t* key,
+    const double* mean, const double* horizon, const int32_t* cancel0,
+    const int32_t* cancel1, const int32_t* cancel2, int32_t law, double p1,
+    double p2, void* stream) {
+  if (n <= 0) return 0;
+  const StrikeArgs a{res,     t,       sf_ctr,  sf_time, n_faults,
+                     DR,      key,     mean,    horizon, cancel0,
+                     cancel1, cancel2, LawRef{law, p1, p2, nullptr, nullptr, nullptr}};
+  strike_walk_kernel<false><<<blocks_for(n), kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(n, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int sim_step_strike_walk_indexed(
+    int64_t n, const bool* res, double* t, int32_t* sf_ctr, double* sf_time,
+    int64_t* n_faults, const double* DR, const int64_t* key,
+    const double* mean, const double* horizon, const int32_t* cancel0,
+    const int32_t* cancel1, const int32_t* cancel2, const int32_t* law_i,
+    const double* s1, const double* s2, void* stream) {
+  if (n <= 0) return 0;
+  const StrikeArgs a{res,     t,       sf_ctr,  sf_time, n_faults,
+                     DR,      key,     mean,    horizon, cancel0,
+                     cancel1, cancel2, LawRef{kLawExponential, 0.0, 0.0, law_i, s1, s2}};
+  strike_walk_kernel<true><<<blocks_for(n), kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(n, a);
   return static_cast<int>(cudaGetLastError());
 }

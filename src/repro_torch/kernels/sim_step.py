@@ -1,4 +1,4 @@
-"""The device lane machine's hot step: plain PyTorch versions and the two
+"""The device lane machine's hot step: plain PyTorch versions and the
 CUDA kernel wrappers.
 
 :func:`masked_primitive_update` runs one masked primitive per lane (fault
@@ -7,26 +7,37 @@ bitfield) and, in device trace mode, refills the strike cursor of the
 lanes that faulted.  :func:`masked_stream_advance` advances a renewal
 stream cursor by one event where a mask is set.  Both wrap hand-written
 CUDA kernels (``csrc/sim_step.cu``, built by :mod:`.build`) that replace
-the reference's Pallas kernels of the same names; both update their state
-arguments in place and return them.
+the reference's Pallas kernels of the same names.
 
-Both kernels come in two variants.  The single-law one takes one
-``(kind, param)`` per launch; the law-indexed one (``kind="indexed"``,
-the mixed-law sweep) takes three more per-lane inputs, the int32 law
-code and the ``s1`` / ``s2`` shape slots of
+:func:`masked_prediction_walk` and :func:`masked_strike_walk` carry the
+lane machine's three cursor loops in one launch each: the prediction walk
+is the walk of the lookahead fault cursor to the next visible true
+positive together with the skip over predictions whose action point has
+passed, the strike walk the stale-fault cascade of the strike cursor.
+Each lane advances its cursor
+as far as its own stop condition needs, inside the kernel, with no host
+sync; their plain versions, :func:`prediction_walk` and
+:func:`strike_walk`, are the same loops in masked passes over all lanes,
+each pass's condition one host sync.  Every wrapper updates its state
+arguments in place and returns them.
+
+Every kernel comes in two variants.  The single-law one takes one
+``(kind, param)`` per launch and stream; the law-indexed one
+(``kind="indexed"``, the mixed-law sweep) takes three more per-lane
+inputs, the int32 law code and the ``s1`` / ``s2`` shape slots of
 :func:`~repro_torch.core.events.law_table`, and draws each lane's gap
-under its own law.  Each wrapper counts the launches of the two
-variants apart: ``.launches`` and ``.indexed_launches``.
+under its own law.  Each wrapper counts the launches of the two variants
+apart: ``.launches`` and ``.indexed_launches``.
 
 Every function the kernels compute also exists here as plain PyTorch:
 the counter-based RNG (Threefry-2x32, SplitMix64, ``uniform24``), the
-inverse-CDF gap transforms, :func:`stream_advance` and
-:func:`primitive_update`.  A wrapper given CPU tensors runs the plain
-version; given CUDA tensors it launches its kernel or raises.  torch has
-no ``>>`` for unsigned 64-bit integers on the CPU and ``>>`` on int64 is
-arithmetic, so the plain RNG works on int64 bit patterns: multiplies wrap
-around and right shifts are masked to be logical.  32-bit words travel
-as non-negative int64 values.
+inverse-CDF gap transforms, :func:`stream_advance`,
+:func:`primitive_update` and the two walks.  A wrapper given CPU tensors
+runs the plain version; given CUDA tensors it launches its kernel or
+raises.  torch has no ``>>`` for unsigned 64-bit integers on the CPU and
+``>>`` on int64 is arithmetic, so the plain RNG works on int64 bit
+patterns: multiplies wrap around and right shifts are masked to be
+logical.  32-bit words travel as non-negative int64 values.
 """
 
 from __future__ import annotations
@@ -39,7 +50,7 @@ import torch
 from ..core.events import (
     _SM_GAMMA, _SM_MIX1, _SM_MIX2, _TF_PARITY, _TF_ROTATIONS, THREEFRY_ROUNDS,
     LAW_EXPONENTIAL, LAW_LOGNORMAL, LAW_UNIFORM, LAW_WEIBULL, STREAM_FAULT_GAP,
-    law_constants, stream_key64_np,
+    STREAM_FP_GAP, STREAM_TP_COIN, law_constants, stream_key64_np,
 )
 
 __all__ = [
@@ -48,10 +59,11 @@ __all__ = [
     "threefry2x32", "splitmix64", "uniform24", "stream_key",
     "counter_words", "counter_uniform", "counter_uniform2",
     "law_constants", "gap_transform", "gap_transform_indexed",
-    "stream_advance", "primitive_update",
+    "stream_advance", "primitive_update", "prediction_walk", "strike_walk",
     "masked_stream_advance", "masked_primitive_update",
+    "masked_prediction_walk", "masked_strike_walk", "PREDICTION_CURSORS",
     "cell_gather", "segment_cell_sums", "sample_lane_state", "SAMPLE_LAWS",
-    "sample_lane_laws", "lane_state_tensors",
+    "sample_lane_laws", "sample_walk_state", "lane_state_tensors",
 ]
 
 #: primitive kinds (0-3 shared with repro_torch.core.batch_sim's _PR_* codes;
@@ -283,6 +295,119 @@ def primitive_update(
 
 
 # --------------------------------------------------------------------------- #
+# The cursor walks
+# --------------------------------------------------------------------------- #
+#: the prediction cursors a walk updates, in argument order: the lookahead
+#: fault cursor, the pending true-positive slot (window start, fault date,
+#: fault counter) and the false-prediction cursor
+PREDICTION_CURSORS = ("la_ctr", "la_time", "tp_t0", "tp_ft", "tp_ctr", "fp_ctr", "fp_time")
+
+
+def _sync(tally):
+    """The loop condition of a plain walk: ``tally.any`` (which counts the
+    host syncs), or a bare ``bool(mask.any())``."""
+    return tally.any if tally is not None else (lambda m: bool(m.any()))
+
+
+def prediction_walk(
+    mask, fp_mask, la_ctr, la_time, tp_t0, tp_ft, tp_ctr, fp_ctr, fp_time,
+    f_key, f_mean, tc_key, recall, window, fp_key, fp_mean, horizon,
+    *, f_gap, fp_gap, f_law=None, f_lp=None, fp_law=None, fp_lp=None,
+    until=None, tally=None,
+):
+    """Refill the prediction cursors (:data:`PREDICTION_CURSORS`).  Returns
+    the seven as new tensors.
+
+    Without ``until``: walk the lookahead fault cursor (keyed ``f_key``,
+    mean ``f_mean``) to the next visible true positive where ``mask``
+    (coin ``u < recall`` of the TP-coin stream ``tc_key`` and a finite
+    date: ``tp_t0 = max(0, date - u_off * window)``; a cursor that dies
+    past the horizon empties the slot to ``inf`` / ``nan``), and draw the
+    next false prediction where ``fp_mask``.  With ``until = (t,
+    lead_act)`` (``fp_mask`` None): on the lanes of ``mask``, consume from
+    the merged (pending-TP, next-FP) head while its action point
+    ``min(tp_t0, fp_time) - lead_act`` is before ``t``.
+
+    ``f_gap`` / ``fp_gap`` are each stream's ``(kind, param)``; a kind
+    ``"indexed"`` takes that stream's per-lane ``*_law`` and ``*_lp = (s1,
+    s2)``.  Masked passes over all lanes, each pass's condition one host
+    sync through ``tally.any`` (:func:`_sync`)."""
+    any_ = _sync(tally)
+
+    def consume(use_tp, use_fp):
+        nonlocal la_ctr, la_time, tp_t0, tp_ft, tp_ctr, fp_ctr, fp_time
+        # one pass: with q in {0, 1} every drawn false prediction is visible
+        fp_ctr, fp_time = stream_advance(
+            use_fp, fp_ctr, fp_time, fp_key, fp_mean, horizon,
+            kind=fp_gap[0], param=fp_gap[1], law=fp_law, lp=fp_lp,
+        )
+        act = use_tp
+        # advance-then-check, ~1/recall expected passes
+        while any_(act):
+            la_ctr, la_time = stream_advance(
+                act, la_ctr, la_time, f_key, f_mean, horizon,
+                kind=f_gap[0], param=f_gap[1], law=f_law, lp=f_lp,
+            )
+            u_coin, u_off = counter_uniform2(tc_key, la_ctr)
+            alive = torch.isfinite(la_time)
+            good = act & (u_coin < recall) & alive
+            dead = act & ~alive
+            tp_t0 = torch.where(
+                good, torch.clamp(la_time - u_off * window, min=0.0), tp_t0
+            ).masked_fill(dead, math.inf)
+            tp_ft = torch.where(good, la_time, tp_ft).masked_fill(dead, math.nan)
+            tp_ctr = torch.where(good, la_ctr, tp_ctr)
+            act = act & ~(good | dead)
+
+    if until is None:
+        consume(mask, fp_mask)
+    else:
+        t, lead_act = until
+        while True:
+            adv = mask & (torch.minimum(tp_t0, fp_time) - lead_act < t)
+            if not any_(adv):
+                break
+            use_tp = adv & (tp_t0 <= fp_time)
+            consume(use_tp, adv & ~use_tp)
+    return la_ctr, la_time, tp_t0, tp_ft, tp_ctr, fp_ctr, fp_time
+
+
+def strike_walk(
+    res, t, sf_ctr, sf_time, n_faults, DR, key, mean, horizon,
+    *, kind: str, param: float, law=None, lp=None, cancels=None, tally=None,
+):
+    """Resolve stale faults on the lanes of ``res``: while the strike
+    cursor ``(sf_ctr, sf_time)`` is dated before ``t`` (or, given the three
+    ``cancels`` slots of a migration grid, its counter is cancelled), a
+    fault within the repair window ``DR`` restarts the repair (``t = date
+    + DR``, one more fault; cancelled faults are skipped), then the cursor
+    draws its next fault.  Returns ``(t, sf_ctr, sf_time, n_faults)`` as
+    new tensors.  ``kind="indexed"`` takes the per-lane ``law`` and ``lp =
+    (s1, s2)``.  Masked passes, each pass's condition one host sync
+    through ``tally.any``."""
+    any_ = _sync(tally)
+    while True:
+        stale = sf_time < t
+        if cancels is not None:
+            cc = (sf_ctr == cancels[0]) | (sf_ctr == cancels[1]) | (sf_ctr == cancels[2])
+            stepm = res & (cc | stale)
+        else:
+            stepm = res & stale
+        if not any_(stepm):
+            break
+        hit = stepm & (sf_time >= t - DR)
+        if cancels is not None:
+            hit &= ~cc
+        t = torch.where(hit, sf_time + DR, t)
+        n_faults = n_faults + hit.to(torch.int64)
+        sf_ctr, sf_time = stream_advance(
+            stepm, sf_ctr, sf_time, key, mean, horizon, kind=kind, param=param,
+            law=law, lp=lp,
+        )
+    return t, sf_ctr, sf_time, n_faults
+
+
+# --------------------------------------------------------------------------- #
 # Kernel wrappers
 # --------------------------------------------------------------------------- #
 def _check(name: str, specs) -> torch.device:
@@ -329,17 +454,28 @@ def _raise_on(name: str, rc: int) -> None:
         raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc})")
 
 
-def _law_specs(kind: str, law, lp) -> list:
+def _law_specs(kind: str, law, lp, prefix: str = "") -> list:
     """``_check`` specs of the law-indexed variant's three per-lane inputs
     (none for a single-law call, which must not pass them)."""
     if kind != "indexed":
         if law is not None or lp is not None:
-            raise ValueError(f"law / lp belong to kind='indexed', not {kind!r}")
+            raise ValueError(f"{prefix}law / {prefix}lp belong to kind='indexed', "
+                             f"not {kind!r}")
         return []
     if law is None or lp is None or len(lp) != 2:
-        raise ValueError("kind='indexed' needs law and lp=(s1, s2)")
-    return [("law", law, torch.int32), ("s1", lp[0], torch.float64),
-            ("s2", lp[1], torch.float64)]
+        raise ValueError(f"kind='indexed' needs {prefix}law and {prefix}lp=(s1, s2)")
+    return [(f"{prefix}law", law, torch.int32), (f"{prefix}s1", lp[0], torch.float64),
+            (f"{prefix}s2", lp[1], torch.float64)]
+
+
+def _law_args(gap, law, lp) -> tuple:
+    """One stream's law arguments of a law-indexed walk entry point: the
+    per-launch ``(law, p1, p2)`` and the per-lane ``(law, s1, s2)``
+    pointers, null for a single-law stream."""
+    if gap[0] == "indexed":
+        return (LAW_EXPONENTIAL, 0.0, 0.0, law.data_ptr(), lp[0].data_ptr(),
+                lp[1].data_ptr())
+    return (*law_constants(*gap), None, None, None)
 
 
 def masked_stream_advance(mask, ctr, tm, key, mean, horizon, *, kind: str, param: float,
@@ -496,6 +632,149 @@ masked_primitive_update.launches = 0
 masked_primitive_update.indexed_launches = 0
 
 
+def masked_prediction_walk(
+    mask, fp_mask, la_ctr, la_time, tp_t0, tp_ft, tp_ctr, fp_ctr, fp_time,
+    f_key, f_mean, tc_key, recall, window, fp_key, fp_mean, horizon,
+    *, f_gap, fp_gap, f_law=None, f_lp=None, fp_law=None, fp_lp=None,
+    until=None, tally=None,
+):
+    """:func:`prediction_walk`, **in place**: the seven cursors
+    (:data:`PREDICTION_CURSORS`) are both inputs and outputs, and are
+    returned.  ``mask`` / ``fp_mask`` are bool, the counters int32, the
+    keys int64, the rest f64, all flat ``(L,)``; ``until = (t, lead_act)``
+    goes with ``fp_mask=None``.
+
+    CUDA tensors launch ``sim_step_prediction_walk`` (its ``_indexed``
+    variant when either stream's kind is ``"indexed"``): one launch, no
+    host sync.  CPU tensors run the plain version, whose loop conditions
+    go through ``tally.any``.  ``masked_prediction_walk.launches`` counts
+    the single-law kernel's launches, ``.indexed_launches`` the
+    law-indexed kernel's."""
+    f64, i32, i64 = torch.float64, torch.int32, torch.int64
+    cur = (la_ctr, la_time, tp_t0, tp_ft, tp_ctr, fp_ctr, fp_time)
+    consts = (f_key, f_mean, tc_key, recall, window, fp_key, fp_mean, horizon)
+    specs = [("mask", mask, torch.bool)]
+    if until is None:
+        if fp_mask is None:
+            raise ValueError("masked_prediction_walk: fp_mask is needed without until")
+        specs.append(("fp_mask", fp_mask, torch.bool))
+        t = lead_act = None
+    else:
+        if fp_mask is not None:
+            raise ValueError("masked_prediction_walk: until=(t, lead_act) takes no fp_mask")
+        t, lead_act = until
+        specs += [("t", t, f64), ("lead_act", lead_act, f64)]
+    specs += list(zip(PREDICTION_CURSORS, cur, (i32, f64, f64, f64, i32, i32, f64)))
+    specs += list(zip(
+        ("f_key", "f_mean", "tc_key", "recall", "window", "fp_key", "fp_mean", "horizon"),
+        consts, (i64, f64, i64, f64, f64, i64, f64, f64),
+    ))
+    specs += _law_specs(f_gap[0], f_law, f_lp, "f_") + _law_specs(fp_gap[0], fp_law, fp_lp, "fp_")
+    dev = _check("masked_prediction_walk", specs)
+    if dev.type == "cpu":
+        out = prediction_walk(
+            mask, fp_mask, *cur, *consts, f_gap=f_gap, fp_gap=fp_gap, f_law=f_law,
+            f_lp=f_lp, fp_law=fp_law, fp_lp=fp_lp, until=until, tally=tally,
+        )
+        for dst, src in zip(cur, out):
+            dst.copy_(src)
+        return cur
+    from . import build
+
+    lib = build.load("sim_step")
+    head = (
+        mask.numel(), mask.data_ptr(), fp_mask.data_ptr() if fp_mask is not None else None,
+        t.data_ptr() if t is not None else None,
+        lead_act.data_ptr() if lead_act is not None else None,
+        *(x.data_ptr() for x in cur), *(x.data_ptr() for x in consts),
+    )
+    indexed = "indexed" in (f_gap[0], fp_gap[0])
+    if indexed:
+        rc = lib.sim_step_prediction_walk_indexed(
+            *head, *_law_args(f_gap, f_law, f_lp), *_law_args(fp_gap, fp_law, fp_lp),
+            _stream_ptr(dev),
+        )
+    else:
+        rc = lib.sim_step_prediction_walk(
+            *head, *law_constants(*f_gap), *law_constants(*fp_gap), _stream_ptr(dev),
+        )
+    _raise_on("masked_prediction_walk", rc)
+    if mask.numel():
+        if indexed:
+            masked_prediction_walk.indexed_launches += 1
+        else:
+            masked_prediction_walk.launches += 1
+    return cur
+
+
+masked_prediction_walk.launches = 0
+masked_prediction_walk.indexed_launches = 0
+
+
+def masked_strike_walk(
+    res, t, sf_ctr, sf_time, n_faults, DR, key, mean, horizon,
+    *, kind: str, param: float, law=None, lp=None, cancels=None, tally=None,
+):
+    """:func:`strike_walk`, **in place**: ``t``, ``sf_ctr`` (int32),
+    ``sf_time`` and ``n_faults`` (int64) are both inputs and outputs, and
+    are returned.  ``res`` is bool, ``key`` int64, ``DR`` / ``mean`` /
+    ``horizon`` f64, ``cancels`` None or three int32 slots, all flat
+    ``(L,)``.
+
+    CUDA tensors launch ``sim_step_strike_walk`` (its ``_indexed`` variant
+    for ``kind="indexed"``): one launch, no host sync.  CPU tensors run the
+    plain version, whose loop condition goes through ``tally.any``.
+    ``masked_strike_walk.launches`` counts the single-law kernel's
+    launches, ``.indexed_launches`` the law-indexed kernel's."""
+    f64, i32 = torch.float64, torch.int32
+    specs = [
+        ("res", res, torch.bool), ("t", t, f64), ("sf_ctr", sf_ctr, i32),
+        ("sf_time", sf_time, f64), ("n_faults", n_faults, torch.int64),
+        ("DR", DR, f64), ("key", key, torch.int64), ("mean", mean, f64),
+        ("horizon", horizon, f64),
+    ]
+    if cancels is not None:
+        if len(cancels) != 3:
+            raise ValueError("masked_strike_walk: cancels must be three slots")
+        specs += [(f"cancel{k}", c, i32) for k, c in enumerate(cancels)]
+    specs += _law_specs(kind, law, lp)
+    dev = _check("masked_strike_walk", specs)
+    state = (t, sf_ctr, sf_time, n_faults)
+    if dev.type == "cpu":
+        out = strike_walk(
+            res, t, sf_ctr, sf_time, n_faults, DR, key, mean, horizon, kind=kind,
+            param=param, law=law, lp=lp, cancels=cancels, tally=tally,
+        )
+        for dst, src in zip(state, out):
+            dst.copy_(src)
+        return state
+    from . import build
+
+    lib = build.load("sim_step")
+    head = (
+        t.numel(), res.data_ptr(), *(x.data_ptr() for x in state),
+        DR.data_ptr(), key.data_ptr(), mean.data_ptr(), horizon.data_ptr(),
+        *((c.data_ptr() for c in cancels) if cancels is not None else (None,) * 3),
+    )
+    if kind == "indexed":
+        rc = lib.sim_step_strike_walk_indexed(
+            *head, law.data_ptr(), lp[0].data_ptr(), lp[1].data_ptr(), _stream_ptr(dev),
+        )
+    else:
+        rc = lib.sim_step_strike_walk(*head, *law_constants(kind, param), _stream_ptr(dev))
+    _raise_on("masked_strike_walk", rc)
+    if t.numel():
+        if kind == "indexed":
+            masked_strike_walk.indexed_launches += 1
+        else:
+            masked_strike_walk.launches += 1
+    return state
+
+
+masked_strike_walk.launches = 0
+masked_strike_walk.indexed_launches = 0
+
+
 # --------------------------------------------------------------------------- #
 # Cell multiplexing (fused experiment sweeps)
 # --------------------------------------------------------------------------- #
@@ -574,9 +853,75 @@ def sample_lane_laws(L: int, seed: int, block: int = 1) -> dict:
             "s1": consts[pick, 1], "s2": consts[pick, 2]}
 
 
+def sample_walk_state(L: int, seed: int) -> dict:
+    """Seeded NumPy lane states of the kind the lane machine hands the two
+    walks: heads of the prediction cursors and strike dates before and
+    after the clock (walks of many steps and of none), recall 0.3 or 0.85,
+    windows 0 to 3000 s, exhausted lookahead cursors (date ``inf``, slot
+    ``inf`` / ``nan``), lanes without false predictions (``fp_mean`` and
+    ``fp_time`` ``inf``), horizons that retire cursors mid-walk, cancel
+    slots on the strike cursor's counter and the next ones, and masks
+    clear on about a third of the lanes.  Keys are uint64 (``f_key``,
+    ``tc_key``, ``fp_key``, and ``key`` of the strike walk)."""
+    rng = np.random.default_rng(seed)
+    W = 8 * 86400.0
+    t = rng.uniform(0.0, 1.2 * W, L)
+    lanes = np.arange(L)
+    horizon = np.where(rng.random(L) < 0.85, 12 * W, t + rng.uniform(0.0, 3e4, L))
+    window = rng.choice([0.0, 600.0, 3000.0], L)
+    la_time = t + rng.uniform(-4e4, 2e4, L)
+    dead = rng.random(L) < 0.05
+    la_time[dead] = np.inf
+    tp_t0 = np.maximum(la_time - rng.random(L) * window, 0.0)
+    no_fp = rng.random(L) < 0.1
+    fp_time = np.where(no_fp, np.inf, t + rng.uniform(-5e4, 3e4, L))
+    la_ctr = rng.integers(0, 3000, L).astype(np.int32)
+    sf_ctr = rng.integers(0, 3000, L).astype(np.int32)
+
+    def cancel(offset, p):
+        return np.where(rng.random(L) < p, sf_ctr + offset, -1).astype(np.int32)
+
+    return {
+        "mask": rng.random(L) < 0.7,
+        "fp_mask": rng.random(L) < 0.5,
+        "t": t,
+        "lead_act": rng.choice([60.0, 600.0], L),
+        "la_ctr": la_ctr,
+        "la_time": la_time,
+        "tp_t0": np.where(dead, np.inf, tp_t0),
+        "tp_ft": np.where(dead, np.nan, la_time),
+        "tp_ctr": la_ctr.copy(),
+        "fp_ctr": rng.integers(0, 3000, L).astype(np.int32),
+        "fp_time": fp_time,
+        "f_key": stream_key64_np(seed, lanes, STREAM_FAULT_GAP),
+        "f_mean": rng.uniform(2e3, 5e4, L),
+        "tc_key": stream_key64_np(seed, lanes, STREAM_TP_COIN),
+        "recall": rng.choice([0.3, 0.85], L),
+        "window": window,
+        "fp_key": stream_key64_np(seed, lanes, STREAM_FP_GAP),
+        "fp_mean": np.where(no_fp, np.inf, rng.uniform(5e3, 1e5, L)),
+        "horizon": horizon,
+        "res": rng.random(L) < 0.8,
+        "sf_ctr": sf_ctr,
+        "sf_time": t + rng.uniform(-3e4, 5e3, L),
+        "n_faults": rng.integers(0, 50, L).astype(np.int64),
+        "DR": rng.choice([660.0, 3600.0], L),
+        "key": stream_key64_np(seed + 1, lanes, STREAM_FAULT_GAP),
+        "mean": rng.uniform(2e3, 5e4, L),
+        "cancel0": cancel(0, 0.2),
+        "cancel1": cancel(1, 0.2),
+        "cancel2": cancel(3, 0.1),
+    }
+
+
 def lane_state_tensors(x: dict, device) -> dict:
-    """:func:`sample_lane_state`'s arrays as the wrappers take them, on
-    ``device``: the uint64 keys as int64 bit patterns."""
-    out = {k: torch.from_numpy(np.array(v)) for k, v in x.items() if k != "key"}
-    out["key"] = torch.from_numpy(np.ascontiguousarray(x["key"], np.uint64).view(np.int64))
-    return {k: v.to(device) for k, v in out.items()}
+    """:func:`sample_lane_state`'s (or :func:`sample_walk_state`'s) arrays
+    as the wrappers take them, on ``device``: the uint64 keys as int64 bit
+    patterns."""
+    out = {}
+    for k, v in x.items():
+        v = np.array(v)
+        if v.dtype == np.uint64:
+            v = v.view(np.int64)
+        out[k] = torch.from_numpy(v).to(device)
+    return out

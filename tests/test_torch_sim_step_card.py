@@ -1,17 +1,19 @@
 """On a CUDA card: the port's hot-step kernels (``csrc/sim_step.cu``)
 against their plain PyTorch versions, both the single-law and the
 law-indexed variant, and each law's lanes of the indexed launch against
-the single-law launch.  Imports neither JAX nor the reference, so it runs
-on the card's machine:
+the single-law launch; the same for the two cursor walks, whose launch
+counters must move by one a call.  Imports neither JAX nor the
+reference, so it runs on the card's machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_sim_step_card.py
 
 Without a card every test skips.
 
 Tolerances: every output equal to the plain version's except the cursor
-date ``tm`` (libdevice against ATen transcendentals, within 4 ulp); on
-each law's lanes the indexed launch gives the single-law launch's bits
-(0 ulp)."""
+dates (``tm``; the walks' ``la_time``, ``tp_t0``, ``tp_ft``, ``fp_time``,
+``t`` and ``sf_time``: libdevice against ATen transcendentals, within 4
+ulp, ``nan`` and ``inf`` in the same places); on each law's lanes the
+indexed launch gives the single-law launch's bits (0 ulp)."""
 
 import pytest
 import torch
@@ -41,7 +43,7 @@ def cuda_device():
 
 
 def _ulps(a: torch.Tensor, b: torch.Tensor) -> int:
-    same = a == b
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
     d = (a.view(torch.int64) - b.view(torch.int64)).abs()
     return int(torch.where(same, torch.zeros_like(d), d).max())
 
@@ -116,3 +118,114 @@ def test_indexed_kernels_give_single_law_bits_on_card(cuda_device, li):
     on = tx["pick"] == li
     for g, w in zip(gp + ga, sp + sa):
         assert torch.equal(g[on], w[on])  # 0 ulp on this law's lanes
+
+
+# --------------------------------------------------------------------------- #
+# The cursor walks
+# --------------------------------------------------------------------------- #
+_CONSTS = ("f_key", "f_mean", "tc_key", "recall", "window", "fp_key", "fp_mean", "horizon")
+_STRIKE = ("t", "sf_ctr", "sf_time", "n_faults")
+#: (fault gap, false-prediction gap) of the law-indexed cases
+_INDEXED = {"both": (("indexed", 0.0), ("indexed", 0.0)),
+            "fault": (("indexed", 0.0), ("exponential", 0.0))}
+
+
+def _walk_lanes(dev, L: int, seed: int) -> dict:
+    x = K.sample_walk_state(L, seed)
+    for prefix, s in (("f_", seed + 1), ("fp_", seed + 2)):
+        laws = K.sample_lane_laws(L, s, 1000)
+        x.update({f"{prefix}pick": laws["pick"], f"{prefix}law": laws["law"],
+                  f"{prefix}s1": laws["s1"], f"{prefix}s2": laws["s2"]})
+    return K.lane_state_tensors(x, dev)
+
+
+def _laws(gap, s, prefix):
+    if gap[0] != "indexed":
+        return None, None
+    return s[f"{prefix}law"], (s[f"{prefix}s1"], s[f"{prefix}s2"])
+
+
+def _walks(tx, f_gap, fp_gap, plain: bool) -> dict:
+    """The skip walk, a refill and the strike walk (with cancel slots) on
+    copies of ``tx``: {name: outputs}."""
+    pred = K.prediction_walk if plain else K.masked_prediction_walk
+    strike = K.strike_walk if plain else K.masked_strike_walk
+    out = {}
+    for mode in ("until", "refill"):
+        s = {k: v.clone() for k, v in tx.items()}
+        f_law, f_lp = _laws(f_gap, s, "f_")
+        fp_law, fp_lp = _laws(fp_gap, s, "fp_")
+        until = mode == "until"
+        got = pred(s["mask"], None if until else s["fp_mask"],
+                   *(s[k] for k in K.PREDICTION_CURSORS), *(s[k] for k in _CONSTS),
+                   f_gap=f_gap, fp_gap=fp_gap, f_law=f_law, f_lp=f_lp, fp_law=fp_law,
+                   fp_lp=fp_lp, until=(s["t"], s["lead_act"]) if until else None)
+        out[mode] = dict(zip(K.PREDICTION_CURSORS, got))
+    s = {k: v.clone() for k, v in tx.items()}
+    law, lp = _laws(f_gap, s, "f_")
+    got = strike(s["res"], s["t"], s["sf_ctr"], s["sf_time"], s["n_faults"], s["DR"],
+                 s["key"], s["mean"], s["horizon"], kind=f_gap[0], param=f_gap[1],
+                 law=law, lp=lp, cancels=(s["cancel0"], s["cancel1"], s["cancel2"]))
+    out["strike"] = dict(zip(_STRIKE, got))
+    torch.cuda.synchronize()
+    return out
+
+
+def _walk_counts():
+    return [getattr(fn, a) for fn in (K.masked_prediction_walk, K.masked_strike_walk)
+            for a in ("launches", "indexed_launches")]
+
+
+def _assert_walks_close(got: dict, want: dict):
+    for mode, outs in want.items():
+        for k, w in outs.items():
+            g = got[mode][k]
+            if w.dtype.is_floating_point:
+                assert torch.equal(torch.isnan(g), torch.isnan(w)), (mode, k)
+                assert _ulps(g, w) <= 4, (mode, k)
+            else:
+                assert torch.equal(g, w), (mode, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,param", LAWS)
+def test_walk_kernels_match_plain_versions_on_card(cuda_device, kind, param):
+    tx = _walk_lanes(cuda_device, 100_000, 15)
+    n0 = _walk_counts()
+    got = _walks(tx, (kind, param), (kind, param), plain=False)
+    assert _walk_counts() == [n0[0] + 2, n0[1], n0[2] + 1, n0[3]]
+    want = _walks(tx, (kind, param), (kind, param), plain=True)
+    _assert_walks_close(got, want)
+    steps = got["until"]["la_ctr"] - tx["la_ctr"]
+    assert int(steps.max()) >= 4 and int((got["strike"]["sf_ctr"] - tx["sf_ctr"]).max()) >= 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("streams", list(_INDEXED))
+def test_indexed_walk_kernels_match_plain_versions_on_card(cuda_device, streams):
+    f_gap, fp_gap = _INDEXED[streams]
+    tx = _walk_lanes(cuda_device, 100_000, 16)
+    n0 = _walk_counts()
+    got = _walks(tx, f_gap, fp_gap, plain=False)
+    assert _walk_counts() == [n0[0], n0[1] + 2, n0[2], n0[3] + 1]
+    _assert_walks_close(got, _walks(tx, f_gap, fp_gap, plain=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("li", range(len(K.SAMPLE_LAWS)))
+def test_indexed_walks_give_single_law_bits_on_card(cuda_device, li):
+    """On the lanes whose both streams draw law ``li``, the law-indexed
+    walks give the single-law walks' bits."""
+    gap = K.SAMPLE_LAWS[li]
+    tx = _walk_lanes(cuda_device, 100_000, 17)
+    tx["fp_law"], tx["fp_s1"], tx["fp_s2"] = tx["f_law"], tx["f_s1"], tx["f_s2"]
+    got = _walks(tx, ("indexed", 0.0), ("indexed", 0.0), plain=False)
+    want = _walks(tx, gap, gap, plain=False)
+    on = tx["f_pick"] == li
+    assert int(on.sum()) > 1000
+    for mode, outs in want.items():
+        for k, w in outs.items():
+            g = got[mode][k]
+            if w.dtype.is_floating_point:  # 0 ulp, nan for nan
+                g, w = g.view(torch.int64), w.view(torch.int64)
+            assert torch.equal(g[on], w[on]), (mode, k)
