@@ -47,8 +47,10 @@ full width and depth in bf16 (8 requests of 1024 prompt tokens, 128
 generated), once without faults and once with wall-clock faults, whose
 tokens must equal the fault-free ones, with 32 kernel launches a prefill
 and 32 a decode step, one decode step replayed as a CUDA graph against
-the same step issued eagerly; and the kernel's times at both shapes
-beside its bound and its plain version.
+the same step issued eagerly; and the kernel's times at both shapes, at
+its default tile and at the other built one, beside its bound, its f32
+issue floor (at the SM clock read during the timing), its launch floor
+and its plain version.
 
 Then the mixed-law sweep (phases 19-21): the law-indexed variant of the
 sim_step kernels against its plain version and, on each law's lanes,
@@ -195,6 +197,17 @@ WKV_Y_TOL = 1e-5
 #: (2 products and a sum per entry), r . S (a product and a sum per
 #: entry), the bonus dot r . (u * k) and c * v + y (5 per channel)
 WKV_OPS_HD2, WKV_OPS_HD = 5, 5
+#: f32 instructions an entry update of the exact recurrence issues at
+#: least: fl(w S), fl(k v), their sum, and one FMA of r S into y
+WKV_ISSUE_PER_ENTRY = 4
+#: H100 SXM: SMs and f32 lanes an SM
+SMS, F32_LANES = 132, 128
+#: the WKV kernel's tiles at hd 64 (rows of the 4-column state tile a
+#: thread owns): the defaults of a prefill and of a decode step (those of
+#: ``wkv6_fwd_rows`` in csrc/rwkv6.cu), and the other built tile each is
+#: timed against
+WKV_TILES = {"prefill": 8, "decode": 4}
+WKV_OTHER_TILE = {"prefill": 4, "decode": 8}
 #: the RWKV model on the card against the port on the CPU, f32 compute,
 #: full width, 2 layers.  Measured on the CPU with the port at one thread
 #: against eight (another summation order, as the card's): prefill logits
@@ -613,6 +626,35 @@ def ptxas_report(log: str) -> dict:
         m = re.search(r"Used (\d+) registers", ln)
         if m:
             out.setdefault(cur, {})["registers"] = int(m.group(1))
+    return out
+
+
+def ptxas_kernels(log: str, pattern: str) -> dict:
+    """Registers, static shared memory and spill bytes of each kernel in
+    nvcc's ``-Xptxas -v`` output whose mangled name matches ``pattern``
+    (group 1: the kernel's name; its template integers follow):
+    {"name<i, j>": {...}}."""
+    import re
+
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            k = re.search(pattern + r"I((?:Li\d+E)+)E", m.group(1))
+            cur = None if k is None else "{}<{}>".format(
+                k.group(1), ", ".join(re.findall(r"Li(\d+)E", k.group(2))))
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            out.setdefault(cur, {}).update(spill_stores=int(m.group(1)),
+                                           spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            sm = re.search(r"(\d+) bytes smem", ln)
+            out.setdefault(cur, {}).update(registers=int(m.group(1)),
+                                           static_smem_bytes=int(sm.group(1)) if sm else 0)
     return out
 
 
@@ -1402,10 +1444,11 @@ def rwkv_products_ms(params, cfg, rows: int, head_rows: int, dev) -> float:
     return ms * len(calls)
 
 
-def rwkv_phases(dev) -> list:
+def rwkv_phases(dev, wkv_regs: dict) -> list:
     """Phases 15-18: the WKV kernel against its plain version, the RWKV
     model on the card against the port on the CPU, the RWKV6-7B serving
-    path, and the kernel's times.  Returns the kernel's entry of the
+    path, and the kernel's times (``wkv_regs``: the build's register
+    report of its instantiations).  Returns the kernel's entry of the
     ``kernels`` line."""
     import dataclasses
 
@@ -1452,12 +1495,21 @@ def rwkv_phases(dev) -> list:
             x = x[:5]
         case(name, ops.wkv6(*x), W.wkv_ref(*x), shape=[b, s_, h, d], w_range=list(w_range),
              s0=not zero_s0)
-    r, k, v, w, u, s0 = W.sample_wkv_inputs(B, 1, H, hd, seed=20, device=dev)
-    want = W.wkv_ref(r, k, v, w, u, s0)
-    state = s0.clone()  # the serving cache's decode: the state written in place
-    got = ops.wkv6(r, k, v, w, u, state, state_out=state)
-    check(got[1] is state, "state_out was not the returned state")
-    case("decode_in_place", got, want, shape=[B, 1, H, hd])
+    # the serving cache's decode, the state written in place: the path's
+    # shape, then the one-token kernel at the other head dims
+    for name, b, h, d in (("decode_in_place", B, H, hd), ("decode_in_place_hd16", 4, 8, 16),
+                          ("decode_in_place_hd32", 4, 8, 32),
+                          ("decode_in_place_hd128", 4, 8, 128)):
+        r, k, v, w, u, s0 = W.sample_wkv_inputs(b, 1, h, d, seed=20 + d, device=dev)
+        want = W.wkv_ref(r, k, v, w, u, s0)
+        state = s0.clone()
+        got = ops.wkv6(r, k, v, w, u, state, state_out=state)
+        check(got[1] is state, "state_out was not the returned state")
+        case(name, got, want, shape=[b, 1, h, d])
+    # more (batch, head) blocks than the card holds at once (B 16 x H 64)
+    for name, s_ in (("two_waves_prefill", 48), ("two_waves_decode", 1)):
+        x = W.sample_wkv_inputs(16, s_, H, hd, seed=30 + s_, device=dev)
+        case(name, ops.wkv6(*x), W.wkv_ref(*x), shape=[16, s_, H, hd])
     r, k, v, w, u, s0 = W.sample_wkv_inputs(4, 300, 3, hd, seed=21, device=dev)
     flat = [t.transpose(1, 2).reshape(12, 300, hd).contiguous() for t in (r, k, v, w)]
     ub = u.expand(4, 3, hd).reshape(12, hd).contiguous()
@@ -1622,13 +1674,35 @@ def rwkv_phases(dev) -> list:
     # prefill: one layer's launch, zero initial state (537 MB of inputs, 10x
     # the L2); decode: one decode step's 32 launches, each on its own
     # layer's state (268 MB in all), the final state into another buffer so
-    # every replay does the same work
+    # every replay does the same work; each at the default tile and at the
+    # other built one.  The SM clock is sampled while the default prefill
+    # is replayed, for the issue floor.
     t0 = time.monotonic()
     r, k, v, w, u = W.sample_wkv_inputs(B, S, H, hd, seed=40, device=dev)[:5]
-    ms, out = device_ms([lambda: ops.wkv6(r, k, v, w, u)])
+    clocks = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits", "-lms", "20"],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        clocks.stdout.readline()  # the sampler runs (its first, idle, sample is dropped)
+        ms, out = device_ms([lambda: ops.wkv6(r, k, v, w, u)], samples=1000)
+    finally:
+        clocks.terminate()
+        mhz = [int(x) for x in clocks.communicate()[0].split() if x.isdigit()]
     pms, pout = device_ms([lambda: W.wkv_ref(r, k, v, w, u)])
     wkv_close(out, pout, "wkv6_bhsd (timed prefill) against its plain version")
-    prefill_t = {"ms": ms, "plain_ms": pms, **wkv_bound(B, S, H, hd, with_s0=False)}
+    other_ms, out = device_ms([lambda: ops.wkv6(r, k, v, w, u,
+                                                tile_rows=WKV_OTHER_TILE["prefill"])])
+    wkv_close(out, pout, "wkv6_bhsd (timed prefill, other tile) against its plain version")
+    check(len(mhz) > 0, "nvidia-smi read no SM clock during the timed prefill")
+    mhz_med = sorted(mhz)[len(mhz) // 2]
+    updates = B * S * H * hd * hd
+    issue_floor = WKV_ISSUE_PER_ENTRY * updates / (SMS * F32_LANES * mhz_med * 1e6) * 1e3
+    prefill_t = {"ms": ms, "plain_ms": pms, **wkv_bound(B, S, H, hd, with_s0=False),
+                 "issue_floor_ms": issue_floor, "entry_updates": updates,
+                 "sm_clock_mhz": {"median": mhz_med, "min": min(mhz), "max": max(mhz),
+                                  "samples": len(mhz)},
+                 "tile_rows": WKV_TILES["prefill"],
+                 "other_tile": {"tile_rows": WKV_OTHER_TILE["prefill"], "ms": other_ms}}
     del r, k, v, w, out, pout
     layers = [W.sample_wkv_inputs(B, 1, H, hd, seed=50 + i, device=dev) for i in range(L)]
     outs = [torch.empty_like(x[5]) for x in layers]
@@ -1636,22 +1710,38 @@ def rwkv_phases(dev) -> list:
                          for x, o in zip(layers, outs)])
     pms, pout = device_ms([lambda x=x: W.wkv_ref(*x) for x in layers])
     wkv_close(out, pout, "wkv6_bhsd (timed decode) against its plain version")
+    other_ms, out = device_ms([lambda x=x, o=o: ops.wkv6(
+        *x, state_out=o, tile_rows=WKV_OTHER_TILE["decode"]) for x, o in zip(layers, outs)])
+    wkv_close(out, pout, "wkv6_bhsd (timed decode, other tile) against its plain version")
     decode_t = {"ms": ms, "plain_ms": pms, **wkv_bound(B, 1, H, hd, with_s0=True),
-                "host_call_ms": eager_ms(lambda: ops.wkv6(*layers[0], state_out=outs[0]), 200)}
+                "host_call_ms": eager_ms(lambda: ops.wkv6(*layers[0], state_out=outs[0]), 200),
+                "tile_rows": WKV_TILES["decode"],
+                "other_tile": {"tile_rows": WKV_OTHER_TILE["decode"], "ms": other_ms}}
     del layers, outs, out, pout
+    # the launch floor: one (batch, head) pair, one token, 32 launches a graph
+    tiny = W.sample_wkv_inputs(1, 1, 1, hd, seed=60, device=dev)
+    tiny_out = torch.empty_like(tiny[5])
+    launch_floor, _ = device_ms([lambda: ops.wkv6(*tiny, state_out=tiny_out)] * L)
     emit("wkv_timing", seconds=time.monotonic() - t0, prefill=prefill_t, decode=decode_t,
+         launch_floor_ms=launch_floor, registers=wkv_regs,
          launches_on_path={"prefill": n_prefill, "decode_step": n_step, "serve": n_clean},
          library_ms=None,
-         note="device_ms: CUDA graph of the calls, median of replays; no single PyTorch "
-              "call computes WKV6")
+         note="device_ms: CUDA graph of the calls, median of replays; issue_floor_ms: "
+              f"{WKV_ISSUE_PER_ENTRY} f32 instructions an entry update over {SMS} x "
+              f"{F32_LANES} lanes at the median SM clock nvidia-smi read during the timed "
+              "prefill; launch_floor_ms: a one-pair, one-token launch, 32 to a graph; no "
+              "single PyTorch call computes WKV6")
     return [{
         "name": "wkv6_bhsd", "route": "cuda", "source": WKV_SOURCE, "replaces": WKV_REPLACES,
         "launches": n_clean, "max_abs_err": y_err,
-        **{k_: prefill_t[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        **{k_: prefill_t[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                        "issue_floor_ms", "tile_rows", "other_tile")},
         "library_ms": None,
         "decode_ms": decode_t["ms"], "decode_plain_ms": decode_t["plain_ms"],
         "decode_bound_ms": decode_t["bound_ms"], "decode_bound_by": decode_t["bound_by"],
-        "host_call_ms": decode_t["host_call_ms"],
+        "decode_tile_rows": decode_t["tile_rows"], "decode_other_tile": decode_t["other_tile"],
+        "host_call_ms": decode_t["host_call_ms"], "launch_floor_ms": launch_floor,
+        "registers": {name: x.get("registers") for name, x in wkv_regs.items()},
         "shape": f"r/k/v/w ({B}, {S}, {H}, {hd}) f32, zero initial state; decode "
                  f"({B}, 1, {H}, {hd}) over a ({B}, {H}, {hd}, {hd}) state",
     }]
@@ -1932,8 +2022,9 @@ def main() -> int:
     ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
     regs = ptxas_report(logs.get("sim_step", ""))
+    wkv_regs = ptxas_kernels(logs.get("rwkv6", ""), r"(wkv6_(?:chunk|token)_kernel)")
     emit("build", seconds=time.monotonic() - t0, built=sorted(logs),
-         ptxas=ptxas, sim_step_registers=regs)
+         ptxas=ptxas, sim_step_registers=regs, wkv6_registers=wkv_regs)
 
     from repro_torch.kernels import sim_step as K
 
@@ -2103,7 +2194,7 @@ def main() -> int:
     kernels += checkpoint_phases(dev)
     kernels += serving_phases(dev, timing["masked_stream_advance"]["launch_floor_ms"])
     torch.cuda.empty_cache()  # the 7B path needs the card's memory
-    kernels += rwkv_phases(dev)
+    kernels += rwkv_phases(dev, wkv_regs)
     torch.cuda.empty_cache()
     kernels += mixed_law_phases(dev, regs)
     emit("total", seconds=time.monotonic() - t_script)

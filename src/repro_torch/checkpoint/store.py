@@ -51,6 +51,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.torch_sim import resolve_device
 from ..kernels import ops
 from ..kernels.ckpt_codec import BLOCK
 
@@ -294,7 +295,9 @@ class CheckpointStore:
         """Restore ``step``.  With ``target`` (a tree of tensors), each leaf
         is decoded on its target leaf's device, cast to its dtype, and the
         target's structure is returned; without, a flat ``{key: tensor}``
-        on ``device`` (CUDA unless the caller passes ``"cpu"``)."""
+        on ``device`` (the current CUDA device unless the caller passes
+        ``"cpu"``; without CUDA and without a device it raises)."""
+        default = resolve_device(device) if target is None else None
         d = self._dir(step)
         with open(os.path.join(d, "manifest.json"), "rb") as f:
             mbytes = f.read()
@@ -307,7 +310,6 @@ class CheckpointStore:
         manifest = json.loads(mbytes.decode("utf-8"))
         prev_flat = flatten_with_keys(prev_tree) if prev_tree is not None else {}
         flat_target = flatten_with_keys(target) if target is not None else None
-        default = torch.device("cuda" if device is None else device)
 
         out: Dict[str, torch.Tensor] = {}
         for key, meta in manifest["leaves"].items():

@@ -93,6 +93,8 @@ _SIGNATURES = {
     "rwkv6": {
         # r, k, v, w, u, s0, y, sT; B, S, H, hd; 23 strides
         "wkv6_fwd": [_P] * 8 + [_I32] * 4 + [_I64] * 23 + [_P],
+        # the same, then the tile's rows a thread (0: hd's default)
+        "wkv6_fwd_rows": [_P] * 8 + [_I32] * 4 + [_I64] * 23 + [_I32, _P],
     },
 }
 

@@ -19,6 +19,11 @@ strided operands and reads ``u`` per head, so neither layout is copied and
 the final state is written into, which may be ``s0`` itself (the serving
 cache, updated in place).
 
+The kernel keeps each (batch, head)'s state in registers, a tile of
+``TR x 4`` entries a thread (``TILE_ROWS``), and runs a one-token variant
+for ``S == 1`` (a decode step); ``wkv(..., tile_rows=)`` picks another
+built tile, for timing.
+
 Everything is f32, as on the reference's path (the model casts r, k, v to
 f32 and computes w in f32); hd is 16, 32, 64 or 128.  :func:`wkv_ref` /
 :func:`wkv6_ref` are the plain versions: the exact per-token recurrence
@@ -40,10 +45,14 @@ import torch
 from .flash_attention import _check_device
 from .sim_step import _raise_on, _stream_ptr
 
-__all__ = ["HEAD_DIMS", "wkv_ref", "wkv6_ref", "wkv", "wkv6_bhsd", "sample_wkv_inputs"]
+__all__ = ["HEAD_DIMS", "TILE_ROWS", "wkv_ref", "wkv6_ref", "wkv", "wkv6_bhsd", "sample_wkv_inputs"]
 
 #: head dims the kernel is built for
 HEAD_DIMS = (16, 32, 64, 128)
+#: rows of the state tile a thread owns (4 columns) the kernel is built
+#: for, by head dim; the default is the only one, except at hd 64: 8 rows
+#: for a prefill, 4 for a decode step (S == 1)
+TILE_ROWS = {16: (2,), 32: (4,), 64: (4, 8), 128: (8,)}
 
 
 def wkv_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
@@ -105,9 +114,10 @@ def _check(name, r, k, v, w, u, s0, state_out):
     return _check_device(name, (r, k, v, w, u, *given))
 
 
-def _launch(r, k, v, w, u3, s0, y, sT) -> None:
+def _launch(r, k, v, w, u3, s0, y, sT, tile_rows=None) -> None:
     """Launch the kernel on (batch, seq, head, hd) views; ``u3`` is a
-    ``(B, H, hd)`` view (strides 0 where broadcast)."""
+    ``(B, H, hd)`` view (strides 0 where broadcast); ``tile_rows`` None
+    for the head dim's default tile (the C entry's 0)."""
     from . import build
 
     B, S, H, hd = r.shape
@@ -118,20 +128,24 @@ def _launch(r, k, v, w, u3, s0, y, sT) -> None:
         s = x.stride()
         return s[0], s[1], s[2]
 
-    rc = build.load("rwkv6").wkv6_fwd(
+    rc = build.load("rwkv6").wkv6_fwd_rows(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u3.data_ptr(),
         None if s0 is None else s0.data_ptr(), y.data_ptr(), sT.data_ptr(),
         B, S, H, hd, *bsh(r), *bsh(k), *bsh(v), *bsh(w), u3.stride(0), u3.stride(1),
-        *((0, 0, 0) if s0 is None else bsh(s0)), *bsh(y), *bsh(sT),
+        *((0, 0, 0) if s0 is None else bsh(s0)), *bsh(y), *bsh(sT), tile_rows or 0,
         _stream_ptr(r.device),
     )
     _raise_on("wkv6_bhsd", rc)
     wkv6_bhsd.launches += 1
 
 
-def _run(name, r, k, v, w, u3, s0, state_out) -> Tuple[torch.Tensor, torch.Tensor]:
+def _run(name, r, k, v, w, u3, s0, state_out,
+         tile_rows=None) -> Tuple[torch.Tensor, torch.Tensor]:
     dev = _check(name, r, k, v, w, u3, s0, state_out)
     B, S, H, hd = r.shape
+    if tile_rows is not None and tile_rows not in TILE_ROWS[hd]:
+        raise ValueError(f"{name}: tile_rows {tile_rows} is not one of {TILE_ROWS[hd]} "
+                         f"(head dim {hd})")
     if dev.type == "cpu":
         y, s = wkv_ref(r, k, v, w, u3, s0)
         if state_out is None:
@@ -140,23 +154,24 @@ def _run(name, r, k, v, w, u3, s0, state_out) -> Tuple[torch.Tensor, torch.Tenso
     y = torch.empty(r.shape, dtype=torch.float32, device=dev)
     sT = state_out if state_out is not None else torch.empty(
         (B, H, hd, hd), dtype=torch.float32, device=dev)
-    _launch(r, k, v, w, u3.expand(B, H, hd), s0, y, sT)
+    _launch(r, k, v, w, u3.expand(B, H, hd), s0, y, sT, tile_rows)
     return y, sT
 
 
 def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         u: torch.Tensor, s0: Optional[torch.Tensor] = None, *,
-        state_out: Optional[torch.Tensor] = None):
+        state_out: Optional[torch.Tensor] = None, tile_rows: Optional[int] = None):
     """The recurrence in the model layout: ``r``, ``k``, ``v``, ``w`` ``(B,
     S, H, hd)`` (any strides with hd contiguous), ``u`` ``(H, hd)``, ``s0``
     ``(B, H, hd, hd)`` or None (zeros), all f32 -> ``(y, sT)``: a fresh
     ``(B, S, H, hd)`` and the final state, written into ``state_out`` when
-    given (which may be ``s0``).
+    given (which may be ``s0``).  ``tile_rows`` (one of ``TILE_ROWS[hd]``)
+    runs another built tile than the default; the results are the same.
 
     CUDA tensors launch the kernel; CPU tensors run :func:`wkv_ref`."""
     if not isinstance(u, torch.Tensor) or u.dim() != 2:
         raise TypeError("wkv: u must be a 2-D (H, hd) tensor")
-    return _run("wkv", r, k, v, w, u.unsqueeze(0), s0, state_out)
+    return _run("wkv", r, k, v, w, u.unsqueeze(0), s0, state_out, tile_rows)
 
 
 def wkv6_bhsd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,

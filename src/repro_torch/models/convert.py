@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..checkpoint.store import map_with_keys
+from ..core.torch_sim import resolve_device
 
 __all__ = ["params_from_jax"]
 
@@ -30,6 +31,7 @@ def _tensor(key: str, x) -> torch.Tensor:
 def params_from_jax(tree, device=None) -> dict:
     """The port's parameter tree of ``tree`` (the reference's params with
     numpy leaves) on ``device`` (CUDA by default): same structure, same
-    key paths, same dtypes and values."""
-    dev = torch.device("cuda" if device is None else device)
+    key paths, same dtypes and values.  Without CUDA and without a device
+    it raises; it never falls back to the CPU on its own."""
+    dev = resolve_device(device)
     return map_with_keys(lambda k, x: _tensor(k, x).to(dev), tree)

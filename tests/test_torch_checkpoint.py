@@ -80,6 +80,23 @@ class TestStore:
         assert all(v.device.type == "cpu" for v in flat.values())
         assert flat["step"].dtype == torch.int32 and flat["params/b"].shape == (2048,)
 
+    def test_restore_needs_a_device_without_cuda(self, tmp_path, tree, monkeypatch):
+        """Without a target and without ``device``, restore resolves the
+        device as every entry point does: without CUDA it raises the
+        port's own error before it reads a file; ``device="cpu"`` still
+        restores, and a target's devices need no ``device``."""
+        store = CheckpointStore(str(tmp_path), codec="int8")
+        store.save(1, tree)
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            store.restore(1)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            store.restore(99)
+        flat = store.restore(1, device="cpu")
+        assert torch.equal(flat["params/w"], tree["params"]["w"])
+        back = store.restore(1, target=tree)
+        assert torch.equal(back["step"], tree["step"])
+
     def test_latest_step_ignores_staging(self, tmp_path, tree):
         store = CheckpointStore(str(tmp_path))
         store.save(5, tree)

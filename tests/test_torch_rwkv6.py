@@ -184,3 +184,122 @@ def test_sample_inputs_follow_the_reference_laws():
     assert 0.25 < float(r.std()) < 0.35 and 0.08 < float(u.std()) < 0.12
     a = W.sample_wkv_inputs(2, 64, 4, 32, seed=1)
     assert all(torch.equal(x, y) for x, y in zip(a, (r, k, v, w, u, s0)))
+
+
+def test_tile_rows_argument():
+    """``tile_rows`` names a built tile of the head dim; on the CPU the
+    plain version runs whatever tile is named."""
+    r, k, v, w, u, s0 = W.sample_wkv_inputs(1, 3, 2, 64, seed=0)
+    assert all(hd in W.TILE_ROWS for hd in W.HEAD_DIMS)
+    y, sT = W.wkv(r, k, v, w, u, s0, tile_rows=8)
+    y0, s0_ = W.wkv(r, k, v, w, u, s0)
+    assert torch.equal(y, y0) and torch.equal(sT, s0_)
+    with pytest.raises(ValueError, match="tile_rows"):
+        W.wkv(r, k, v, w, u, s0, tile_rows=2)
+
+
+# --------------------------------------------------------------------------- #
+# The card kernel's arithmetic, emulated on the CPU
+# --------------------------------------------------------------------------- #
+def _fma(a, b, c):
+    """f32 fused multiply-add (the product exact in f64, one f64 rounding
+    of the sum, then f32)."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def _warp_rows(p):
+    """``reduce_warp_rows`` and the cross-warp sum: p (BH, NW, W, NC, 4),
+    each lane's four column sums (lane (w, gl, c): warp w, row group gl
+    of the warp, column group c) -> (BH, HD): halving exchanges between
+    lanes gl and gl ^ bit (the lane whose bit is set keeping the upper
+    half), a butterfly over the row groups left, then the warps' sums
+    added in warp order."""
+    W = p.shape[2]
+    gl = np.arange(W)
+    vals = [p[..., q] for q in range(4)]
+    half, bit = 2, 1
+    while half >= 1 and bit < W:
+        hi = ((gl & bit) != 0)[:, None]
+        vals = [np.where(hi, vals[q + half], vals[q])
+                + np.where(hi, vals[q], vals[q + half])[..., gl ^ bit, :] for q in range(half)]
+        half, bit = half // 2, bit * 2
+    bit = 4
+    while bit < W:
+        vals[0] = vals[0] + vals[0][..., gl ^ bit, :]
+        bit *= 2
+    part = np.empty(p.shape[:2] + p.shape[3:], np.float32)  # (BH, NW, NC, 4)
+    for g in range(min(W, 4)):
+        off, h, b = 0, 2, 1
+        while h >= 1 and b < W:
+            off += h if g & b else 0
+            h, b = h // 2, b * 2
+        for q, x in enumerate(vals):
+            part[..., off + q] = x[:, :, g]
+    part = part.reshape(p.shape[0], p.shape[1], -1)
+    y = part[:, 0]
+    for w in range(1, p.shape[1]):
+        y = y + part[:, w]
+    return y
+
+
+def _card_wkv(r, k, v, w, u, s0, TR):
+    """The CUDA kernels' arithmetic in numpy, in the kernel layout ((BH, S,
+    hd) f32, u (BH, hd), s0 (BH, hd, hd)), threads (g, c) owning TR x 4
+    tiles, column groups the fast index: the chunked kernel for S > 1
+    (bonus dots over P lanes of CPL channels and a butterfly, y = fma(c,
+    v, sum of the warps' column sums)), the one-token kernel for S == 1
+    (each tile's rows of the bonus folded into its column sums)."""
+    BH, S, hd = r.shape
+    G, NC = hd // TR, hd // 4
+    W = 32 // NC
+    NT = G * NC
+    room = 14336 // ((8 + NT // 32) * hd)  # Tile::kChunk
+    CH = next((c for c in (1024 // hd, 32, 16, 8) if room >= c), 4)
+    P = max(1, min(32, hd // 4, NT // CH))
+    st = s0.copy()
+    y = np.empty_like(r)
+    for t in range(S):
+        rt, kt, vt, wt = r[:, t], k[:, t], v[:, t], w[:, t]
+        tile = st.reshape(BH, G, TR, NC, 4)
+        rows = rt.reshape(BH, G, TR)
+        p = np.zeros((BH, G, NC, 4), np.float32)
+        for a in range(TR):
+            p = _fma(rows[:, :, a, None, None], tile[:, :, a], p)
+        uk = (u * kt).astype(np.float32)
+        if S == 1:
+            d = np.zeros((BH, G), np.float32)
+            for a in range(TR):
+                d = _fma(rows[:, :, a], uk.reshape(BH, G, TR)[:, :, a], d)
+            p = _fma(d[:, :, None, None], vt.reshape(BH, 1, NC, 4), p)
+            y[:, t] = _warp_rows(p.reshape(BH, G // W, W, NC, 4))
+        else:
+            d = np.zeros((BH, P), np.float32)
+            for m in range(hd // P):
+                d = _fma(rt.reshape(BH, P, -1)[:, :, m], uk.reshape(BH, P, -1)[:, :, m], d)
+            lanes, off = np.arange(P), 1
+            while off < P:
+                d = d + d[:, lanes ^ off]
+                off *= 2
+            sums = _warp_rows(p.reshape(BH, G // W, W, NC, 4))
+            y[:, t] = _fma(d[:, :1], vt, sums)
+        st = ((wt[:, :, None] * st).astype(np.float32)
+              + (kt[:, :, None] * vt[:, None, :]).astype(np.float32))
+    return y, st
+
+
+@pytest.mark.parametrize("S", [1, 37])
+@pytest.mark.parametrize("hd,tr", [(hd, tr) for hd in W.HEAD_DIMS for tr in W.TILE_ROWS[hd]])
+def test_card_arithmetic_emulated_within_the_card_tolerance(hd, tr, S):
+    """The kernels' summation order (tiles of ``tr`` rows, the warp
+    reduction's exchanges, the bonus) emulated in numpy: the state is the
+    plain version's bit for bit, y within the card tests' 1e-5 of max|y|
+    (measured here up to ~3e-7)."""
+    r, k, v, w, u, s0 = (t.numpy() for t in W.sample_wkv_inputs(3, S, 2, hd, seed=hd + S))
+    flat = [a.transpose(0, 2, 1, 3).reshape(6, S, hd) for a in (r, k, v, w)]
+    ub = np.broadcast_to(u, (3, 2, hd)).reshape(6, hd)
+    y, st = _card_wkv(*flat, ub, s0.reshape(6, hd, hd), tr)
+    yw, sw = W.wkv6_ref(*(torch.from_numpy(np.ascontiguousarray(a)) for a in flat),
+                        torch.from_numpy(ub.copy()), torch.from_numpy(s0.reshape(6, hd, hd)))
+    assert np.array_equal(st.view(np.int32), sw.numpy().view(np.int32))
+    err = float(np.abs(y - yw.numpy()).max())
+    assert err <= 1e-5 * float(yw.abs().max()), err

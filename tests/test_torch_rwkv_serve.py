@@ -192,6 +192,20 @@ def test_serve_needs_a_device_without_cuda(monkeypatch):
             SV.serve(configs.get(name).reduced(), requests=1, prompt_len=4, gen=2)
 
 
+def test_params_from_jax_needs_a_device_without_cuda(monkeypatch):
+    """params_from_jax resolves its device as every entry point does:
+    without CUDA and without ``device`` it raises the port's own error;
+    ``device="cpu"`` still converts."""
+    tree = {"blocks": ({"w": np.arange(6, dtype=np.float32).reshape(2, 3)},),
+            "embed": np.ones((4, 2), np.float32)}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_jax(tree)
+    conv = params_from_jax(tree, device="cpu")
+    assert conv["embed"].device.type == "cpu"
+    assert np.array_equal(conv["blocks"][0]["w"].numpy(), tree["blocks"][0]["w"])
+
+
 # --------------------------------------------------------------------------- #
 # Prefill and decode against the reference model
 # --------------------------------------------------------------------------- #
