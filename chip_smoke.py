@@ -61,6 +61,15 @@ lognormal 0.5 laws: 216 cells, 1000 runs each) in one dispatch through
 card against the CPU, and the fused dispatch against the per-family one
 lane for lane, on the three-law validation grid; and the variant's times.
 
+Then the paper's Section 5 check (phases 22-23): the batched Newton solve
+of every cell's optimal period in f64 on the card, on the full grid's
+table, against the same solve on the CPU, the host scan of the period
+grid and the closed-form extremizer, and timed on a 65,536-cell table
+(with no host sync inside the solve); then the Holm-controlled
+equivalence tests of the simulated waste against the analytic models, on
+the validation grid at 200 runs a cell and on the main path's own sweep
+of phase 4, which must reject no cell.
+
 Every phase prints one JSON line; any failure exits non-zero before the
 last line, which is ``{"ok": true, "device": {...}}``.  Needs one CUDA
 card; imports nothing of JAX.
@@ -133,6 +142,14 @@ L2_BYTES = 50e6
 RUNS_PER_CELL = 1000
 #: the mixed-law path's seed, the reference benchmark's
 MIXED_SEED = 5
+#: phase 22: card vs CPU tolerance of the Newton solve, the most its waste
+#: may exceed the host period scan's best (the reference's
+#: newton_excess_waste_max gate), the tolerance against the closed-form
+#: extremizer on the smooth families, and the timed table's size and seed
+NEWTON_RTOL, NEWTON_EXCESS_MAX, EXTREMIZER_RTOL = 1e-12, 1e-12, 1e-9
+NEWTON_CELLS, NEWTON_SEED = 65536, 3
+#: phase 23: the reference validation suite's contract (runs, seed, alpha)
+VALIDATION_RUNS, VALIDATION_SEED, VALIDATION_ALPHA = 200, 11, 0.01
 
 TM_ULPS = 4  # refilled cursor dates: libdevice transcendentals, same on both sides
 LAWS = (("exponential", 0.0), ("weibull", 0.7), ("lognormal", 1.0), ("uniform", 0.0))
@@ -1989,6 +2006,236 @@ def mixed_law_phases(dev, regs: dict) -> list:
                 iteration=CAPTURE_ITER)
 
 
+# --------------------------------------------------------------------------- #
+# The paper's Section 5 check: optimal periods and validation
+# --------------------------------------------------------------------------- #
+def analytic_phases(dev, res, smi: str) -> None:
+    """Phases 22-23: the batched Newton solve of the optimal periods on the
+    card (against the CPU, the host period scan and the closed-form
+    extremizer; timed on a 65,536-cell table), then the Holm-controlled
+    validation of simulated grids against the analytic models: the
+    validation grid at 200 runs a cell, and the main path's own sweep
+    ``res`` (phase 4)."""
+    import csv
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import analytic as A
+    from repro_torch.core import optimize
+    from repro_torch.core.simulator import PERIOD_GRID
+    from repro_torch.core.waste import i_prime
+    from repro_torch.experiments import (
+        GridSpec, paper_grid_cells, paper_policy_table, run_grid, validate_sweep,
+        write_z_table,
+    )
+    from repro_torch.kernels import analytic as KA
+
+    # ---- 22. the batched Newton solve ---------------------------------- #
+    t0 = time.monotonic()
+    cells = paper_grid_cells("full")
+    tabs = A.tables_from_cells(cells)
+    card = A.newton_optimize_tables(tabs, device="cuda")
+    host = A.newton_optimize_tables(tabs, device="cpu")
+    ulps, rel = {}, {}
+    for k, g in card.items():
+        c = host[k]
+        check(np.isfinite(g).all(), f"newton {k}: non-finite on the card")
+        rel[k] = float(np.max(np.abs(g - c) / np.maximum(np.abs(c), 1e-300)))
+        ulps[k] = int(ulp_dist(torch.from_numpy(g), torch.from_numpy(c)).max())
+        check(rel[k] <= NEWTON_RTOL, f"newton {k}: card vs CPU rel {rel[k]} > {NEWTON_RTOL}")
+    pol = paper_policy_table("full")
+    for k in ("T_R", "q", "waste"):
+        check(np.array_equal(getattr(pol, k), card[k]),
+              f"paper_policy_table('full').{k} differs from the card's solve")
+    scan = [replace(c, strategy=replace(c.strategy, T_R=max(1.01 * c.platform.C,
+                                                            m * c.strategy.T_R)))
+            for c in cells for m in PERIOD_GRID]
+    best = np.minimum(A.analytic_waste_cells(scan), 1.0).reshape(len(cells), -1).min(1)
+    excess = float((card["waste"] - best).max())
+    check(excess <= NEWTON_EXCESS_MAX,
+          f"newton waste exceeds the host period scan's best by {excess}")
+    te = A.analytic_period_cells(cells)
+    # NoCkptI / WithCkptI cells past the validity clamp (I' >= mu_P: the
+    # platform sits in proactive mode for good) have a waste flat in T_R,
+    # so no extremizer to agree with
+    flat = np.array([c.strategy.mode in ("nockpt", "withckpt") and c.predictor.recall > 0
+                     and i_prime(c.strategy.q, c.predictor.precision, c.predictor.window,
+                                 c.predictor.e_f) >= c.predictor.mu_p(c.platform.mu)
+                     for c in cells])
+    smooth = ((tabs["q_eff"] > 0.0) & (tabs["recall"] > 0.0) & (card["q"] == tabs["q_eff"])
+              & ~((tabs["mode"] == 1) & (tabs["window"] > 0.0)) & ~flat)
+    ext = float(np.max(np.abs(card["T_R"][smooth] - te[smooth]) / te[smooth]))
+    check(smooth.sum() > 0 and ext <= EXTREMIZER_RTOL,
+          f"newton T_R vs the closed-form extremizer: rel {ext} > {EXTREMIZER_RTOL}")
+
+    # the calls users make, end to end on the card and on the CPU (wall
+    # time, median of 5 after a warm-up): the paper grid's policy table
+    # (108 cells, 128 rows) and one platform's best policy (its candidate
+    # families, 8 rows)
+    win = next(c for c in cells if c.predictor.window > 0.0)
+    calls = {
+        "paper_policy_table_full": lambda d: paper_policy_table("full", device=d),
+        "optimize_best_one_platform": lambda d: optimize(
+            "best", win.platform, win.predictor, method="newton", device=d),
+    }
+
+    def wall_s(fn, reps: int = 5) -> float:
+        fn()
+        ts = []
+        for _ in range(reps):
+            tc = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - tc)
+        return sorted(ts)[reps // 2]
+
+    user_calls = {name: {"card_s": wall_s(lambda: fn("cuda")), "cpu_s": wall_s(lambda: fn("cpu"))}
+                  for name, fn in calls.items()}
+    one = [calls["optimize_best_one_platform"](d) for d in ("cuda", "cpu")]
+    check(one[0].strategy == one[1].strategy and one[0].q == one[1].q
+          and abs(one[0].T_R - one[1].T_R) <= NEWTON_RTOL * one[1].T_R
+          and abs(one[0].waste - one[1].waste) <= NEWTON_RTOL * one[1].waste,
+          f"optimize('best', method='newton'): card {one[0]} vs CPU {one[1]}")
+
+    # the timed table: the full grid's rows repeated, each row's MTBF (and
+    # false-prediction mean, so the precision stays) scaled by a seeded
+    # factor in [0.5, 2]
+    rng = np.random.default_rng(NEWTON_SEED)
+    big = {k: np.resize(np.asarray(v), NEWTON_CELLS) for k, v in tabs.items()}
+    scale = rng.uniform(0.5, 2.0, NEWTON_CELLS)
+    big["mtbf"] = big["mtbf"] * scale
+    big["fp_mean"] = big["fp_mean"] * scale
+    args, n_big = A.newton_inputs(big, device=dev)
+    KA.newton_policy(*args)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # any host sync in the solve raises
+    try:
+        out = KA.newton_policy(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    ms = []
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(5):
+        a.record()
+        KA.newton_policy(*args)
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+    cargs, _ = A.newton_inputs(big, device="cpu")
+    tc = time.perf_counter()
+    cout = KA.newton_policy(*cargs)
+    cpu_s = time.perf_counter() - tc
+    big_rel = 0.0
+    for g, c in zip(out, cout):
+        g, c = g[:n_big].cpu().numpy(), c[:n_big].numpy()
+        check(np.isfinite(g).all(), "newton (65,536 cells): non-finite on the card")
+        big_rel = max(big_rel, float(np.max(np.abs(g - c) / np.maximum(np.abs(c), 1e-300))))
+    check(big_rel <= NEWTON_RTOL, f"newton (65,536 cells): card vs CPU rel {big_rel}")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        KA.newton_policy(*args)
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.name.startswith(("Memcpy", "Memset"))]
+    check(len(dev_events) > 0, "newton: the profiler saw no device kernel")
+
+    # the bracket loop alone (the trusted rows' solve), as an eager loop
+    # of NEWTON_ITERS iterations and as one eager iteration and its
+    # replays (what the solve runs on the card): CUDA events, median of 3
+    # after a warm-up, and the two must end on the same bits
+    def bracket_loop(bargs, graph: bool):
+        cols, lo, hi = tuple(bargs[:17]), bargs[17], bargs[19]
+        ms, T = [], None
+        for _ in range(4):
+            T = torch.clamp(torch.sqrt(2.0 * cols[5] * cols[2]), lo, hi)
+            lo_b, hi_b = lo.clone(), hi.clone()
+            a.record()
+            if graph:
+                KA._replay_steps(cols, T, lo_b, hi_b)
+            else:
+                for _ in range(KA.NEWTON_ITERS):
+                    KA._newton_step(cols, T, lo_b, hi_b)
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+        return sorted(ms[1:])[1], T
+
+    loop_ms = {}
+    for what, bargs in (("cells_108", A.newton_inputs(tabs, device=dev)[0]),
+                        ("cells_65536", args)):
+        eager_ms, t_eager = bracket_loop(bargs, graph=False)
+        graph_ms, t_graph = bracket_loop(bargs, graph=True)
+        check(same_bits(t_eager, t_graph), f"newton bracket loop ({what}): graph replay != eager loop")
+        loop_ms[what] = {"eager_ms": eager_ms, "graph_ms": graph_ms}
+    emit("newton_check", seconds=time.monotonic() - t0, cells=len(cells),
+         padded_rows=max(8, 1 << (len(cells) - 1).bit_length()),
+         card_vs_cpu_rel=rel, card_vs_cpu_ulps=ulps, rtol=NEWTON_RTOL,
+         excess_waste_max=excess, excess_limit=NEWTON_EXCESS_MAX,
+         extremizer_cells=int(smooth.sum()), extremizer_rel_max=ext,
+         flat_cells=[c.label for c, f in zip(cells, flat) if f],
+         extremizer_rtol=EXTREMIZER_RTOL, q1_cells=int((card["q"] > 0).sum()),
+         timed_cells=NEWTON_CELLS, iters=KA.NEWTON_ITERS, card_ms=sorted(ms)[len(ms) // 2],
+         card_ms_samples=ms, cpu_s=cpu_s, cpu_threads=torch.get_num_threads(),
+         big_card_vs_cpu_rel=big_rel, device_kernels_per_solve=len(dev_events),
+         distinct_kernels=len({e.name for e in dev_events}),
+         host_syncs_in_solve=0, user_calls=user_calls, bracket_loop=loop_ms,
+         nvidia_smi=smi,
+         note="card_ms: CUDA events around one solve, median of 5 after a warm-up; "
+              "cpu_s: one solve on the CPU; host_syncs_in_solve: the solve ran under "
+              "torch.cuda.set_sync_debug_mode('error'); user_calls: wall seconds of "
+              "the whole call, median of 5; bracket_loop: CUDA events, median of 3")
+
+    # ---- 23. validation against the analytic models -------------------- #
+    def summary(rows, fails, what):
+        check(not fails, f"{what}: {len(fails)} Holm rejects: " + "; ".join(
+            f"{r.label} sim={r.mean_sim:.5f} analytic={r.analytic:.5f} "
+            f"margin={r.margin:.5f} z={r.z:.2f}" for r in fails))
+        check(all(math.isfinite(r.z) for r in rows), f"{what}: a z is not finite")
+        check(all(r.se_sim > 0 for r in rows), f"{what}: a cell has se_sim <= 0")
+        near = sorted(rows, key=lambda r: r.z, reverse=True)[:3]
+        return {"cells": len(rows), "rejects": len(fails), "z_max": near[0].z,
+                "nearest": [{"label": r.label, "mean_sim": r.mean_sim,
+                             "analytic": r.analytic, "delta": r.delta,
+                             "margin": r.margin, "share_of_margin": abs(r.delta) / r.margin,
+                             "se_sim": r.se_sim, "z": r.z} for r in near]}
+
+    t0 = time.monotonic()
+    val = GridSpec(tuple(paper_grid_cells("validation")), n_runs=VALIDATION_RUNS,
+                   seed=VALIDATION_SEED)
+    vres = run_grid(val, device="cuda")
+    sweep_s = time.monotonic() - t0
+    rows_a, fails_a = validate_sweep(vres, alpha=VALIDATION_ALPHA)
+    check(len(rows_a) == 54, f"validation grid: {len(rows_a)} cells")
+    contract = summary(rows_a, fails_a, "validation grid")
+    t1 = time.monotonic()
+    rows_b, fails_b = validate_sweep(res, alpha=VALIDATION_ALPHA)
+    check(len(rows_b) == 108, f"main path: {len(rows_b)} cells")
+    main = summary(rows_b, fails_b, "main path sweep")
+    validate_s = time.monotonic() - t1
+    with tempfile.TemporaryDirectory(prefix="ztable_") as tmp:
+        csv_path, json_path = Path(tmp, "ztable.csv"), Path(tmp, "ztable.json")
+        write_z_table(rows_b, csv_path, str(json_path))
+        with open(csv_path) as f:
+            back = list(csv.DictReader(f))
+        payload = json.loads(json_path.read_text())
+    check(len(back) == len(rows_b) and payload["n_cells"] == len(rows_b)
+          and payload["n_rejected"] == 0, "z table: wrong row count")
+    for got, r in zip(back, rows_b):
+        check(got["label"] == r.label and float(got["z"]) == r.z
+              and float(got["margin"]) == r.margin and got["reject"] == str(r.reject),
+              f"z table: row {r.label} does not read back")
+    emit("validation", alpha=VALIDATION_ALPHA, seconds=time.monotonic() - t0,
+         contract={"grid": "validation", "runs_per_cell": VALIDATION_RUNS,
+                   "seed": VALIDATION_SEED, "sweep_s": sweep_s,
+                   "outer_iters": vres.meta["outer_iters"], **contract},
+         main_path={"grid": "full", "runs_per_cell": RUNS_PER_CELL, "seed": 0,
+                    "validate_s": validate_s, **main},
+         z_table_rows=len(back))
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -2197,6 +2444,7 @@ def main() -> int:
     kernels += rwkv_phases(dev, wkv_regs)
     torch.cuda.empty_cache()
     kernels += mixed_law_phases(dev, regs)
+    analytic_phases(dev, res, smi)
     emit("total", seconds=time.monotonic() - t_script)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

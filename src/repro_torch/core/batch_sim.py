@@ -99,6 +99,34 @@ def _lane_params(work, platform, strategy, L: int):
     return W, C, D, R, M, T_R, T_P, mode, q
 
 
+def _tier_params(platforms, strategies):
+    """Per-cell two-level and silent-error columns ``(C2, R2, V, fmem,
+    rho, kv)``: the last six columns of the reference packing, which only
+    the analytic layer reads.  On every other mode's cells they are
+    benign: a missing disk tier mirrors the memory one, f = 0 sends every
+    failure to disk, rho = k_V = 1 make the nesting and verification
+    strides degenerate."""
+    C2 = np.array(
+        [p.C2 if p.C2 is not None else p.C for p in platforms], dtype=np.float64
+    )
+    R2 = np.array(
+        [p.R2 if p.R2 is not None else p.R for p in platforms], dtype=np.float64
+    )
+    V = np.array(
+        [p.V if p.V is not None else p.C for p in platforms], dtype=np.float64
+    )
+    fmem = np.array(
+        [p.f if p.f is not None else 0.0 for p in platforms], dtype=np.float64
+    )
+    rho = np.array(
+        [s.rho if s.rho is not None else 1 for s in strategies], dtype=np.int64
+    )
+    kv = np.array(
+        [s.k_V if s.k_V is not None else 1 for s in strategies], dtype=np.int64
+    )
+    return C2, R2, V, fmem, rho, kv
+
+
 def pad_lane_axis(a: np.ndarray, n: int, fill) -> np.ndarray:
     """Pad the lane axis of a 1-D or 2-D per-lane array to ``n`` lanes
     (padding lanes get ``fill``: a value that keeps them inert)."""

@@ -5,11 +5,15 @@ An :class:`ExperimentCell` pins down one Monte-Carlo estimation problem —
 bundles many cells with shared run count and seed.  The runner
 (:mod:`repro_torch.experiments.runner`) flattens every (cell, run) pair
 into one lane of the device engine, so the whole grid advances in one
-cell-multiplexed dispatch.
+cell-multiplexed dispatch.  Each result row carries the cell's analytic
+waste and period beside the simulated statistics
+(:mod:`repro_torch.core.analytic`), and a sweep writes its rows as CSV or
+strict JSON.
 """
 
 from __future__ import annotations
 
+import json
 import math
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
@@ -174,6 +178,73 @@ class CellResult:
             "mean_migrations", "n_migrations", lambda a: float(a.mean())
         )
 
+    @property
+    def analytic_waste(self) -> float:
+        """First-order analytic waste of the cell's strategy at its
+        operating point (shared table models; see
+        repro_torch.core.analytic)."""
+        return float(_analytic_cols([self.cell])[0][0])
+
+    @property
+    def analytic_period(self) -> float:
+        """The analytic optimal regular period T_extr at the cell's trust
+        level (the period the paper predicts; compare with the tabled
+        ``T_R`` the cell actually ran)."""
+        return float(_analytic_cols([self.cell])[1][0])
+
+    def to_row(self, analytic: Optional[Tuple[float, float]] = None) -> Dict:
+        c = self.cell
+        if analytic is None:
+            aw, at = _analytic_cols([c])
+            analytic = (float(aw[0]), float(at[0]))
+        def fin(x: float):  # keep serialized rows strict-JSON/CSV clean
+            return float(x) if math.isfinite(x) else None
+        return {
+            "label": c.label,
+            "strategy": c.strategy.name,
+            "T_R": c.strategy.T_R,
+            "mode": c.strategy.mode,
+            "mu": c.platform.mu,
+            "C": c.platform.C,
+            "recall": c.predictor.recall,
+            "precision": c.predictor.precision,
+            "window": c.predictor.window,
+            "dist": c.dist.name,
+            "work": c.work,
+            "n_runs": self.n_runs,
+            "mean_waste": self.mean_waste,
+            "ci95_waste": fin(self.ci95_waste),
+            "mean_makespan": self.mean_makespan,
+            "ci95_makespan": fin(self.ci95_makespan),
+            "mean_faults": self.mean_faults,
+            "mean_proactive_ckpts": self.mean_proactive_ckpts,
+            "mean_regular_ckpts": self.mean_regular_ckpts,
+            "mean_migrations": self.mean_migrations,
+            "n_exhausted": self.n_exhausted,
+            # analytic-layer columns (appended last: downstream readers
+            # key on the historical column prefix)
+            "analytic_waste": fin(analytic[0]),
+            "analytic_period": fin(analytic[1]),
+        }
+
+
+def _analytic_cols(cells) -> Tuple[np.ndarray, np.ndarray]:
+    """(analytic waste at the tabled T_R, analytic optimal period) for a
+    batch of cells, via the shared per-cell table layer."""
+    from ..core import analytic as A  # lazy: grid stays light at import
+
+    return A.analytic_waste_cells(cells), A.analytic_period_cells(cells)
+
+
+#: column order of the CSV writer (and of ``to_row``)
+_CSV_FIELDS = [
+    "label", "strategy", "T_R", "mode", "mu", "C", "recall", "precision",
+    "window", "dist", "work", "n_runs", "mean_waste", "ci95_waste",
+    "mean_makespan", "ci95_makespan", "mean_faults", "mean_proactive_ckpts",
+    "mean_regular_ckpts", "mean_migrations", "n_exhausted",
+    "analytic_waste", "analytic_period",
+]
+
 
 @dataclass
 class SweepResult:
@@ -199,3 +270,36 @@ class SweepResult:
 
     def labels(self) -> List[str]:
         return [c.cell.label for c in self.cells]
+
+    def to_rows(self) -> List[Dict]:
+        if not self.cells:
+            return []
+        # one table build for the whole sweep, not one per row
+        aw, at = _analytic_cols([c.cell for c in self.cells])
+        return [
+            c.to_row(analytic=(float(w), float(t)))
+            for c, w, t in zip(self.cells, aw, at)
+        ]
+
+    def write_csv(self, path) -> None:
+        import csv
+
+        with open(path, "w", newline="") as f:
+            w = csv.DictWriter(f, fieldnames=_CSV_FIELDS)
+            w.writeheader()
+            for row in self.to_rows():
+                w.writerow(row)
+
+    def write_json(self, path) -> None:
+        payload = {
+            "engine": self.engine,
+            "collect": self.collect,
+            "wall_time_s": self.wall_time_s,
+            "n_runs": self.grid.n_runs,
+            "seed": self.grid.seed,
+            "cells": self.to_rows(),
+        }
+        if self.meta is not None:
+            payload["meta"] = self.meta
+        with open(path, "w") as f:
+            json.dump(payload, f, indent=1, allow_nan=False)

@@ -12,6 +12,12 @@
 
 All cells of a preset share one failure-law family (exponential unless
 overridden), so the fused dispatch runs the whole grid as one megabatch.
+
+The beyond-paper two-level and silent-error grids are cell factories
+here; the lane machine does not run their modes yet (``run_grid``
+refuses them), but the analytic layer and the validation harness take
+their cells.  :func:`paper_policy_table` solves a preset's optimal
+periods in one batched Newton call on the card.
 """
 
 from __future__ import annotations
@@ -21,10 +27,16 @@ from typing import List, Optional, Sequence
 from ..configs.paper import N_RANGE, platform
 from ..core import simulator as S
 from ..core.events import Distribution
-from ..core.waste import PredictorModel
+from ..core.waste import Platform, PredictorModel
 from .grid import ExperimentCell
 
-__all__ = ["PAPER_PREDICTORS", "paper_grid_cells"]
+__all__ = [
+    "PAPER_PREDICTORS",
+    "paper_grid_cells",
+    "two_level_grid_cells",
+    "silent_grid_cells",
+    "paper_policy_table",
+]
 
 #: the paper's two (recall, precision) predictor operating points
 PAPER_PREDICTORS = {
@@ -107,3 +119,116 @@ def paper_grid_cells(
                     cell(f"I{int(w)}/WithCkptI", S.withckpt(plat, wpred), wpred)
                 )
     return cells
+
+
+#: beyond-paper scenario knobs: disk-tier cost multiple and fast-tier
+#: coverage fractions (two-level cells), verification-cost multiples
+#: (silent cells)
+_TL_DISK_MULT = 3.0
+_TL_FRACS = (0.6, 0.9)
+_SIL_V_MULTS = (0.5, 2.0)
+
+#: predictionless predictor row (recall 0: nothing is ever trusted)
+_NO_PRED = PredictorModel(recall=0.0, precision=1.0)
+
+
+def two_level_grid_cells(
+    preset: str = "validation",
+    work: float = 8 * 86400.0,
+    lead: float = 3600.0,
+    fault_dist: Optional[Distribution] = None,
+    n_list: Optional[Sequence[int]] = None,
+    horizon_factor: float = 12.0,
+) -> List[ExperimentCell]:
+    """Beyond-paper two-level scenario grid: memory-tier checkpoints
+    (period T_m) nested in disk-tier checkpoints (stride rho), disk
+    costs ``_TL_DISK_MULT`` times the memory costs, fast-tier coverage
+    swept over ``_TL_FRACS``.  Each (platform, f) point carries an
+    untrusted baseline plus one trusted cell per paper predictor, all at
+    the corrected joint extremizers of
+    :func:`repro_torch.core.periods.two_level_periods`."""
+    if preset not in _PRESETS:
+        raise ValueError(
+            f"unknown preset {preset!r} (expected one of {sorted(_PRESETS)})"
+        )
+    n_list = list(_PRESETS[preset][0] if n_list is None else n_list)
+    cells: List[ExperimentCell] = []
+    for n in n_list:
+        base = platform(n)
+        for f in _TL_FRACS:
+            plat = Platform(
+                mu=base.mu, C=base.C, D=base.D, R=base.R,
+                C2=_TL_DISK_MULT * base.C, R2=_TL_DISK_MULT * base.R, f=f,
+            )
+            prefix = f"N{n}/f{int(round(100 * f))}"
+            cells.append(
+                ExperimentCell(
+                    label=f"tl/{prefix}/TwoLevel",
+                    work=work, platform=plat, predictor=_NO_PRED,
+                    strategy=S.two_level(plat), fault_dist=fault_dist,
+                    horizon_factor=horizon_factor,
+                )
+            )
+            for pk, pred in PAPER_PREDICTORS.items():
+                epred = PredictorModel(pred.recall, pred.precision, lead=lead)
+                cells.append(
+                    ExperimentCell(
+                        label=f"tl/{pk}/{prefix}/TwoLevel",
+                        work=work, platform=plat, predictor=epred,
+                        strategy=S.two_level(plat, epred),
+                        fault_dist=fault_dist,
+                        horizon_factor=horizon_factor,
+                    )
+                )
+    return cells
+
+
+def silent_grid_cells(
+    preset: str = "validation",
+    work: float = 8 * 86400.0,
+    fault_dist: Optional[Distribution] = None,
+    n_list: Optional[Sequence[int]] = None,
+    horizon_factor: float = 12.0,
+) -> List[ExperimentCell]:
+    """Beyond-paper silent-error scenario grid (arXiv:1310.8486): latent
+    corruptions detected only by the every-``k_V``-th-checkpoint
+    verification, verification cost swept over ``_SIL_V_MULTS`` times C.
+    Predictors never fire on latent corruptions, so every cell runs the
+    untrusted :func:`repro_torch.core.simulator.silent` policy at its optimal
+    (period, stride) point."""
+    if preset not in _PRESETS:
+        raise ValueError(
+            f"unknown preset {preset!r} (expected one of {sorted(_PRESETS)})"
+        )
+    n_list = list(_PRESETS[preset][0] if n_list is None else n_list)
+    cells: List[ExperimentCell] = []
+    for n in n_list:
+        base = platform(n)
+        for vm in _SIL_V_MULTS:
+            plat = Platform(
+                mu=base.mu, C=base.C, D=base.D, R=base.R, V=vm * base.C
+            )
+            cells.append(
+                ExperimentCell(
+                    label=f"sil/N{n}/V{int(round(100 * vm))}/Silent",
+                    work=work, platform=plat, predictor=_NO_PRED,
+                    strategy=S.silent(plat), fault_dist=fault_dist,
+                    horizon_factor=horizon_factor,
+                )
+            )
+    return cells
+
+
+def paper_policy_table(preset: str = "validation", device=None, **kwargs):
+    """Batched-Newton optimal policies for a whole paper-grid preset.
+
+    Builds the preset's cells, lowers them onto the shared per-cell
+    parameter tables and solves every cell's optimal regular period in
+    one call on ``device`` (CUDA unless the caller names another;
+    :func:`repro_torch.core.optimize_cells`).  Returns a
+    :class:`~repro_torch.core.analytic.PolicyTable` indexed like the
+    cell list; ``kwargs`` pass through to :func:`paper_grid_cells`."""
+    from ..core import analytic as A
+
+    cells = paper_grid_cells(preset, **kwargs)
+    return A.optimize_cells(cells, device=device)

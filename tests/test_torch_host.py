@@ -1,8 +1,9 @@
 """The port's copies of the reference host code, held against the
-reference: rate identities, laws, periods, strategies, lane codes,
-per-lane packing, the fused layout, the chunk packers, the mixed-law
-layout (law tables, concatenated specs, law columns) and the host
-checkpoint codec.  Everything
+reference: rate identities, laws, the scalar waste forms, periods and
+their case analyses, strategies, lane codes, per-lane packing, the
+shared analytic table, the fused layout, the chunk packers, the
+mixed-law layout (law tables, concatenated specs, law columns), the
+two-level and silent grids and the host checkpoint codec.  Everything
 here is NumPy or Python doubles on both sides, so every comparison is
 exact."""
 
@@ -16,20 +17,28 @@ import torch
 
 from repro.checkpoint import codec as RCodec
 from repro.configs import paper as RP
+from repro.core import analytic as RA
 from repro.core import batch_sim as RB
 from repro.core import events as RE
 from repro.core import jax_sim as RJ
 from repro.core import periods as RPer
+from repro.core import simulator as RS
+from repro.core import waste as RW
 from repro.experiments import GridSpec as RGridSpec
+from repro.experiments import paper_grid as RPG
 from repro.experiments.paper_grid import paper_grid_cells as ref_cells
 from repro.experiments.runner import build_fused_layout as ref_layout
 from repro_torch.checkpoint import codec as PCodec
 from repro_torch.configs import paper as PP
+from repro_torch.core import analytic as PA
 from repro_torch.core import batch_sim as PB
 from repro_torch.core import events as PE
 from repro_torch.core import periods as PPer
+from repro_torch.core import simulator as PS
+from repro_torch.core import waste as PW
 from repro_torch.core import torch_sim as PT
 from repro_torch.experiments import GridSpec, paper_grid_cells
+from repro_torch.experiments import paper_grid as PPG
 from repro_torch.experiments.runner import build_fused_layout
 
 
@@ -421,3 +430,178 @@ def test_checkpoint_codec_copy_matches(delta):
         assert v.dtype == dec_r[k].dtype and v.shape == dec_r[k].shape
         np.testing.assert_array_equal(v.view(np.uint8), dec_r[k].view(np.uint8))
     assert PCodec.__all__ == RCodec.__all__ and PCodec._BLOCK == RCodec._BLOCK
+
+
+# --------------------------------------------------------------------------- #
+# scalar waste forms, case analyses, scenario strategies and grids
+# --------------------------------------------------------------------------- #
+def _waste_draws(n=40, seed=21):
+    """Seeded scalar draws over every argument of the waste forms,
+    recall 0 and precision 1 included."""
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        yield dict(
+            T=float(rng.uniform(300.0, 3e4)), T2=float(rng.uniform(3e3, 6e4)),
+            q=float(rng.choice([0.0, 0.5, 1.0])), C=float(rng.uniform(30.0, 900.0)),
+            C2=float(rng.uniform(200.0, 2000.0)), D=float(rng.uniform(10.0, 120.0)),
+            R=float(rng.uniform(30.0, 900.0)), R2=float(rng.uniform(90.0, 2000.0)),
+            M=float(rng.uniform(30.0, 600.0)), mu=float(rng.uniform(2e3, 2e5)),
+            r=0.0 if i % 7 == 0 else float(rng.uniform(0.05, 0.95)),
+            p=1.0 if i % 5 == 0 else float(rng.uniform(0.1, 0.99)),
+            I=float(rng.uniform(0.0, 8000.0)), f=float(rng.uniform(0.05, 0.95)),
+            V=float(rng.uniform(10.0, 1200.0)), k=int(rng.integers(1, 9)),
+        )
+
+
+_WASTE_CALLS = {
+    "waste_checkpoint_only": lambda m, d: m.waste_checkpoint_only(d["T"], d["C"]),
+    "waste_young": lambda m, d: m.waste_young(d["T"], d["C"], d["D"], d["R"], d["mu"]),
+    "waste_exact": lambda m, d: m.waste_exact(
+        d["T"], d["q"], d["C"], d["D"], d["R"], d["mu"], d["r"], d["p"]),
+    "waste_migration": lambda m, d: m.waste_migration(
+        d["T"], d["q"], d["C"], d["D"], d["R"], d["M"], d["mu"], d["r"], d["p"]),
+    "i_prime": lambda m, d: m.i_prime(d["q"], d["p"], d["I"], d["I"] / 2.0),
+    "waste_instant": lambda m, d: m.waste_instant(
+        d["T"], d["q"], d["C"], d["D"], d["R"], d["mu"], d["r"], d["p"], d["I"], d["I"] / 2),
+    "waste_nockpt": lambda m, d: m.waste_nockpt(
+        d["T"], d["q"], d["C"], d["D"], d["R"], d["mu"], d["r"], d["p"], d["I"], d["I"] / 2),
+    "waste_withckpt": lambda m, d: m.waste_withckpt(
+        d["T"], d["T2"] / 10.0, d["q"], d["C"], d["D"], d["R"], d["mu"], d["r"], d["p"],
+        d["I"], d["I"] / 2),
+    "waste_two_level": lambda m, d: m.waste_two_level(
+        d["T"], d["T2"], d["C"], d["C2"], d["D"], d["R"], d["R2"], d["mu"], d["f"],
+        d["r"], d["q"], d["p"]),
+    "waste_silent": lambda m, d: m.waste_silent(
+        d["T"], d["C"], d["V"], d["D"], d["R"], d["mu"], d["k"]),
+    "withckpt_minus_nockpt": lambda m, d: m.withckpt_minus_nockpt(
+        d["T2"] / 10.0, d["C"], d["mu"], max(d["r"], 0.1), d["p"], d["I"], d["I"] / 2),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_WASTE_CALLS))
+def test_scalar_waste_forms_match(name):
+    call = _WASTE_CALLS[name]
+    for d in _waste_draws():
+        assert call(PW, d) == call(RW, d), (name, d)
+    assert PW.ALPHA == RW.ALPHA
+    assert set(PW.__all__) == set(RW.__all__) | {"withckpt_minus_nockpt"}
+
+
+def _platforms():
+    """Paper platforms with and without the optional fields, and
+    degenerate ones (alpha mu below C)."""
+    out = []
+    for n in (2**14, 2**17, 2**19):
+        b = RP.platform(n)
+        out.append(dict(mu=b.mu, C=b.C, D=b.D, R=b.R))
+        out.append(dict(mu=b.mu, C=b.C, D=b.D, R=b.R, M=300.0, C2=3 * b.C,
+                        R2=3 * b.R, f=0.9, V=0.5 * b.C))
+    out.append(dict(mu=1500.0, C=600.0, D=60.0, R=600.0, M=300.0, f=0.6, V=1200.0))
+    return out
+
+
+_PREDS = [(0.85, 0.82, 0.0), (0.7, 0.4, 0.0), (0.85, 0.82, 1200.0),
+          (0.7, 0.4, 6000.0), (0.0, 1.0, 0.0), (0.9, 0.3, 300.0)]
+
+_CASE_ANALYSES = ("_optimize_exact", "_optimize_migration", "_optimize_instant",
+                  "_optimize_nockpt", "_optimize_withckpt", "_optimize_two_level",
+                  "_optimize_silent", "_best_policy")
+
+
+@pytest.mark.parametrize("name", _CASE_ANALYSES)
+@pytest.mark.parametrize("capped", [False, True])
+def test_case_analyses_match(name, capped):
+    from dataclasses import asdict
+
+    for kw in _platforms():
+        for r, p, w in _PREDS:
+            a = getattr(PPer, name)(PW.Platform(**kw), PW.PredictorModel(r, p, window=w),
+                                    capped=capped)
+            b = getattr(RPer, name)(RW.Platform(**kw), RW.PredictorModel(r, p, window=w),
+                                    capped=capped)
+            assert asdict(a) == asdict(b), (name, kw, r, p, w)
+
+
+def test_period_helpers_match():
+    for kw in _platforms():
+        mu, C = kw["mu"], kw["C"]
+        assert PPer._t_young(mu, C) == RPer._t_young(mu, C)
+        for r, p, w in _PREDS:
+            assert PPer._t_one(mu, C, r, p, w) == RPer._t_one(mu, C, r, p, w)
+            assert PPer._nockpt_dominates(C, p, max(w, 1.0)) == RPer._nockpt_dominates(
+                C, p, max(w, 1.0))
+        for capped in (False, True):
+            assert PPer._t0(mu, C, 0.27, capped) == RPer._t0(mu, C, 0.27, capped)
+            assert PPer._t1(mu, C, 0.85, 0.82, 1200.0, 0.27, capped) == RPer._t1(
+                mu, C, 0.85, 0.82, 1200.0, 0.27, capped)
+
+
+@pytest.mark.parametrize("f", [0.05, 0.6, 0.9, 0.999])
+def test_two_level_and_silent_periods_match(f):
+    for d in _waste_draws(12, seed=int(f * 1000)):
+        for q in (0.0, 1.0):
+            args = (d["mu"], d["C"], d["C2"], f, d["r"], q, d["p"], d["D"], d["R"], d["R2"])
+            assert PPer.two_level_periods(*args) == RPer.two_level_periods(*args)
+        for k in (None, 1, 3):
+            args = (d["mu"], d["C"], d["V"], d["D"], d["R"], k)
+            assert PPer.silent_period(*args) == RPer.silent_period(*args)
+
+
+def test_scenario_strategies_match():
+    assert PS.PERIOD_GRID == RS.PERIOD_GRID
+    for kw in _platforms():
+        pa, pb = PW.Platform(**kw), RW.Platform(**kw)
+        assert vars(PS.daly(pa)) == vars(RS.daly(pb))
+        assert vars(PS.silent(pa)) == vars(RS.silent(pb))
+        assert vars(PS.two_level(pa)) == vars(RS.two_level(pb))
+        for r, p, w in _PREDS:
+            xa, xb = PW.PredictorModel(r, p, window=w), RW.PredictorModel(r, p, window=w)
+            assert vars(PS.two_level(pa, xa)) == vars(RS.two_level(pb, xb))
+
+
+def _scenario_cells(mod):
+    return (mod.paper_grid_cells("validation") + mod.two_level_grid_cells("validation")
+            + mod.silent_grid_cells("validation"))
+
+
+@pytest.mark.parametrize("factory", ["two_level_grid_cells", "silent_grid_cells"])
+@pytest.mark.parametrize("preset", ["validation", "full"])
+def test_scenario_grids_match(factory, preset):
+    for k in ("_TL_DISK_MULT", "_TL_FRACS", "_SIL_V_MULTS"):
+        assert getattr(PPG, k) == getattr(RPG, k)
+    assert vars(PPG._NO_PRED) == vars(RPG._NO_PRED)
+    port, ref = getattr(PPG, factory)(preset), getattr(RPG, factory)(preset)
+    assert [c.label for c in port] == [c.label for c in ref] and port
+    for a, b in zip(port, ref):
+        assert vars(a.strategy) == vars(b.strategy)
+        assert vars(a.platform) == vars(b.platform)
+        assert vars(a.predictor) == vars(b.predictor)
+        assert (a.work, a.horizon_factor, a.dist.name) == (b.work, b.horizon_factor, b.dist.name)
+
+
+def test_lane_params_scenario_columns_match():
+    """The reference packing's fifteen columns: the port's nine lane
+    columns followed by its six two-level / silent columns."""
+    port, ref = _scenario_cells(PPG), _scenario_cells(RPG)
+    n = len(ref)
+    plats, strats = [c.platform for c in port], [c.strategy for c in port]
+    a = PB._lane_params(1e5, plats, strats, n) + PB._tier_params(plats, strats)
+    b = RB._lane_params(1e5, [c.platform for c in ref], [c.strategy for c in ref], n)
+    assert len(a) == len(b) == 15
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+        assert x.dtype == y.dtype
+    assert set(a[7]) == {0, 1, 2, 3, 4, 5, 6}
+
+
+def test_analytic_cell_tables_match():
+    """The shared table of a paper + two-level + silent cell list, column
+    by column, against the reference's (both delegate to their lane
+    machine's ``_cell_tables``), unpadded and padded."""
+    port, ref = _scenario_cells(PPG), _scenario_cells(RPG)
+    for n_tab in (None, 128):
+        ta, tb = PA.tables_from_cells(port, n_tab=n_tab), RA.tables_from_cells(ref, n_tab=n_tab)
+        assert set(ta) == set(tb)
+        for k, v in ta.items():
+            np.testing.assert_array_equal(v, tb[k], err_msg=k)
+            assert v.dtype == tb[k].dtype, k
