@@ -70,6 +70,19 @@ equivalence tests of the simulated waste against the analytic models, on
 the validation grid at 200 runs a cell and on the main path's own sweep
 of phase 4, which must reject no cell.
 
+Then the lane machine's other modes (phases 24-25): the silent walk
+(single-law and law-indexed) against its plain version on the scenario
+sweep's own lanes, the prediction walk with trust coins against its plain
+version (both variants, both modes) on sampled lanes of trust 0, 0.3,
+0.5 and 1, and no silent-walk launch on the main path; then the scenario
+grid (two-level checkpoints and silent errors: 48 cells, 1000 runs each)
+through ``run_grid`` on CUDA, its validation gate (24 cells at 200 runs:
+the card's bits equal to the CPU's, disk recoveries and detections
+included, 0 Holm rejects, detections in every silent cell), the same
+cells under two laws in one dispatch against the per-family one, and the
+paper grid with fractional trust (q 0.3 / 0.5) on the card against the
+CPU.
+
 Every phase prints one JSON line; any failure exits non-zero before the
 last line, which is ``{"ok": true, "device": {...}}``.  Needs one CUDA
 card; imports nothing of JAX.
@@ -126,9 +139,17 @@ OPS_PRIM, OPS_GAP = 20, 40
 BYTES_SKIP_MASK, BYTES_SKIP_HEAD, BYTES_SKIP_WALK = 1, 32, 92 + 44
 BYTES_REFILL_MASK, BYTES_REFILL_WALK = 2, 92 + 16 + 44
 BYTES_STRIKE_MASK, BYTES_STRIKE_HEAD, BYTES_CANCELS, BYTES_STRIKE_WALK = 1, 20, 12, 40 + 28
-#: the walk kernels' wrappers, and all three cursor kernels'
+#: the prediction walk with trust coins: a walking lane also reads its two
+#: trust keys and q (24 B).  Silent walk: silr (1 B); t, sf_time (16 B) on
+#: the lanes of silr; a walking lane reads sf_ctr, corrupt, key, mean,
+#: horizon (36 B) and writes sf_ctr, sf_time, corrupt (20 B)
+BYTES_TRUST = 24
+BYTES_SILENT_MASK, BYTES_SILENT_HEAD, BYTES_SILENT_WALK = 1, 16, 36 + 20
+#: the walk kernels' wrappers (the silent walk runs on silent-error lanes
+#: only), and all the cursor kernels'
 WALKS = ("masked_prediction_walk", "masked_strike_walk")
-CURSOR_KERNELS = ("masked_stream_advance",) + WALKS
+SILENT = "masked_silent_walk"
+CURSOR_KERNELS = ("masked_stream_advance",) + WALKS + (SILENT,)
 #: the TPU kernel the walks loop (one event per launch there)
 REPLACES_ADV = "src/repro/kernels/sim_step.py:409"
 #: the outer iteration whose walks phases 3, 6, 19 and indexed_timing replay
@@ -150,6 +171,12 @@ NEWTON_RTOL, NEWTON_EXCESS_MAX, EXTREMIZER_RTOL = 1e-12, 1e-12, 1e-9
 NEWTON_CELLS, NEWTON_SEED = 65536, 3
 #: phase 23: the reference validation suite's contract (runs, seed, alpha)
 VALIDATION_RUNS, VALIDATION_SEED, VALIDATION_ALPHA = 200, 11, 0.01
+#: phase 25: the scenario grid's seed (the reference benchmark's
+#: two_level_silent_cells48 grid), the fractional trust levels, and the
+#: runs a cell of the two-law fused-vs-per-family case
+SCENARIO_SEED = 9
+TRUST_QS = (0.3, 0.5)
+SCENARIO_MIXED_RUNS = 8
 
 TM_ULPS = 4  # refilled cursor dates: libdevice transcendentals, same on both sides
 LAWS = (("exponential", 0.0), ("weibull", 0.7), ("lognormal", 1.0), ("uniform", 0.0))
@@ -406,7 +433,7 @@ class WalkCall:
     with the plain version."""
 
     def __init__(self, name: str, args, kw):
-        self.name = name  # "skip", "pop" or "strike"
+        self.name = name  # "skip", "pop", "strike" or "silent"
         self.flat = {}
         self.args = [_flatten(a, f"a{i}", self.flat) for i, a in enumerate(args)]
         self.kw = {k: _flatten(v, k, self.flat) for k, v in kw.items() if k != "tally"}
@@ -428,13 +455,15 @@ class WalkCall:
                 gap = ("indexed", 0.0)
             else:
                 lk, gap = dict(law=None, lp=None), law
-            if self.name == "strike":
+            if self.name in ("strike", "silent"):
                 kw.update(kind=gap[0], param=gap[1], **lk)
             else:
                 kw.update(f_gap=gap, fp_gap=gap, f_law=lk["law"], f_lp=lk["lp"],
                           fp_law=lk["law"], fp_lp=lk["lp"])
         if self.name == "strike":
             fn = K.strike_walk if plain else K.masked_strike_walk
+        elif self.name == "silent":
+            fn = K.silent_walk if plain else K.masked_silent_walk
         else:
             fn = K.prediction_walk if plain else K.masked_prediction_walk
         return lambda: fn(*args, **kw)
@@ -450,17 +479,18 @@ class WalkCall:
         return out
 
 
-def capture_walks(grid, dev, at: int) -> dict:
+def capture_walks(grid, dev, at: int, silent: bool = False) -> dict:
     """Run ``grid`` on the card for ``at + 1`` outer iterations (one chunk,
     as the main path runs it) and keep the arguments of iteration ``at``'s
-    three walks as they were before each call: ``{"skip", "strike",
-    "pop"}`` -> :class:`WalkCall`.  torch_sim's two walk wrappers are
-    wrapped for the run and restored after it."""
+    three walks (and with ``silent`` its silent walk) as they were before
+    each call: ``{"skip", "strike", "pop"[, "silent"]}`` ->
+    :class:`WalkCall`.  torch_sim's walk wrappers are wrapped for the run
+    and restored after it."""
     from repro_torch.core import torch_sim as PT
     from repro_torch.experiments import build_fused_layout
 
-    real = {n: getattr(PT, n) for n in WALKS}
-    seen = {"skip": 0, "strike": 0}
+    real = {n: getattr(PT, n) for n in WALKS + ((SILENT,) if silent else ())}
+    seen = {"skip": 0, "strike": 0, "silent": 0}
     cap = {}
 
     def pred(*args, **kw):
@@ -478,8 +508,16 @@ def capture_walks(grid, dev, at: int) -> dict:
         seen["strike"] += 1
         return real["masked_strike_walk"](*args, **kw)
 
+    def sil(*args, **kw):
+        if seen["silent"] == at:
+            cap["silent"] = WalkCall("silent", args, kw)
+        seen["silent"] += 1
+        return real[SILENT](*args, **kw)
+
     layout = build_fused_layout(grid)
     PT.masked_prediction_walk, PT.masked_strike_walk = pred, strike
+    if silent:
+        setattr(PT, SILENT, sil)
     try:
         PT.simulate_batch_torch(layout.work_c, layout.plats_c, layout.strats_c,
                                 layout.concat_spec(), device=dev, max_iters=at + 1)
@@ -490,13 +528,15 @@ def capture_walks(grid, dev, at: int) -> dict:
     finally:
         for n, fn in real.items():
             setattr(PT, n, fn)
-    check(sorted(cap) == ["pop", "skip", "strike"], f"captured walks {sorted(cap)}")
+    want = ["pop", "silent", "skip", "strike"] if silent else ["pop", "skip", "strike"]
+    check(sorted(cap) == want, f"captured walks {sorted(cap)}")
     return cap
 
 
 def walk_outputs(name: str, out) -> dict:
-    keys = (("t", "sf_ctr", "sf_time", "n_faults") if name == "strike"
-            else ("la_ctr", "la_time", "tp_t0", "tp_ft", "tp_ctr", "fp_ctr", "fp_time"))
+    keys = {"strike": ("t", "sf_ctr", "sf_time", "n_faults"),
+            "silent": ("sf_ctr", "sf_time", "corrupt")}.get(
+        name, ("la_ctr", "la_time", "tp_t0", "tp_ft", "tp_ctr", "fp_ctr", "fp_time"))
     return dict(zip(keys, out))
 
 
@@ -532,6 +572,11 @@ def walk_work(c: WalkCall, out: dict, indexed: bool) -> dict:
         head = BYTES_STRIKE_HEAD + (BYTES_CANCELS if "cancels.0" in f else 0)
         nbytes = (BYTES_STRIKE_MASK * c.lanes + head * masked
                   + BYTES_STRIKE_WALK * int(walk.sum()))
+    elif c.name == "silent":
+        walk = out["sf_ctr"] != f["a2"]
+        draws = int((out["sf_ctr"] - f["a2"]).sum())
+        nbytes = (BYTES_SILENT_MASK * c.lanes + BYTES_SILENT_HEAD * int(f["a0"].sum())
+                  + BYTES_SILENT_WALK * int(walk.sum()))
     else:
         dl, df = out["la_ctr"] - f["a2"], out["fp_ctr"] - f["a7"]
         walk = (dl != 0) | (df != 0)
@@ -541,8 +586,10 @@ def walk_work(c: WalkCall, out: dict, indexed: bool) -> dict:
                       + BYTES_SKIP_WALK * int(walk.sum()))
         else:
             nbytes = BYTES_REFILL_MASK * c.lanes + BYTES_REFILL_WALK * int(walk.sum())
+        if "q_eff" in f:
+            nbytes += BYTES_TRUST * int(walk.sum())
     if indexed:
-        nbytes += BYTES_LAW * (1 if c.name == "strike" else 2) * int(walk.sum())
+        nbytes += BYTES_LAW * (1 if c.name in ("strike", "silent") else 2) * int(walk.sum())
     return {"bytes": nbytes, "ops": OPS_GAP * draws, "draws": draws,
             "walking_lanes": int(walk.sum())}
 
@@ -589,11 +636,14 @@ def time_walks(K, cap: dict, law, indexed: bool, what: str) -> dict:
         walk_diff(walk_outputs(name, first), want, f"{what} {name} (timed)")
         small = {k: v[:128].clone() for k, v in c.flat.items()}
         floor_copies = [{k: v.clone() for k, v in small.items()} for _ in range(64)]
+        small_law = law
+        if law is not None and law[0] == "indexed":
+            small_law = ("indexed", {k: v[:128] for k, v in law[1].items()})
         out[name] = {
             "ms": ms,
             "plain_ms": restored_eager_ms(lambda d: c.call(K, d, plain=True, law=law), c.flat),
             "host_call_ms": eager_ms(c.call(K, c.copy(), law=law), 200),
-            "launch_floor_ms": device_ms([c.call(K, d, law=law) for d in floor_copies],
+            "launch_floor_ms": device_ms([c.call(K, d, law=small_law) for d in floor_copies],
                                          floor_copies, small)[0],
             "copies": n_copies, **work,
         }
@@ -626,7 +676,8 @@ def ptxas_report(log: str) -> dict:
     names = {"primitive_update_kernel": "masked_primitive_update",
              "stream_advance_kernel": "masked_stream_advance",
              "prediction_walk_kernel": "masked_prediction_walk",
-             "strike_walk_kernel": "masked_strike_walk"}
+             "strike_walk_kernel": "masked_strike_walk",
+             "silent_walk_kernel": SILENT}
     out, cur = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
@@ -1784,7 +1835,7 @@ def mixed_grid(preset: str, n_runs: int):
 
 def sim_step_wrappers(K) -> tuple:
     return (K.masked_primitive_update, K.masked_stream_advance,
-            K.masked_prediction_walk, K.masked_strike_walk)
+            K.masked_prediction_walk, K.masked_strike_walk, K.masked_silent_walk)
 
 
 def counts(K) -> dict:
@@ -1798,19 +1849,20 @@ def reset_counts(K) -> None:
         fn.launches = fn.indexed_launches = 0
 
 
-def path_launches(launches: dict, meta: dict, suffix: str) -> dict:
-    """Phase 4 / 20's launch record: per kernel and per outer iteration,
-    the three cursor kernels together and the host syncs per iteration;
-    fails unless the walks launched, the iterations are those of every run
-    before them, and the syncs and cursor launches per iteration are at
-    most 1 and 4."""
+def path_launches(launches: dict, meta: dict, suffix: str, max_cursor: float = 4.0) -> dict:
+    """Phase 4 / 20 / 25's launch record: per kernel and per outer
+    iteration, the cursor kernels together and the host syncs per
+    iteration; fails unless the walks launched and the syncs and cursor
+    launches per iteration are at most 1 and ``max_cursor`` (4: three
+    walks an iteration and the chunk's priming; the silent walk is a
+    fourth on the scenario path)."""
     iters = max(meta["outer_iters"], 1)
     for name in WALKS:
         check(launches[name + suffix] > 0, f"{name}{suffix} was not launched on the path")
     cursor = sum(launches[n + suffix] for n in CURSOR_KERNELS)
     syncs = meta["host_syncs"] / iters
     check(syncs <= 1.0, f"{syncs} host syncs per outer iteration")
-    check(cursor / iters <= 4.0, f"{cursor / iters} cursor launches per outer iteration")
+    check(cursor / iters <= max_cursor, f"{cursor / iters} cursor launches per outer iteration")
     return {"launches_per_iter": {k: v / iters for k, v in launches.items() if v},
             "cursor_launches_per_iter": cursor / iters, "syncs_per_iter": syncs}
 
@@ -2236,6 +2288,250 @@ def analytic_phases(dev, res, smi: str) -> None:
          z_table_rows=len(back))
 
 
+# --------------------------------------------------------------------------- #
+# The lane machine's other modes: two-level, silent errors, fractional trust
+# --------------------------------------------------------------------------- #
+def scenario_grid(preset: str, n_runs: int, seed: int, law=None):
+    """The two-level + silent-error scenario grid (``preset`` "full": 48
+    cells, the reference benchmark's two_level_silent_cells48 grid)."""
+    from repro_torch.experiments import GridSpec, silent_grid_cells, two_level_grid_cells
+
+    cells = (two_level_grid_cells(preset, fault_dist=law)
+             + silent_grid_cells(preset, fault_dist=law))
+    return GridSpec(tuple(cells), n_runs=n_runs, seed=seed)
+
+
+def trust_grid(preset: str, n_runs: int):
+    """The paper grid with every strategy but the untrusted baselines at
+    fractional trust (q alternating over ``TRUST_QS``), seed 0."""
+    from dataclasses import replace
+
+    from repro_torch.experiments import GridSpec, paper_grid_cells
+
+    cells = [c if c.strategy.mode == "none" else replace(
+        c, strategy=replace(c.strategy, q=TRUST_QS[i % len(TRUST_QS)]))
+        for i, c in enumerate(paper_grid_cells(preset))]
+    return GridSpec(tuple(cells), n_runs=n_runs, seed=0)
+
+
+def card_vs_cpu_modes(on_gpu, on_cpu) -> float:
+    """:func:`card_vs_cpu` plus the disk-recovery and detection counts."""
+    for a, b in zip(on_gpu.cells, on_cpu.cells):
+        for k in ("mean_disk_recoveries", "mean_detections"):
+            check(a.stats[k] == b.stats[k], f"{a.cell.label}: {k} differs card vs CPU")
+    return card_vs_cpu(on_gpu, on_cpu)
+
+
+def family_counts(res) -> dict:
+    """Disk recoveries and detections summed per family of cells."""
+    out = {}
+    for fam in ("tl", "sil"):
+        cs = [c for c in res.cells if c.cell.label.startswith(fam + "/")]
+        out[fam] = {"cells": len(cs),
+                    "disk_recoveries": sum(c.mean_disk_recoveries * c.n_runs for c in cs),
+                    "detections": sum(c.mean_detections * c.n_runs for c in cs)}
+    return out
+
+
+def scenario_phases(dev, regs: dict, main_launches: dict) -> list:
+    """Phases 24-25: the silent walk and the trust-coin prediction walk
+    against their plain versions; the scenario grid (two-level and silent
+    errors) on the card with its validation gate, under two laws fused
+    against per family; the paper grid at fractional trust on the card
+    against the CPU.  Returns the new entries of the ``kernels`` line."""
+    import numpy as np
+    import torch
+    from repro_torch.experiments import run_grid, validate_sweep
+    from repro_torch.kernels import sim_step as K
+
+    full = scenario_grid("full", RUNS_PER_CELL, SCENARIO_SEED)
+    L = full.n_lanes
+
+    # ---- 24. the silent walk and the trust coins against plain --------- #
+    t0 = time.monotonic()
+    check(main_launches[SILENT] == 0 and main_launches[SILENT + "[indexed]"] == 0,
+          "the main path launched the silent walk")
+    err, ulps = {}, {}
+    cap = capture_walks(full, dev, CAPTURE_ITER, silent=True)
+    sc = cap["silent"]
+    lane_laws = {k: torch.from_numpy(v).to(dev)
+                 for k, v in K.sample_lane_laws(L, 121, RUNS_PER_CELL).items()}
+    silent_work = {}
+    for suffix, law in (("", None), ("[indexed]", ("indexed", lane_laws))):
+        got = walk_outputs("silent", sc.run(K, law=law))
+        want = walk_outputs("silent", sc.run(K, plain=True, law=law))
+        ulps[SILENT + suffix], err[SILENT + suffix] = walk_diff(got, want, SILENT + suffix)
+        check(same_bits(got["corrupt"].view(torch.int64), want["corrupt"].view(torch.int64)),
+              f"{SILENT}{suffix}: corrupt differs from the plain version")
+        silent_work[SILENT + suffix] = walk_work(sc, want, bool(suffix))
+    check(silent_work[SILENT]["walking_lanes"] > 0, "the captured silent walk walks no lane")
+    # the trust coins on sampled lanes (q_eff 0, 0.3, 0.5, 1; the q = 0
+    # lanes walk to their stream's end)
+    x = K.lane_state_tensors(K.sample_walk_state(L, 130), dev)
+    laws = K.sample_lane_laws(L, 131, 1)
+    for k in ("law", "s1", "s2"):
+        x[k] = torch.from_numpy(laws[k]).to(dev)
+    consts = ("f_key", "f_mean", "tc_key", "recall", "window", "fp_key", "fp_mean", "horizon")
+    trust_calls = {}
+    for suffix, gap in (("", ("exponential", 0.0)), ("[indexed]", ("indexed", 0.0))):
+        lk = (dict(f_law=x["law"], f_lp=(x["s1"], x["s2"]), fp_law=x["law"],
+                   fp_lp=(x["s1"], x["s2"])) if suffix else {})
+        for mode in ("until", "refill"):
+            kw = dict(f_gap=gap, fp_gap=gap, tt_key=x["tt_key"], ft_key=x["ft_key"],
+                      q_eff=x["q_eff"], **lk)
+            if mode == "until":
+                args = (x["mask"], None)
+                kw["until"] = (x["t"], x["lead_act"])
+            else:
+                args = (x["mask"], x["fp_mask"])
+            c = WalkCall("skip" if mode == "until" else "pop",
+                         args + tuple(x[k] for k in K.PREDICTION_CURSORS)
+                         + tuple(x[k] for k in consts), kw)
+            got = walk_outputs(c.name, c.run(K))
+            want = walk_outputs(c.name, c.run(K, plain=True))
+            name = f"masked_prediction_walk[trust]{suffix}"
+            u, e = walk_diff(got, want, f"{name} {mode}")
+            ulps[f"{name} {mode}"] = u
+            err[name] = max(err.get(name, 0.0), e)
+            trust_calls[f"{mode}{suffix}"] = walk_work(c, want, bool(suffix))
+    torch.cuda.synchronize()
+    emit("scenario_check", seconds=time.monotonic() - t0, lanes=L, iteration=CAPTURE_ITER,
+         silent_work=silent_work, trust_work=trust_calls, ulps=ulps,
+         main_path_silent_launches=main_launches[SILENT]
+         + main_launches[SILENT + "[indexed]"],
+         compared=f"silent walk on the scenario grid's iteration {CAPTURE_ITER} (single-law "
+                  "and per-lane laws): counters and corrupt equal to the plain version, "
+                  f"sf_time within {TM_ULPS} ulp; prediction walk with trust coins on "
+                  f"{L} sampled lanes (q_eff 0, 0.3, 0.5, 1), both modes, both variants: "
+                  f"counters equal, dates within {TM_ULPS} ulp")
+
+    # ---- 25. the scenario grid on the card ----------------------------- #
+    reset_counts(K)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    res = run_grid(full, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = counts(K)
+    meta = res.meta
+    check(meta["device"].startswith("cuda") and meta["n_chunks"] == 1
+          and meta["sampler"] == "single-law", f"scenario path: {meta}")
+    check(launches[SILENT] > 0, "the silent walk was not launched on the scenario path")
+    per_iter = path_launches(launches, meta, "", max_cursor=5.0)
+    for c in res.cells:
+        check(c.n_runs == RUNS_PER_CELL and 0.0 < c.mean_waste < 1.0
+              and np.isfinite(c.ci95_waste), f"{c.cell.label}: waste {c.mean_waste}")
+    fams = family_counts(res)
+    check(fams["tl"]["disk_recoveries"] > 0 and fams["sil"]["detections"] > 0,
+          f"scenario path: {fams}")
+    rows, fails = validate_sweep(res, alpha=VALIDATION_ALPHA)
+    scen = {"grid": "full", "cells": len(res.cells), "runs_per_cell": RUNS_PER_CELL,
+            "seed": SCENARIO_SEED, "lanes": L, "seconds": wall, "lanes_per_s": L / wall,
+            "outer_iters": meta["outer_iters"], "host_syncs": meta["host_syncs"],
+            "launches": {k: v for k, v in launches.items() if v}, **per_iter,
+            "families": fams, "holm_rejects_info": len(fails),
+            "z_max_info": max(r.z for r in rows)}
+
+    # the gate: the validation grid at 200 runs, the card against the CPU
+    t1 = time.monotonic()
+    val = scenario_grid("validation", VALIDATION_RUNS, VALIDATION_SEED)
+    vres = run_grid(val, device="cuda")
+    worst = card_vs_cpu_modes(vres, run_grid(val, device="cpu"))
+    rows, fails = validate_sweep(vres, alpha=VALIDATION_ALPHA)
+    check(len(rows) == 24 and not fails, f"scenario gate: {len(fails)} Holm rejects of "
+          f"{len(rows)}: " + "; ".join(f"{r.label} z={r.z:.2f}" for r in fails))
+    check(all(r.se_sim > 0 for r in rows), "scenario gate: a cell has se_sim <= 0")
+    check(all(c.mean_detections > 0 for c in vres.cells if c.cell.label.startswith("sil/")),
+          "scenario gate: a silent cell detected nothing")
+    gate = {"grid": "validation", "cells": len(rows), "runs_per_cell": VALIDATION_RUNS,
+            "seed": VALIDATION_SEED, "rejects": 0, "z_max": max(r.z for r in rows),
+            "card_vs_cpu_max_rel_float": worst, "families": family_counts(vres),
+            "seconds": time.monotonic() - t1}
+
+    # two laws in one fused dispatch (the law-indexed silent walk) against
+    # one dispatch per law, lane for lane
+    t1 = time.monotonic()
+    from dataclasses import replace
+
+    from repro_torch.core.events import weibull
+    from repro_torch.experiments import GridSpec
+
+    two = GridSpec(tuple(replace(c, label=f"{tag}/{c.label}")
+                         for tag, law in (("exp", None), ("weibull", weibull(0.7)))
+                         for c in scenario_grid("validation", 1, 0, law).cells),
+                   n_runs=SCENARIO_MIXED_RUNS, seed=VALIDATION_SEED)
+    reset_counts(K)
+    fused = run_grid(two, device="cuda", collect="lanes")
+    mixed_launches = counts(K)
+    fam = run_grid(two, device="cuda", collect="lanes", dispatch="perfamily")
+    check((fused.meta["dispatches"], fam.meta["dispatches"]) == (1, 2)
+          and mixed_launches[SILENT + "[indexed]"] > 0, "scenario two-law dispatches")
+    for a, b in zip(fused.cells, fam.cells):
+        for f in ("makespan", "n_faults", "n_regular_ckpts", "n_proactive_ckpts",
+                  "n_disk_recoveries", "n_detections"):
+            check(np.array_equal(getattr(a, f), getattr(b, f)),
+                  f"{a.cell.label}: {f} differs fused vs perfamily")
+    two_law = {"cells": len(two.cells), "runs_per_cell": SCENARIO_MIXED_RUNS,
+               "silent_walk_indexed_launches": mixed_launches[SILENT + "[indexed]"],
+               "seconds": time.monotonic() - t1}
+
+    # the paper grid at fractional trust: the card's path, then the card
+    # against the CPU on the validation preset
+    t1 = time.monotonic()
+    tgrid = trust_grid("full", RUNS_PER_CELL)
+    tcap = capture_walks(tgrid, dev, CAPTURE_ITER)
+    check(all("q_eff" in tcap[n].flat for n in ("skip", "pop")),
+          "the fractional grid's prediction walks carry no trust coins")
+    reset_counts(K)
+    torch.cuda.synchronize()
+    t2 = time.monotonic()
+    tres = run_grid(tgrid, device="cuda")
+    torch.cuda.synchronize()
+    trust_wall = time.monotonic() - t2
+    trust_launches = counts(K)
+    tper_iter = path_launches(trust_launches, tres.meta, "")
+    small = trust_grid("validation", 8)
+    tworst = card_vs_cpu(run_grid(small, device="cuda"), run_grid(small, device="cpu"))
+    trust = {"grid": "full", "cells": len(tgrid.cells), "runs_per_cell": RUNS_PER_CELL,
+             "qs": list(TRUST_QS), "seconds": trust_wall, "outer_iters": tres.meta["outer_iters"],
+             "host_syncs": tres.meta["host_syncs"],
+             "launches": {k: v for k, v in trust_launches.items() if v}, **tper_iter,
+             "card_vs_cpu_validation_max_rel_float": tworst,
+             "phase_seconds": time.monotonic() - t1}
+    emit("scenario_path", scenario=scen, gate=gate, two_law=two_law, trust=trust,
+         note="holm_rejects_info / z_max_info: the full grid's validation, as "
+              "information; the gate is the validation grid's")
+
+    # ---- times of the new walks --------------------------------------- #
+    t0 = time.monotonic()
+    sil_times = {SILENT: time_walks(K, {"silent": sc}, None, False, "scenario")["silent"],
+                 SILENT + "[indexed]": time_walks(K, {"silent": sc}, ("indexed", lane_laws),
+                                                  True, "scenario")["silent"]}
+    trust_times = time_walks(K, {n: tcap[n] for n in ("skip", "pop")}, None, False,
+                             "trust path")
+    emit("scenario_walk_timing", seconds=time.monotonic() - t0, iteration=CAPTURE_ITER,
+         silent=sil_times, trust=trust_times,
+         registers={n: regs.get(n) for n in (SILENT, SILENT + "[indexed]")},
+         note="silent: the scenario grid's captured iteration (the indexed variant under "
+              "per-lane laws in runs of 1000 lanes); trust: the fractional paper grid's "
+              "captured skip walk and pop; device_ms over restored copies")
+    trust_mean = {k: (trust_times["skip"][k] + trust_times["pop"][k]) / 2
+                  for k in ("ms", "plain_ms", "host_call_ms", "launch_floor_ms", "bytes", "ops")}
+    out = [sim_step_entry(name, REPLACES_ADV, tm,
+                          launches[SILENT] if name == SILENT else two_law[
+                              "silent_walk_indexed_launches"],
+                          err[name], lanes=L, iteration=CAPTURE_ITER,
+                          path="scenario grid" if name == SILENT else "scenario, two laws",
+                          registers=regs.get(name))
+           for name, tm in sil_times.items()]
+    out.append(sim_step_entry(
+        "masked_prediction_walk[trust]", REPLACES_ADV, trust_mean,
+        trust_launches["masked_prediction_walk"], err["masked_prediction_walk[trust]"],
+        calls=trust_times, lanes=tgrid.n_lanes, iteration=CAPTURE_ITER,
+        path="paper grid at q 0.3 / 0.5", registers=regs.get("masked_prediction_walk")))
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -2353,8 +2649,8 @@ def main() -> int:
     for name in ("masked_primitive_update", "masked_stream_advance"):
         check(launches[name] > 0, f"{name} was not launched on the main path")
     for name, n in launches.items():
-        if name.endswith("[indexed]"):
-            check(n == 0, f"{name}: {n} law-indexed launches on the single-law main path")
+        if name.endswith("[indexed]") or name.startswith(SILENT):
+            check(n == 0, f"{name}: {n} launches on the single-law, fail-stop main path")
     meta = res.meta
     check(meta["device"].startswith("cuda"), f"main path ran on {meta['device']}")
     check(meta["outer_iters"] == OUTER_ITERS["full"],
@@ -2445,6 +2741,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels += mixed_law_phases(dev, regs)
     analytic_phases(dev, res, smi)
+    kernels += scenario_phases(dev, regs, launches)
     emit("total", seconds=time.monotonic() - t_script)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -130,11 +130,10 @@ def cell_tables(
 
     Delegates to :func:`repro_torch.core.torch_sim._cell_tables`, the one
     packing routine the device sweep uses, so the analytic layer and the
-    simulator consume the same columns, then adds the two-level and
-    silent-error columns ``C2``, ``DR2 = D + R2``, ``V``, ``fmem``,
-    ``rho`` and ``kv``, which the lane machine does not read.  ``n_tab``
-    pads with the engine's benign rows (zero extra costs, f = 0,
-    degenerate strides); default is no padding."""
+    simulator consume the same columns, the two-level and silent-error
+    columns ``C2``, ``DR2 = D + R2``, ``V``, ``fmem``, ``rho`` and ``kv``
+    among them.  ``n_tab`` pads with the engine's benign rows (zero extra
+    costs, f = 0, degenerate strides); default is no padding."""
     from . import torch_sim as T  # the lane machine imports its kernels
 
     n = len(strategies)
@@ -142,7 +141,6 @@ def cell_tables(
     Wk, C, D, R, M, T_R, T_P, mode, q = B._lane_params(
         work, list(platforms), list(strategies), n
     )
-    C2, R2, V, fmem, rho, kv = B._tier_params(platforms, strategies)
     mtbf = np.asarray([p.mu for p in platforms], dtype=np.float64)
     recall = np.asarray([p.recall for p in predictors], dtype=np.float64)
     precision = np.asarray([p.precision for p in predictors], dtype=np.float64)
@@ -155,24 +153,14 @@ def cell_tables(
     )
     fault_laws = E.law_table(fault_dists) if fault_dists is not None else None
     fp_laws = E.law_table(fp_dists) if fp_dists is not None else None
-    tables = T._cell_tables(
+    return T._cell_tables(
         n, n_tab, dtype,
         Wk, C, D, R, M, T_R, T_P, mode,
         np.broadcast_to(np.asarray(horizon, np.float64), (n,)), window,
         mtbf, fp_mean, recall, q_eff,
         fault_laws=fault_laws, fp_laws=fp_laws,
+        tier=B._tier_params(platforms, strategies),
     )
-
-    def tab(x, fill=0.0):
-        a = np.full(n_tab, fill, dtype)
-        a[:n] = x
-        return a
-
-    tables.update(
-        C2=tab(C2), DR2=tab(D + R2), V=tab(V), fmem=tab(fmem),
-        rho=tab(rho, 1.0), kv=tab(kv, 1.0),
-    )
-    return tables
 
 
 def tables_from_cells(

@@ -74,15 +74,22 @@ _MODE2PH = np.array(
 )
 
 
-def _lane_params(work, platform, strategy, L: int):
-    """Per-lane (or per-cell) parameter columns ``(W, C, D, R, M, T_R,
-    T_P, mode, q)``: the first nine columns of the reference packing."""
+def _cell_lists(platform, strategy, L: int):
+    """``L`` platforms and strategies: one of each broadcast, or the
+    sequences checked for length ``L``."""
     plats = [platform] * L if isinstance(platform, Platform) else list(platform)
     strats = [strategy] * L if isinstance(strategy, Strategy) else list(strategy)
     if len(plats) != L or len(strats) != L:
         raise ValueError(
             f"platform/strategy length mismatch: {len(plats)}/{len(strats)} vs {L} lanes"
         )
+    return plats, strats
+
+
+def _lane_params(work, platform, strategy, L: int):
+    """Per-lane (or per-cell) parameter columns ``(W, C, D, R, M, T_R,
+    T_P, mode, q)``: the first nine columns of the reference packing."""
+    plats, strats = _cell_lists(platform, strategy, L)
     W = np.broadcast_to(np.asarray(work, dtype=np.float64), (L,)).copy()
     C = np.array([p.C for p in plats], dtype=np.float64)
     D = np.array([p.D for p in plats], dtype=np.float64)
@@ -101,8 +108,8 @@ def _lane_params(work, platform, strategy, L: int):
 
 def _tier_params(platforms, strategies):
     """Per-cell two-level and silent-error columns ``(C2, R2, V, fmem,
-    rho, kv)``: the last six columns of the reference packing, which only
-    the analytic layer reads.  On every other mode's cells they are
+    rho, kv)``: the last six columns of the reference packing.  On every
+    other mode's cells they are
     benign: a missing disk tier mirrors the memory one, f = 0 sends every
     failure to disk, rho = k_V = 1 make the nesting and verification
     strides degenerate."""

@@ -22,7 +22,16 @@ inside the primitive-update kernel (:func:`~repro_torch.kernels.sim_step.
 masked_primitive_update`).  Migration cancels the vacated node's
 predicted fault by counter index in three slots; a fourth
 *simultaneously pending* cancellation is dropped, exactly as in the
-reference.
+reference.  Two-level lanes (memory checkpoints nested in disk ones)
+draw each fault's recovery tier from the tier-coin stream at the
+pre-consumption strike counter; silent-error lanes take their strikes
+off the fail-stop path (the strike cursor goes to the primitive update
+masked to ``+inf``) and consume them as latent corruptions up to the
+clock in a silent walk (:func:`~repro_torch.kernels.sim_step.
+masked_silent_walk`), caught and rolled back at every ``k_V``-th
+(verifying) checkpoint.  Migration, two-level and silent-error state and
+ops run only on chunks that hold such lanes, and the trust coins of
+fractional trust only on chunks with a ``0 < q < 1`` lane.
 
 The reference's ``lax.while_loop``s over the cursors become walks, one
 launch each, in which every lane advances its own cursor as far as its
@@ -30,15 +39,17 @@ own stop condition needs (:func:`~repro_torch.kernels.sim_step.
 masked_prediction_walk`, :func:`~repro_torch.kernels.sim_step.
 masked_strike_walk`): the TP-lookahead loop and the skip over passed
 predictions are one prediction walk, the final pop of the merged head is
-one more, and the stale-fault cascade is one strike walk.  On the card an
-outer iteration is then three cursor launches and one primitive update,
-with no host sync inside; the chunk's priming adds a stream advance and
-a prediction walk.  On the CPU the walks' plain versions run the loops as
+one more, and the stale-fault cascade is one strike walk (a silent-error
+chunk adds the silent walk).  On the card an outer iteration is then
+three cursor launches (four) and one primitive update, with no host sync
+inside; the chunk's priming adds a stream advance and a prediction walk.  On the CPU the walks' plain versions run the loops as
 masked passes over all lanes, each pass's condition one host sync
 (``bool(mask.any())``), counted in :class:`_Tally`.  The reference's
 ``lax.cond`` gates are dropped: every update inside them is masked, so
 running the bodies unconditionally gives identical results.  With trust
-``q`` in {0, 1} the false-prediction loop is a single draw.  The outer
+``q`` in {0, 1} the false-prediction loop is a single draw; with
+``0 < q < 1`` the prediction walk thins both prediction streams by
+per-event trust coins.  The outer
 loop polls for termination every :data:`POLL` iterations (finished lanes
 are inert; the poll is the card path's only host sync) and never runs
 past ``max_iters``.
@@ -65,8 +76,9 @@ from .events import TraceSpec
 from .simulator import _EPS
 from ..kernels.sim_step import (
     FLAG_CKPT_OK, FLAG_FAULTED, FLAG_FIN, FLAG_OK, FLAG_REG, PREDICTION_CURSORS,
-    PRIM_WORK_NC, cell_gather, masked_prediction_walk, masked_primitive_update,
-    masked_stream_advance, masked_strike_walk, segment_cell_sums,
+    PRIM_WORK_NC, cell_gather, counter_uniform, masked_prediction_walk,
+    masked_primitive_update, masked_silent_walk, masked_stream_advance,
+    masked_strike_walk, segment_cell_sums,
 )
 
 __all__ = [
@@ -155,14 +167,16 @@ _CELL_TABLE_KEYS = (
     "W", "C", "DR", "T_R", "T_P", "mode", "horizon", "window",
     "wpp", "lead_act", "tp_eff_default", "mtbf", "fp_mean", "recall", "q_eff",
 )
-#: ... and the mixed-law columns (law code, s1 / s2 slots) of each stream
+#: ... the mixed-law columns (law code, s1 / s2 slots) of each stream
 _LAW_TABLE_KEYS = ("fault_law", "fault_s1", "fault_s2", "fp_law", "fp_s1", "fp_s2")
+#: ... and the two-level / silent-error columns
+_TIER_TABLE_KEYS = ("C2", "DR2", "V", "fmem", "rho", "kv")
 
 
 def _cell_tables(
     n_cells: int, n_tab: int, fdt,
     W, C, D, R, M, T_R, T_P, mode, horizon, window,
-    mtbf, fp_mean, recall, q_eff, fault_laws=None, fp_laws=None,
+    mtbf, fp_mean, recall, q_eff, fault_laws=None, fp_laws=None, tier=None,
 ) -> dict:
     """Per-cell engine-parameter tables of a fused sweep: one row per
     cell plus ``n_tab - n_cells`` benign padding rows, each with a ``-1``
@@ -170,7 +184,10 @@ def _cell_tables(
     ``fault_laws`` / ``fp_laws`` (a :func:`~repro_torch.core.events.
     law_table` pair, mixed-law specs) add each stream's law code and
     ``s1`` / ``s2`` slot columns; padding rows are exponential with zero
-    slots."""
+    slots.  ``tier`` (the ``(C2, R2, V, fmem, rho, kv)`` of
+    :func:`~repro_torch.core.batch_sim._tier_params`) adds the two-level
+    and silent-error columns :data:`_TIER_TABLE_KEYS` (``DR2 = D + R2``);
+    padding rows have zero extra costs, f = 0 and strides of 1."""
 
     def tab(x, fill=0.0, dt=None):
         a = np.full(n_tab, fill, dt or fdt)
@@ -207,6 +224,12 @@ def _cell_tables(
                 f"{prefix}_s1": tab(lp[:, 1]),
                 f"{prefix}_s2": tab(lp[:, 2]),
             })
+    if tier is not None:
+        C2, R2, V, fmem, rho, kv = tier
+        tables.update(
+            C2=tab(C2), DR2=tab(np.asarray(D) + np.asarray(R2)), V=tab(V),
+            fmem=tab(fmem), rho=tab(rho, 1.0), kv=tab(kv, 1.0),
+        )
     return tables
 
 
@@ -226,13 +249,18 @@ def _pack_chunk_spec_cells(
 
 _STREAM_WORDS = ("s0", "s1", "sid_lo", "sid_hi")
 
-#: per-lane SplitMix key -> stream kind (trust streams belong to
-#: fractional q, which this engine does not run)
+#: per-lane SplitMix key -> stream kind: the three every chunk draws, then
+#: the recovery-tier coins (two-level chunks) and the two trust-coin
+#: streams (chunks with fractional trust)
 _KEY_KINDS = {
     "fg_key": E.STREAM_FAULT_GAP,
     "tc_key": E.STREAM_TP_COIN,
     "fp_key": E.STREAM_FP_GAP,
+    "tier_key": E.STREAM_TIER,
+    "tt_key": E.STREAM_TP_TRUST,
+    "ft_key": E.STREAM_FP_TRUST,
 }
+_BASE_KEYS = ("fg_key", "tc_key", "fp_key")
 
 
 def _to_device(arrays: dict, device) -> dict:
@@ -241,20 +269,22 @@ def _to_device(arrays: dict, device) -> dict:
     return {k: torch.tensor(np.asarray(v), device=device) for k, v in arrays.items()}
 
 
-def tables_from_numpy(consts: dict, device) -> dict:
+def tables_from_numpy(consts: dict, device, keys=_BASE_KEYS) -> dict:
     """Packed chunk constants (NumPy, the reference packing) -> the
     port's tensors on ``device``.
 
     Tables and the lane -> cell index keep their dtypes.  The four uint32
-    stream-identity words become the per-lane 64-bit SplitMix subkeys of
-    the fault-gap, TP-coin and false-prediction streams
-    (``threefry2x32(seed_words, (sid_lo, sid_hi << 4 | kind))`` packed
-    ``high << 32 | low``), shipped as int64 bit patterns."""
+    stream-identity words become the per-lane 64-bit SplitMix subkeys
+    named in ``keys`` (:data:`_KEY_KINDS`; by default those of the
+    fault-gap, TP-coin and false-prediction streams):
+    ``threefry2x32(seed_words, (sid_lo, sid_hi << 4 | kind))`` packed
+    ``high << 32 | low``, shipped as int64 bit patterns."""
     out = _to_device(
         {k: v for k, v in consts.items() if k not in _STREAM_WORDS}, device
     )
     s0, s1, lo, hi = (np.asarray(consts[k], np.uint32) for k in _STREAM_WORDS)
-    for name, kind in _KEY_KINDS.items():
+    for name in keys:
+        kind = _KEY_KINDS[name]
         k0, k1 = E.threefry2x32(s0, s1, lo, (hi << np.uint32(4)) | np.uint32(kind))
         key = (k0.astype(np.uint64) << np.uint64(32)) | k1.astype(np.uint64)
         out[name] = torch.tensor(key.view(np.int64), device=device)
@@ -347,6 +377,8 @@ class LaneResult:
     n_regular_ckpts: np.ndarray
     n_migrations: np.ndarray
     trace_exhausted: np.ndarray
+    n_disk_recoveries: np.ndarray
+    n_detections: np.ndarray
 
     @property
     def waste(self) -> np.ndarray:
@@ -369,13 +401,22 @@ class _Tally:
 # The lane machine
 # --------------------------------------------------------------------------- #
 def _run_chunk(consts: dict, st: dict, *, gen, has_mig: bool, max_iters: int,
-               eps: float, tally: _Tally) -> dict:
+               eps: float, tally: _Tally, has_tl: bool = False,
+               has_sil: bool = False, frac_q: bool = False) -> dict:
     """Run one packed chunk to completion (or ``max_iters``); returns the
     final lane state.  ``consts`` comes from :func:`tables_from_numpy`,
     ``st`` is the chunk's zeroed state on the same device.  ``gen`` is
     ``(fault kind, param, false-prediction kind, param)``; a kind
-    ``"indexed"`` draws that stream with the law columns of ``consts``."""
-    c = cell_gather(consts, consts["cidx"], _CELL_TABLE_KEYS + _LAW_TABLE_KEYS)
+    ``"indexed"`` draws that stream with the law columns of ``consts``.
+
+    ``has_mig`` / ``has_tl`` / ``has_sil`` say whether the chunk holds
+    migration, two-level or silent-error lanes, and ``frac_q`` whether
+    any lane trusts with ``0 < q < 1``: each adds its family's state and
+    ops, which every other chunk does not run (two-level chunks need the
+    tier columns and ``tier_key`` in ``consts``, fractional ones
+    ``tt_key`` and ``ft_key``)."""
+    c = cell_gather(consts, consts["cidx"],
+                    _CELL_TABLE_KEYS + _LAW_TABLE_KEYS + _TIER_TABLE_KEYS)
     W, C, DR = c["W"], c["C"], c["DR"]
     T_R, T_P, mode = c["T_R"], c["T_P"], c["mode"]
     horizon, window = c["horizon"], c["window"]
@@ -399,6 +440,15 @@ def _run_chunk(consts: dict, st: dict, *, gen, has_mig: bool, max_iters: int,
     is_mig = mode == B._M_MIGRATION
     tp_w = torch.where(torch.isnan(T_P), tp_eff_default, T_P) - C
     fault = dict(kind=f_kind, param=f_param, law=f_law, lp=f_lp)
+    # two-level / silent-error constants
+    if has_tl:
+        tl_m = mode == B._M_TWO_LEVEL
+        C2, DR2, fmem, rho = c["C2"], c["DR2"], c["fmem"], c["rho"]
+        tier_key = c["tier_key"]
+    if has_sil:
+        sil_m = mode == B._M_SILENT
+        V, kv = c["V"], c["kv"]
+    trust = dict(tt_key=c["tt_key"], ft_key=c["ft_key"], q_eff=q_eff) if frac_q else {}
 
     s = dict(st)
 
@@ -409,6 +459,7 @@ def _run_chunk(consts: dict, st: dict, *, gen, has_mig: bool, max_iters: int,
             fg_key, mtbf, tc_key, recall, window, fp_key, fp_mean, horizon,
             f_gap=(f_kind, f_param), fp_gap=(fp_kind, fp_param), f_law=f_law,
             f_lp=f_lp, fp_law=fp_law, fp_lp=fp_lp, until=until, tally=tally,
+            **trust,
         )
 
     # prime the cursors: first strike fault, first visible TP, first false
@@ -438,6 +489,14 @@ def _run_chunk(consts: dict, st: dict, *, gen, has_mig: bool, max_iters: int,
             ep_ft=torch.full_like(horizon, nan), ep_fctr=neg1(),
             cancel0=neg1(), cancel1=neg1(), cancel2=neg1(),
         )
+    # the disk-recovery and detection counters ride along on every chunk;
+    # rc is the length of the repair in progress (D + R2 after a disk
+    # recovery), corrupt the date of the earliest latent corruption
+    s.update(n_disk=torch.zeros_like(s["n_faults"]), n_det=torch.zeros_like(s["n_faults"]))
+    if has_tl:
+        s.update(saved_d=zf(), dk_ctr=zf(), rc=DR.clone())
+    if has_sil:
+        s.update(saved_v=zf(), ck_v=zf(), corrupt=torch.full_like(horizon, inf))
 
     def step():
         t = s["t"]
@@ -446,6 +505,11 @@ def _run_chunk(consts: dict, st: dict, *, gen, has_mig: bool, max_iters: int,
         ep_t0, ep_end = s["ep_t0"], s["ep_end"]
         phase = s["phase"]
         sf_ctr, sf_time = s["sf_ctr"], s["sf_time"]
+        n_disk, n_det = s["n_disk"], s["n_det"]
+        if has_tl:
+            saved_d, dk_ctr, rc = s["saved_d"], s["dk_ctr"], s["rc"]
+        if has_sil:
+            saved_v, ck_v, corrupt = s["saved_v"], s["ck_v"], s["corrupt"]
         if has_mig:
             ep_ft, ep_fctr = s["ep_ft"], s["ep_fctr"]
             # retire cancel slots the strike cursor has passed
@@ -485,10 +549,20 @@ def _run_chunk(consts: dict, st: dict, *, gen, has_mig: bool, max_iters: int,
         k = torch.minimum(
             torch.minimum(k_fault, k_act), torch.clamp(k_done, max=4e15)
         )
+        # never fuse across a disk-tier or verification checkpoint (they
+        # cost more than C): cap the run at the current stride remainder
+        if has_tl:
+            k = torch.where(tl_m, torch.minimum(k, torch.clamp(rho - 1.0 - dk_ctr, min=0.0)), k)
+        if has_sil:
+            k = torch.where(sil_m, torch.minimum(k, torch.clamp(kv - 1.0 - ck_v, min=0.0)), k)
         ff = ffm & (k >= 2.0)
         t = torch.where(ff, t + k * T_R, t)
         saved = torch.where(ff, saved + k * wpp, saved)
         n_reg = s["n_reg"] + torch.where(ff, k, 0.0).to(i64)
+        if has_tl:
+            dk_ctr = torch.where(ff & tl_m, dk_ctr + k, dk_ctr)
+        if has_sil:
+            ck_v = torch.where(ff & sil_m, ck_v + k, ck_v)
 
         exhausted = s["exhausted"] | (mn & (t > horizon))
         remaining = wpp - period_work
@@ -570,28 +644,56 @@ def _run_chunk(consts: dict, st: dict, *, gen, has_mig: bool, max_iters: int,
         # cap at job completion, pre-resolution clock (scalar order of ops)
         target = torch.where(workm, torch.minimum(target, t + (W - saved - unsaved)), target)
         ckend = t + C
+        # intent masks fixed with the end date: the rho-th regular
+        # checkpoint of a two-level lane is the disk tier (cost C + C2), the
+        # k_V-th regular checkpoint of a silent-error lane verifies (cost
+        # C + V); proactive checkpoints hit the memory tier, never verify
+        if has_tl or has_sil:
+            reg_int = (prim == B._PR_CKPT) & (cont == B._C_CKPTREG)
+        if has_tl:
+            disk_int = reg_int & tl_m & (dk_ctr >= rho - 1.0)
+            ckend = torch.where(disk_int, ckend + C2, ckend)
+        if has_sil:
+            ver_int = reg_int & sil_m & (ck_v >= kv - 1.0)
+            ckend = torch.where(ver_int, ckend + V, ckend)
 
         # resolve stale faults (a fault during downtime restarts the
-        # recovery); cancelled faults are skipped
+        # repair in progress, of length rc: D + R, or D + R2 after a disk
+        # recovery); cancelled faults are skipped; silent-error strikes
+        # are not fail-stop events, so those lanes skip the cascade
         t, sf_ctr, sf_time, n_faults = masked_strike_walk(
-            res, t, sf_ctr, sf_time, s["n_faults"], DR, fg_key, mtbf, horizon,
+            res & ~sil_m if has_sil else res, t, sf_ctr, sf_time, s["n_faults"],
+            rc if has_tl else DR, fg_key, mtbf, horizon,
             **fault, cancels=cancels if has_mig else None, tally=tally,
         )
 
         # the hot step: the struck fault is consumed and the strike cursor
-        # refilled inside the kernel (nf IS the strike cursor's date)
-        nf = sf_time
+        # refilled inside the kernel (nf IS the strike cursor's date).
+        # Two-level and silent chunks hand the kernel a copy: sf_time keeps
+        # the struck date (the disk recovery restarts from it) and the
+        # silent lanes' cursor, masked to +inf in the copy (silent strikes
+        # never interrupt a primitive, so the kernel leaves their counter
+        # alone), is kept from it
+        if has_tl:
+            # the tier coin of the fault struck now: the pre-consumption
+            # counter (the kernel advances sf_ctr in place)
+            u_tier = counter_uniform(tier_key, sf_ctr)
+        if has_sil:
+            nf = sf_time.masked_fill(sil_m, inf)
+        elif has_tl:
+            nf = sf_time.clone()
+        else:
+            nf = sf_time
         stream = (fg_key, sf_ctr, nf, mtbf, horizon)
         if f_kind == "indexed":
             stream += (f_law, *f_lp)
-        t, saved, unsaved, period_work, flags, sf_ctr, sf_time = (
-            masked_primitive_update(
-                prim, cont, target, ckend, nf,
-                t, saved, unsaved, period_work, W, DR,
-                eps=eps, reg_cont=int(B._C_CKPTREG),
-                stream=stream, gap=(f_kind, f_param),
-            )
-        )
+        # (the refilled cursor lands in sf_ctr and nf, in place)
+        t, saved, unsaved, period_work, flags = masked_primitive_update(
+            prim, cont, target, ckend, nf,
+            t, saved, unsaved, period_work, W, DR,
+            eps=eps, reg_cont=int(B._C_CKPTREG),
+            stream=stream, gap=(f_kind, f_param),
+        )[:5]
         faulted = (flags & FLAG_FAULTED) != 0
         ok = (flags & FLAG_OK) != 0
         fin = (flags & FLAG_FIN) != 0
@@ -602,6 +704,49 @@ def _run_chunk(consts: dict, st: dict, *, gen, has_mig: bool, max_iters: int,
         phase = phase.masked_fill(faulted, B._PH_MAIN).masked_fill(fin, B._PH_DONE)
         n_pro = s["n_pro"] + (cok & ~reg).to(i64)
         n_reg = n_reg + reg.to(i64)
+
+        if has_tl:
+            # disk-tier recovery: restart from the last disk checkpoint (the
+            # kernel applied the memory-tier rollback t = nf + DR)
+            disk = faulted & tl_m & (u_tier >= fmem)
+            mem = faulted & tl_m & ~disk
+            t = torch.where(disk, sf_time + DR2, t)
+            saved = torch.where(disk, saved_d, saved)
+            dk_ctr = dk_ctr.masked_fill(disk, 0.0)
+            rc = torch.where(mem, DR, torch.where(disk, DR2, rc))
+            n_disk = n_disk + disk.to(i64)
+            # a completed disk-tier checkpoint promotes the durable
+            # frontier; a completed memory-tier regular one advances the
+            # nesting counter (proactive checkpoints do not)
+            dk = cok & disk_int
+            saved_d = torch.where(dk, saved, saved_d)
+            dk_ctr = dk_ctr.masked_fill(dk, 0.0)
+            dk_ctr = torch.where(reg & tl_m & ~disk_int, dk_ctr + 1.0, dk_ctr)
+        if has_sil:
+            sf_time = torch.where(sil_m, sf_time, nf)
+        elif has_tl:
+            sf_time = nf
+
+        if has_sil:
+            # consume latent strikes up to the new clock: they corrupt the
+            # state silently instead of interrupting the primitive
+            sf_ctr, sf_time, corrupt = masked_silent_walk(
+                res & sil_m, t, sf_ctr, sf_time, corrupt, fg_key, mtbf, horizon,
+                **fault, tally=tally,
+            )
+            # verification caught a latent corruption: roll back past every
+            # unverified checkpoint to the verified frontier
+            vok = cok & ver_int
+            det = vok & torch.isfinite(corrupt)
+            t = torch.where(det, t + DR, t)
+            saved = torch.where(det, saved_v, saved)
+            period_work = period_work.masked_fill(det, 0.0)
+            corrupt = corrupt.masked_fill(det, inf)
+            n_faults = n_faults + det.to(i64)
+            n_det = n_det + det.to(i64)
+            saved_v = torch.where(vok & ~det, saved, saved_v)
+            ck_v = ck_v.masked_fill(vok, 0.0)
+            ck_v = torch.where(reg & sil_m & ~ver_int, ck_v + 1.0, ck_v)
 
         # ---- continuations on success ------------------------------ #
         cmask = ok & (phase != B._PH_DONE)
@@ -640,8 +785,13 @@ def _run_chunk(consts: dict, st: dict, *, gen, has_mig: bool, max_iters: int,
             t=t, saved=saved, unsaved=unsaved, period_work=period_work,
             na_saved=na_saved, ep_t0=ep_t0, ep_end=ep_end,
             n_faults=n_faults, n_pro=n_pro, n_reg=n_reg, n_mig=n_mig,
-            phase=phase, exhausted=exhausted,
+            phase=phase, exhausted=exhausted, sf_ctr=sf_ctr, sf_time=sf_time,
+            n_disk=n_disk, n_det=n_det,
         )
+        if has_tl:
+            s.update(saved_d=saved_d, dk_ctr=dk_ctr, rc=rc)
+        if has_sil:
+            s.update(saved_v=saved_v, ck_v=ck_v, corrupt=corrupt)
 
     it = 0
     while it < max_iters:
@@ -658,15 +808,13 @@ def _cell_sums(s: dict, W: torch.Tensor, cidx: torch.Tensor, n_seg: int) -> torc
     (``_CS_*`` column order)."""
     ft = s["t"]
     waste = 1.0 - W / ft
-    zero = torch.zeros_like(ft)
     return segment_cell_sums(
         [
             torch.ones_like(ft),  # lane count
             ft, ft * ft,  # makespan moments
             waste, waste * waste,  # waste moments
             s["n_faults"], s["n_pro"], s["n_reg"], s["n_mig"],
-            s["exhausted"],
-            zero, zero,  # disk recoveries, detections: modes not in this engine
+            s["exhausted"], s["n_disk"], s["n_det"],
             s["phase"] != B._PH_DONE,  # convergence
         ],
         cidx, n_seg,
@@ -701,8 +849,11 @@ def simulate_batch_torch(
     ``work_c`` / ``plats_c`` / ``strats_c`` describe the ``spec.n_cells``
     cells; ``spec`` maps the lanes onto them and carries the failure law:
     one :class:`~repro_torch.core.events.Distribution` (the single-law
-    kernels) or a tuple of them, one per cell (the law-indexed kernels).  Runs on CUDA unless ``device`` names another device
-    (``device="cpu"`` runs the kernels' plain PyTorch versions).
+    kernels) or a tuple of them, one per cell (the law-indexed kernels).
+    Every strategy mode runs (two-level and silent-error cells among
+    them), at any trust level.  Runs on CUDA unless ``device`` names
+    another device (``device="cpu"`` runs the kernels' plain PyTorch
+    versions).
 
     chunk       lanes resident at once ("auto": :func:`default_chunk_lanes`;
                 None: all lanes).  Results do not depend on it, apart
@@ -719,18 +870,15 @@ def simulate_batch_torch(
         raise TypeError("simulate_batch_torch needs a cell-indexed TraceSpec")
     L, n_cells = spec.n_lanes, spec.n_cells
     cidx_g = spec.cell_index
-    W, C, D, R, M, T_R, T_P, mode, q = B._lane_params(
-        work_c, plats_c, strats_c, n_cells
-    )
-    if ((mode == B._M_TWO_LEVEL) | (mode == B._M_SILENT)).any():
-        raise NotImplementedError(
-            "two-level and silent modes are a later slice of the port"
-        )
-    q_eff = np.where(mode == B._M_NONE, 0.0, np.clip(q, 0.0, 1.0))
-    if ((q_eff > 0.0) & (q_eff < 1.0)).any():
-        raise NotImplementedError(
-            "fractional trust (0 < q < 1) is a later slice of the port"
-        )
+    plats, strats = B._cell_lists(plats_c, strats_c, n_cells)
+    W, C, D, R, M, T_R, T_P, mode, q = B._lane_params(work_c, plats, strats, n_cells)
+    tl_c, sil_c = mode == B._M_TWO_LEVEL, mode == B._M_SILENT
+    tier = B._tier_params(plats, strats) if (tl_c | sil_c).any() else None
+    # no predictions on mode "none"; silent-error cells never trust the
+    # fail-stop predictor; 0 < q < 1 thins both prediction streams by
+    # trust coins
+    q_eff = np.where((mode == B._M_NONE) | sil_c, 0.0, np.clip(q, 0.0, 1.0))
+    frac_c = (q_eff > 0.0) & (q_eff < 1.0)
     f_kind, f_param = _dist_static(spec.fault_dist)
     fp_kind, fp_param = _dist_static(spec.false_pred_dist)
     gen = (f_kind, f_param, fp_kind, fp_param)
@@ -742,6 +890,7 @@ def simulate_batch_torch(
         spec.mtbf, spec.fp_mean, spec.recall, q_eff,
         fault_laws=E.law_table(spec.fault_dist) if f_kind == "indexed" else None,
         fp_laws=E.law_table(spec.false_pred_dist) if fp_kind == "indexed" else None,
+        tier=tier,
     )
     if chunk == "auto":
         chunk = default_chunk_lanes(dev)
@@ -756,11 +905,17 @@ def simulate_batch_torch(
         consts, state = _pack_chunk_spec_cells(
             tables, spec, cidx_g, n_cells, sl, sl.stop - sl.start, fdt, idt
         )
-        has_mig = bool((mode[cidx_g[sl]] == B._M_MIGRATION).any())
-        c = tables_from_numpy(consts, dev)
+        # each chunk runs the state and ops of the families it holds
+        cells = cidx_g[sl]
+        has_mig = bool((mode[cells] == B._M_MIGRATION).any())
+        has_tl, has_sil = bool(tl_c[cells].any()), bool(sil_c[cells].any())
+        frac_q = bool(frac_c[cells].any())
+        keys = _BASE_KEYS + ("tier_key",) * has_tl + ("tt_key", "ft_key") * frac_q
+        c = tables_from_numpy(consts, dev, keys)
         fin = _run_chunk(
-            c, _to_device(state, dev), gen=gen, has_mig=has_mig,
-            max_iters=max_iters, eps=float(_EPS), tally=tally,
+            c, _to_device(state, dev), gen=gen, has_mig=has_mig, has_tl=has_tl,
+            has_sil=has_sil, frac_q=frac_q, max_iters=max_iters, eps=float(_EPS),
+            tally=tally,
         )
         if collect == "stats":
             Wl = c["W"].index_select(0, c["cidx"])
@@ -769,7 +924,7 @@ def simulate_batch_torch(
             out = {
                 k: fin[k].cpu().numpy()
                 for k in ("t", "n_faults", "n_pro", "n_reg", "n_mig",
-                          "exhausted", "phase")
+                          "exhausted", "n_disk", "n_det", "phase")
             }
             if not (out.pop("phase") == B._PH_DONE).all():
                 raise RuntimeError("torch lane machine did not converge")
@@ -786,7 +941,7 @@ def simulate_batch_torch(
         return CellSums.from_matrix(cs[:n_cells])
     if not outs:
         z, zi = np.zeros(0), np.zeros(0, np.int64)
-        return LaneResult(z, z, zi, zi, zi, zi, np.zeros(0, bool))
+        return LaneResult(z, z, zi, zi, zi, zi, np.zeros(0, bool), zi, zi)
     cat = {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
     return LaneResult(
         makespan=cat["t"],
@@ -796,4 +951,6 @@ def simulate_batch_torch(
         n_regular_ckpts=cat["n_reg"],
         n_migrations=cat["n_mig"],
         trace_exhausted=cat["exhausted"],
+        n_disk_recoveries=cat["n_disk"],
+        n_detections=cat["n_det"],
     )

@@ -103,12 +103,15 @@ class CellResult:
     n_migrations: Optional[np.ndarray] = None
     n_exhausted: int = 0
     stats: Optional[Dict[str, float]] = None
+    # two-level disk-tier recoveries and silent-error detections per run
+    n_disk_recoveries: Optional[np.ndarray] = None
+    n_detections: Optional[np.ndarray] = None
 
     #: stats keys (from_stats argument order)
     _STAT_KEYS = (
         "n", "mean_waste", "ci95_waste", "mean_makespan", "ci95_makespan",
         "mean_faults", "mean_proactive_ckpts", "mean_regular_ckpts",
-        "mean_migrations",
+        "mean_migrations", "mean_disk_recoveries", "mean_detections",
     )
 
     @classmethod
@@ -177,6 +180,16 @@ class CellResult:
         return self._stat(
             "mean_migrations", "n_migrations", lambda a: float(a.mean())
         )
+
+    @property
+    def mean_disk_recoveries(self) -> float:
+        return self._stat(
+            "mean_disk_recoveries", "n_disk_recoveries", lambda a: float(a.mean())
+        )
+
+    @property
+    def mean_detections(self) -> float:
+        return self._stat("mean_detections", "n_detections", lambda a: float(a.mean()))
 
     @property
     def analytic_waste(self) -> float:

@@ -180,6 +180,8 @@ def _stats_cell_result(cell: ExperimentCell, sums, i: int) -> CellResult:
         sums.n_proactive_ckpts[i] / sums.n[i],
         sums.n_regular_ckpts[i] / sums.n[i],
         sums.n_migrations[i] / sums.n[i],
+        sums.n_disk_recoveries[i] / sums.n[i],
+        sums.n_detections[i] / sums.n[i],
     )
 
 
@@ -248,6 +250,8 @@ def run_grid(
                 n_regular_ckpts=res.n_regular_ckpts[sl],
                 n_migrations=res.n_migrations[sl],
                 n_exhausted=int(np.count_nonzero(res.trace_exhausted[sl])),
+                n_disk_recoveries=res.n_disk_recoveries[sl],
+                n_detections=res.n_detections[sl],
             )
     return SweepResult(
         grid=grid, cells=cells, engine="torch",

@@ -63,17 +63,21 @@ _SIGNATURES = {
             _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         ],
         # the walks: masks and clock (4), cursors (7), lane constants (8),
-        # then each stream's law; a null pointer is a None argument
-        "sim_step_prediction_walk": [_I64] + [_P] * 19 + [
+        # trust coins (3), then each stream's law; a null pointer is a None
+        # argument
+        "sim_step_prediction_walk": [_I64] + [_P] * 22 + [
             _I32, _F64, _F64, _I32, _F64, _F64, _P,
         ],
-        "sim_step_prediction_walk_indexed": [_I64] + [_P] * 19 + [
+        "sim_step_prediction_walk_indexed": [_I64] + [_P] * 22 + [
             _I32, _F64, _F64, _P, _P, _P, _I32, _F64, _F64, _P, _P, _P, _P,
         ],
         # res, t, sf_ctr, sf_time, n_faults, DR, key, mean, horizon, three
         # cancel slots; the law
         "sim_step_strike_walk": [_I64] + [_P] * 12 + [_I32, _F64, _F64, _P],
         "sim_step_strike_walk_indexed": [_I64] + [_P] * 12 + [_P, _P, _P, _P],
+        # silr, t, sf_ctr, sf_time, corrupt, key, mean, horizon; the law
+        "sim_step_silent_walk": [_I64] + [_P] * 8 + [_I32, _F64, _F64, _P],
+        "sim_step_silent_walk_indexed": [_I64] + [_P] * 8 + [_P, _P, _P, _P],
     },
     "ckpt_codec": {
         "ckpt_quantize": [_I64, _P, _P, _P, _P, _I32, _P],

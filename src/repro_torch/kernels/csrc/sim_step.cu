@@ -15,12 +15,13 @@
 // set.  The lane machine launches it once per chunk, to prime the strike
 // cursor; every other cursor step runs in the two walks below.
 //
-// sim_step_prediction_walk and sim_step_strike_walk are the same cursor
-// step redesigned as a per-lane walk: one launch advances each lane's cursor
+// sim_step_prediction_walk, sim_step_strike_walk and sim_step_silent_walk
+// are the same cursor step redesigned as a per-lane walk: one launch advances each lane's cursor
 // as many events as the lane's own stop condition needs, where the TPU
 // kernel advances every lane by one event per launch and the reference
-// wraps it in a lax.while_loop (src/repro/core/jax_sim.py tp_consume and
-// p_cond / p_body, l.319-352 and l.433-457; s_cond / s_body, l.664-688).
+// wraps it in a lax.while_loop (src/repro/core/jax_sim.py tp_consume,
+// fp_consume and p_cond / p_body, l.319-374 and l.433-457; s_cond / s_body,
+// l.664-688; sc_cond / sc_body, l.797-810).
 // On the card each pass of such a loop was a launch and a host sync, and the
 // loop ran until the slowest of ~10^5 lanes stopped; here a lane stops on
 // its own and a warp costs the longest walk of its 32 lanes.
@@ -34,15 +35,24 @@
 //     trust q in {0, 1} one event).  Without a clock it does one such
 //     refill: the lookahead walk where mask, one false prediction where
 //     fp_mask (the cursors' priming, and the pop of the merged head).
+//     Fractional trust (0 < q < 1; the three trust pointers set, else
+//     null and the walk is the one above): a true positive is visible
+//     only if also its trust coin (counter ctr of the TP-trust stream) is
+//     below q, and a false-prediction draw repeats until its trust coin
+//     is below q or the stream dies.
 //   - strike walk: the stale-fault cascade.  On the lanes of res, while the
 //     strike cursor's date is before t (or, with migration, its counter is
 //     one of three cancelled ones): a fault within the repair window
 //     restarts the repair (t = date + DR, one more fault), then the cursor
 //     draws its next fault.
+//   - silent walk: the latent strikes of silent-error lanes.  On the lanes
+//     of silr, while the strike cursor's date is at or before t, the strike
+//     corrupts the state silently (corrupt = min(corrupt, date)), then the
+//     cursor draws its next strike.
 // Each lane executes the same operations in the same order as the plain
-// versions' masked passes (kernels/sim_step.py prediction_walk and
-// strike_walk), through the same device advance(), so a walk is lane for
-// lane the bits of the one-event kernel looped.
+// versions' masked passes (kernels/sim_step.py prediction_walk,
+// strike_walk and silent_walk), through the same device advance(), so a
+// walk is lane for lane the bits of the one-event kernel looped.
 //
 // Law variants.  Every kernel comes in two, templated on Indexed: the
 // single-law one takes one (law, p1, p2) per launch and stream; the
@@ -86,7 +96,9 @@
 // the cancel slots), then, as predicated loads (inline PTX, one predicate
 // per lane, no branch), the rest of the record of the lanes that walk, all
 // in flight together before the first use.  The cursor stays in registers
-// for the whole walk and each output is stored once.  A walk's time is then
+// for the whole walk and each output is stored once.  The silent walk reads
+// even the clock and the cursor date only under silr, since most lanes of a
+// sweep are not silent-error lanes.  A walk's time is then
 // the latency of its longest warp's chain of draws (each a SplitMix64, a
 // log1p or the lognormal's log / cos / exp in f64, dependent on the last),
 // not bytes: the bound counts both.
@@ -401,8 +413,30 @@ struct PredictionArgs {
   const int64_t* fp_key;
   const double* fp_mean;
   const double* horizon;
+  // fractional trust: the TP- and FP-trust stream keys and the lanes' q;
+  // all null with trust q in {0, 1}
+  const int64_t* tt_key;
+  const int64_t* ft_key;
+  const double* q_eff;
   LawRef f_law, fp_law;
 };
+
+// A lane's trust coins: set (uniform over the launch) when the trust
+// pointers are; each coin reads the lane's key and q where it is drawn
+// (cached after the first), so a walk holds no registers for them.
+struct Trust {
+  const int64_t* key;  // the TP- or FP-trust stream's keys, null without
+  const double* q;
+  int64_t i;
+};
+
+// Is ctr's uniform of the lane's trust stream (the high word, as
+// kernels/sim_step.py counter_uniform) below its q?
+__device__ __forceinline__ bool trusted(const Trust& tr, int32_t ctr) {
+  uint32_t hi, lo;
+  splitmix64(static_cast<uint64_t>(tr.key[tr.i]), ctr, &hi, &lo);
+  return uniform24(hi) < tr.q[tr.i];
+}
 
 // The lookahead walk: draw faults until one is a visible true positive
 // (the pending-TP slot takes its window start, date and counter) or the
@@ -410,8 +444,9 @@ struct PredictionArgs {
 __device__ __forceinline__ void tp_walk(uint64_t f_key, uint64_t tc_key,
                                         double f_mean, double horizon,
                                         const Law& fl, double recall,
-                                        double window, int32_t* lc, double* lt,
-                                        double* t0, double* ft, int32_t* tc) {
+                                        double window, const Trust& tr,
+                                        int32_t* lc, double* lt, double* t0,
+                                        double* ft, int32_t* tc) {
   for (;;) {
     advance(f_key, lc, lt, f_mean, horizon, fl.law, fl.p1, fl.p2);
     uint32_t w0, w1;
@@ -421,7 +456,7 @@ __device__ __forceinline__ void tp_walk(uint64_t f_key, uint64_t tc_key,
       *ft = quiet_nan();
       return;
     }
-    if (uniform24(w0) < recall) {
+    if (uniform24(w0) < recall && (tr.key == nullptr || trusted(tr, *lc))) {
       const double x = *lt - uniform24(w1) * window;
       *t0 = x < 0.0 ? 0.0 : x;  // torch.clamp(min=0): x is finite here
       *ft = *lt;
@@ -431,8 +466,26 @@ __device__ __forceinline__ void tp_walk(uint64_t f_key, uint64_t tc_key,
   }
 }
 
+// The next false prediction: one draw, or with trust coins draws until one
+// is trusted or the stream dies past the horizon.
+__device__ __forceinline__ void fp_draw(uint64_t fp_key, double fp_mean,
+                                        double horizon, const Law& pl,
+                                        const Trust& tr, int32_t* fc,
+                                        double* fpt) {
+  for (;;) {
+    advance(fp_key, fc, fpt, fp_mean, horizon, pl.law, pl.p1, pl.p2);
+    if (tr.key == nullptr || !isfinite(*fpt) || trusted(tr, *fc)) return;
+  }
+}
+
+// A walk's time is its longest chain of dependent draws, so the blocks an
+// SM keeps resident count: without the trust coins' code the two
+// instantiations took 64 and 76 registers, 4 and 3 blocks of 256 threads
+// an SM, and the bounds hold them there (the coins' code would take 70 and
+// 80; tools/walk_ab.py measured the walks 4-13% slower then).
 template <bool Indexed>
-__global__ void prediction_walk_kernel(int64_t n, PredictionArgs a) {
+__global__ void __launch_bounds__(kThreads, Indexed ? 3 : 4)
+prediction_walk_kernel(int64_t n, PredictionArgs a) {
   const bool until = a.t != nullptr;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -472,25 +525,23 @@ __global__ void prediction_walk_kernel(int64_t n, PredictionArgs a) {
     const Law fl = lane_law<Indexed>(a.f_law, i, walks);
     const Law fpl = lane_law<Indexed>(a.fp_law, i, walks);
     if (!walks) continue;
+    const Trust tp_coin{a.tt_key, a.q_eff, i}, fp_coin{a.ft_key, a.q_eff, i};
 
     if (until) {
       // consume from the merged head while its action point has passed
       while (nan_min(t0, fpt) - lead < tt) {
         if (t0 <= fpt) {
-          tp_walk(f_key, tc_key, f_mean, horizon, fl, recall, window, &lc, &lt,
-                  &t0, &ft, &tc);
+          tp_walk(f_key, tc_key, f_mean, horizon, fl, recall, window, tp_coin,
+                  &lc, &lt, &t0, &ft, &tc);
         } else {
-          advance(fp_key, &fc, &fpt, fp_mean, horizon, fpl.law, fpl.p1,
-                  fpl.p2);
+          fp_draw(fp_key, fp_mean, horizon, fpl, fp_coin, &fc, &fpt);
         }
       }
     } else {
-      if (mf) {
-        advance(fp_key, &fc, &fpt, fp_mean, horizon, fpl.law, fpl.p1, fpl.p2);
-      }
+      if (mf) fp_draw(fp_key, fp_mean, horizon, fpl, fp_coin, &fc, &fpt);
       if (m) {
-        tp_walk(f_key, tc_key, f_mean, horizon, fl, recall, window, &lc, &lt,
-                &t0, &ft, &tc);
+        tp_walk(f_key, tc_key, f_mean, horizon, fl, recall, window, tp_coin,
+                &lc, &lt, &t0, &ft, &tc);
       }
     }
     a.la_ctr[i] = lc;
@@ -563,6 +614,49 @@ __global__ void strike_walk_kernel(int64_t n, StrikeArgs a) {
   }
 }
 
+struct SilentArgs {
+  const bool* silr;
+  const double* t;
+  int32_t* sf_ctr;
+  double* sf_time;
+  double* corrupt;
+  const int64_t* key;
+  const double* mean;
+  const double* horizon;
+  LawRef law;
+};
+
+// Most lanes of a sweep are not silent-error lanes (silr clear), so even the
+// clock and the cursor date are read only under silr.
+template <bool Indexed>
+__global__ void silent_walk_kernel(int64_t n, SilentArgs a) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n; i += stride) {
+    // round 1: what decides whether the lane walks
+    const bool r = a.silr[i];
+    const double tt = ld_f64(a.t + i, r);
+    double st = ld_f64(a.sf_time + i, r);
+    const bool walks = r && st <= tt;
+    // round 2: predicated, all in flight together
+    int32_t sc = ld_i32(a.sf_ctr + i, walks);
+    double cor = ld_f64(a.corrupt + i, walks);
+    const uint64_t key = ld_u64(a.key + i, walks);
+    const double mean = ld_f64(a.mean + i, walks);
+    const double horizon = ld_f64(a.horizon + i, walks);
+    const Law lw = lane_law<Indexed>(a.law, i, walks);
+    if (!walks) continue;
+
+    do {  // the strike at or before the clock corrupts silently
+      cor = nan_min(cor, st);
+      advance(key, &sc, &st, mean, horizon, lw.law, lw.p1, lw.p2);
+    } while (st <= tt);
+    a.sf_ctr[i] = sc;
+    a.sf_time[i] = st;
+    a.corrupt[i] = cor;
+  }
+}
+
 unsigned int blocks_for(int64_t n) {
   int64_t b = (n + kThreads - 1) / kThreads;
   return static_cast<unsigned int>(b < kMaxBlocks ? b : kMaxBlocks);
@@ -632,19 +726,22 @@ extern "C" int sim_step_stream_advance_indexed(
 // The prediction walk.  With t (and lead_act) not null: the merged-head
 // walk on the lanes of mask, fp_mask null.  With t null: one refill, the
 // lookahead walk where mask and one false prediction where fp_mask.
+// tt_key, ft_key and q_eff: the trust coins, all null with q in {0, 1}.
 extern "C" int sim_step_prediction_walk(
     int64_t n, const bool* mask, const bool* fp_mask, const double* t,
     const double* lead_act, int32_t* la_ctr, double* la_time, double* tp_t0,
     double* tp_ft, int32_t* tp_ctr, int32_t* fp_ctr, double* fp_time,
     const int64_t* f_key, const double* f_mean, const int64_t* tc_key,
     const double* recall, const double* window, const int64_t* fp_key,
-    const double* fp_mean, const double* horizon, int32_t f_law, double f_p1,
+    const double* fp_mean, const double* horizon, const int64_t* tt_key,
+    const int64_t* ft_key, const double* q_eff, int32_t f_law, double f_p1,
     double f_p2, int32_t fp_law, double fp_p1, double fp_p2, void* stream) {
   if (n <= 0) return 0;
   const PredictionArgs a{
       mask, fp_mask, t, lead_act, la_ctr, la_time, tp_t0, tp_ft, tp_ctr,
       fp_ctr, fp_time, f_key, f_mean, tc_key, recall, window, fp_key, fp_mean,
-      horizon, LawRef{f_law, f_p1, f_p2, nullptr, nullptr, nullptr},
+      horizon, tt_key, ft_key, q_eff,
+      LawRef{f_law, f_p1, f_p2, nullptr, nullptr, nullptr},
       LawRef{fp_law, fp_p1, fp_p2, nullptr, nullptr, nullptr}};
   prediction_walk_kernel<false><<<blocks_for(n), kThreads, 0,
                                   static_cast<cudaStream_t>(stream)>>>(n, a);
@@ -659,7 +756,8 @@ extern "C" int sim_step_prediction_walk_indexed(
     double* tp_ft, int32_t* tp_ctr, int32_t* fp_ctr, double* fp_time,
     const int64_t* f_key, const double* f_mean, const int64_t* tc_key,
     const double* recall, const double* window, const int64_t* fp_key,
-    const double* fp_mean, const double* horizon, int32_t f_law, double f_p1,
+    const double* fp_mean, const double* horizon, const int64_t* tt_key,
+    const int64_t* ft_key, const double* q_eff, int32_t f_law, double f_p1,
     double f_p2, const int32_t* f_law_i, const double* f_s1,
     const double* f_s2, int32_t fp_law, double fp_p1, double fp_p2,
     const int32_t* fp_law_i, const double* fp_s1, const double* fp_s2,
@@ -668,7 +766,8 @@ extern "C" int sim_step_prediction_walk_indexed(
   const PredictionArgs a{
       mask, fp_mask, t, lead_act, la_ctr, la_time, tp_t0, tp_ft, tp_ctr,
       fp_ctr, fp_time, f_key, f_mean, tc_key, recall, window, fp_key, fp_mean,
-      horizon, LawRef{f_law, f_p1, f_p2, f_law_i, f_s1, f_s2},
+      horizon, tt_key, ft_key, q_eff,
+      LawRef{f_law, f_p1, f_p2, f_law_i, f_s1, f_s2},
       LawRef{fp_law, fp_p1, fp_p2, fp_law_i, fp_s1, fp_s2}};
   prediction_walk_kernel<true><<<blocks_for(n), kThreads, 0,
                                  static_cast<cudaStream_t>(stream)>>>(n, a);
@@ -702,6 +801,34 @@ extern "C" int sim_step_strike_walk_indexed(
                      DR,      key,     mean,    horizon, cancel0,
                      cancel1, cancel2, LawRef{kLawExponential, 0.0, 0.0, law_i, s1, s2}};
   strike_walk_kernel<true><<<blocks_for(n), kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(n, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The silent walk.
+extern "C" int sim_step_silent_walk(int64_t n, const bool* silr,
+                                    const double* t, int32_t* sf_ctr,
+                                    double* sf_time, double* corrupt,
+                                    const int64_t* key, const double* mean,
+                                    const double* horizon, int32_t law,
+                                    double p1, double p2, void* stream) {
+  if (n <= 0) return 0;
+  const SilentArgs a{silr, t,    sf_ctr,  sf_time, corrupt,
+                     key,  mean, horizon, LawRef{law, p1, p2, nullptr, nullptr, nullptr}};
+  silent_walk_kernel<false><<<blocks_for(n), kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(n, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int sim_step_silent_walk_indexed(
+    int64_t n, const bool* silr, const double* t, int32_t* sf_ctr,
+    double* sf_time, double* corrupt, const int64_t* key, const double* mean,
+    const double* horizon, const int32_t* law_i, const double* s1,
+    const double* s2, void* stream) {
+  if (n <= 0) return 0;
+  const SilentArgs a{silr, t,    sf_ctr,  sf_time, corrupt,
+                     key,  mean, horizon, LawRef{kLawExponential, 0.0, 0.0, law_i, s1, s2}};
+  silent_walk_kernel<true><<<blocks_for(n), kThreads, 0,
                              static_cast<cudaStream_t>(stream)>>>(n, a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,17 +9,19 @@ stream cursor by one event where a mask is set.  Both wrap hand-written
 CUDA kernels (``csrc/sim_step.cu``, built by :mod:`.build`) that replace
 the reference's Pallas kernels of the same names.
 
-:func:`masked_prediction_walk` and :func:`masked_strike_walk` carry the
-lane machine's three cursor loops in one launch each: the prediction walk
-is the walk of the lookahead fault cursor to the next visible true
-positive together with the skip over predictions whose action point has
-passed, the strike walk the stale-fault cascade of the strike cursor.
-Each lane advances its cursor
-as far as its own stop condition needs, inside the kernel, with no host
-sync; their plain versions, :func:`prediction_walk` and
-:func:`strike_walk`, are the same loops in masked passes over all lanes,
-each pass's condition one host sync.  Every wrapper updates its state
-arguments in place and returns them.
+:func:`masked_prediction_walk`, :func:`masked_strike_walk` and
+:func:`masked_silent_walk` carry the lane machine's cursor loops in one
+launch each: the prediction walk is the walk of the lookahead fault
+cursor to the next visible true positive together with the skip over
+predictions whose action point has passed (with fractional trust, both
+streams thinned by per-event trust coins), the strike walk the
+stale-fault cascade of the strike cursor, the silent walk the
+consumption of latent (silent-error) strikes up to the clock.  Each lane
+advances its cursor as far as its own stop condition needs, inside the
+kernel, with no host sync; their plain versions, :func:`prediction_walk`,
+:func:`strike_walk` and :func:`silent_walk`, are the same loops in masked
+passes over all lanes, each pass's condition one host sync.  Every
+wrapper updates its state arguments in place and returns them.
 
 Every kernel comes in two variants.  The single-law one takes one
 ``(kind, param)`` per launch and stream; the law-indexed one
@@ -32,7 +34,7 @@ apart: ``.launches`` and ``.indexed_launches``.
 Every function the kernels compute also exists here as plain PyTorch:
 the counter-based RNG (Threefry-2x32, SplitMix64, ``uniform24``), the
 inverse-CDF gap transforms, :func:`stream_advance`,
-:func:`primitive_update` and the two walks.  A wrapper given CPU tensors
+:func:`primitive_update` and the three walks.  A wrapper given CPU tensors
 runs the plain version; given CUDA tensors it launches its kernel or
 raises.  torch has no ``>>`` for unsigned 64-bit integers on the CPU and
 ``>>`` on int64 is arithmetic, so the plain RNG works on int64 bit
@@ -50,7 +52,8 @@ import torch
 from ..core.events import (
     _SM_GAMMA, _SM_MIX1, _SM_MIX2, _TF_PARITY, _TF_ROTATIONS, THREEFRY_ROUNDS,
     LAW_EXPONENTIAL, LAW_LOGNORMAL, LAW_UNIFORM, LAW_WEIBULL, STREAM_FAULT_GAP,
-    STREAM_FP_GAP, STREAM_TP_COIN, law_constants, stream_key64_np,
+    STREAM_FP_GAP, STREAM_FP_TRUST, STREAM_TP_COIN, STREAM_TP_TRUST, law_constants,
+    stream_key64_np,
 )
 
 __all__ = [
@@ -60,8 +63,9 @@ __all__ = [
     "counter_words", "counter_uniform", "counter_uniform2",
     "law_constants", "gap_transform", "gap_transform_indexed",
     "stream_advance", "primitive_update", "prediction_walk", "strike_walk",
-    "masked_stream_advance", "masked_primitive_update",
-    "masked_prediction_walk", "masked_strike_walk", "PREDICTION_CURSORS",
+    "silent_walk", "masked_stream_advance", "masked_primitive_update",
+    "masked_prediction_walk", "masked_strike_walk", "masked_silent_walk",
+    "PREDICTION_CURSORS",
     "cell_gather", "segment_cell_sums", "sample_lane_state", "SAMPLE_LAWS",
     "sample_lane_laws", "sample_walk_state", "lane_state_tensors",
 ]
@@ -313,7 +317,7 @@ def prediction_walk(
     mask, fp_mask, la_ctr, la_time, tp_t0, tp_ft, tp_ctr, fp_ctr, fp_time,
     f_key, f_mean, tc_key, recall, window, fp_key, fp_mean, horizon,
     *, f_gap, fp_gap, f_law=None, f_lp=None, fp_law=None, fp_lp=None,
-    until=None, tally=None,
+    until=None, tt_key=None, ft_key=None, q_eff=None, tally=None,
 ):
     """Refill the prediction cursors (:data:`PREDICTION_CURSORS`).  Returns
     the seven as new tensors.
@@ -328,29 +332,50 @@ def prediction_walk(
     the merged (pending-TP, next-FP) head while its action point
     ``min(tp_t0, fp_time) - lead_act`` is before ``t``.
 
+    Fractional trust (``tt_key``, ``ft_key`` and ``q_eff`` given, or all
+    None): a true positive is visible only if also its trust coin
+    ``counter_uniform(tt_key, ctr) < q_eff``, and the false-prediction
+    draw repeats until a coin ``counter_uniform(ft_key, ctr) < q_eff`` or
+    the stream's end.  Without them (trust q in {0, 1}) every drawn false
+    prediction is visible: one draw.
+
     ``f_gap`` / ``fp_gap`` are each stream's ``(kind, param)``; a kind
     ``"indexed"`` takes that stream's per-lane ``*_law`` and ``*_lp = (s1,
     s2)``.  Masked passes over all lanes, each pass's condition one host
     sync through ``tally.any`` (:func:`_sync`)."""
     any_ = _sync(tally)
+    trust = q_eff is not None
 
     def consume(use_tp, use_fp):
         nonlocal la_ctr, la_time, tp_t0, tp_ft, tp_ctr, fp_ctr, fp_time
-        # one pass: with q in {0, 1} every drawn false prediction is visible
-        fp_ctr, fp_time = stream_advance(
-            use_fp, fp_ctr, fp_time, fp_key, fp_mean, horizon,
-            kind=fp_gap[0], param=fp_gap[1], law=fp_law, lp=fp_lp,
-        )
+
+        def draw_fp(act):
+            return stream_advance(
+                act, fp_ctr, fp_time, fp_key, fp_mean, horizon,
+                kind=fp_gap[0], param=fp_gap[1], law=fp_law, lp=fp_lp,
+            )
+
+        if trust:
+            act = use_fp
+            while any_(act):
+                fp_ctr, fp_time = draw_fp(act)
+                vis = counter_uniform(ft_key, fp_ctr) < q_eff
+                act = act & ~vis & torch.isfinite(fp_time)
+        else:
+            fp_ctr, fp_time = draw_fp(use_fp)
         act = use_tp
-        # advance-then-check, ~1/recall expected passes
+        # advance-then-check, ~1/(recall q) expected passes
         while any_(act):
             la_ctr, la_time = stream_advance(
                 act, la_ctr, la_time, f_key, f_mean, horizon,
                 kind=f_gap[0], param=f_gap[1], law=f_law, lp=f_lp,
             )
             u_coin, u_off = counter_uniform2(tc_key, la_ctr)
+            vis = u_coin < recall
+            if trust:
+                vis = vis & (counter_uniform(tt_key, la_ctr) < q_eff)
             alive = torch.isfinite(la_time)
-            good = act & (u_coin < recall) & alive
+            good = act & vis & alive
             dead = act & ~alive
             tp_t0 = torch.where(
                 good, torch.clamp(la_time - u_off * window, min=0.0), tp_t0
@@ -405,6 +430,31 @@ def strike_walk(
             law=law, lp=lp,
         )
     return t, sf_ctr, sf_time, n_faults
+
+
+def silent_walk(
+    silr, t, sf_ctr, sf_time, corrupt, key, mean, horizon,
+    *, kind: str, param: float, law=None, lp=None, tally=None,
+):
+    """Consume latent strikes on the lanes of ``silr`` (silent-error
+    lanes that ran a primitive): while the strike cursor ``(sf_ctr,
+    sf_time)`` is dated at or before ``t``, the strike corrupts the state
+    silently (``corrupt = min(corrupt, date)``, the earliest latent
+    corruption) and the cursor draws its next strike.  Returns ``(sf_ctr,
+    sf_time, corrupt)`` as new tensors.  ``kind="indexed"`` takes the
+    per-lane ``law`` and ``lp = (s1, s2)``.  Masked passes, each pass's
+    condition one host sync through ``tally.any``."""
+    any_ = _sync(tally)
+    while True:
+        hit = silr & (sf_time <= t)
+        if not any_(hit):
+            break
+        corrupt = torch.where(hit, torch.minimum(corrupt, sf_time), corrupt)
+        sf_ctr, sf_time = stream_advance(
+            hit, sf_ctr, sf_time, key, mean, horizon, kind=kind, param=param,
+            law=law, lp=lp,
+        )
+    return sf_ctr, sf_time, corrupt
 
 
 # --------------------------------------------------------------------------- #
@@ -636,13 +686,14 @@ def masked_prediction_walk(
     mask, fp_mask, la_ctr, la_time, tp_t0, tp_ft, tp_ctr, fp_ctr, fp_time,
     f_key, f_mean, tc_key, recall, window, fp_key, fp_mean, horizon,
     *, f_gap, fp_gap, f_law=None, f_lp=None, fp_law=None, fp_lp=None,
-    until=None, tally=None,
+    until=None, tt_key=None, ft_key=None, q_eff=None, tally=None,
 ):
     """:func:`prediction_walk`, **in place**: the seven cursors
     (:data:`PREDICTION_CURSORS`) are both inputs and outputs, and are
     returned.  ``mask`` / ``fp_mask`` are bool, the counters int32, the
     keys int64, the rest f64, all flat ``(L,)``; ``until = (t, lead_act)``
-    goes with ``fp_mask=None``.
+    goes with ``fp_mask=None``; the trust coins' ``tt_key`` / ``ft_key``
+    (int64) and ``q_eff`` (f64) come all three or not at all.
 
     CUDA tensors launch ``sim_step_prediction_walk`` (its ``_indexed``
     variant when either stream's kind is ``"indexed"``): one launch, no
@@ -653,6 +704,7 @@ def masked_prediction_walk(
     f64, i32, i64 = torch.float64, torch.int32, torch.int64
     cur = (la_ctr, la_time, tp_t0, tp_ft, tp_ctr, fp_ctr, fp_time)
     consts = (f_key, f_mean, tc_key, recall, window, fp_key, fp_mean, horizon)
+    trust = (tt_key, ft_key, q_eff)
     specs = [("mask", mask, torch.bool)]
     if until is None:
         if fp_mask is None:
@@ -669,12 +721,17 @@ def masked_prediction_walk(
         ("f_key", "f_mean", "tc_key", "recall", "window", "fp_key", "fp_mean", "horizon"),
         consts, (i64, f64, i64, f64, f64, i64, f64, f64),
     ))
+    if any(x is not None for x in trust):
+        if any(x is None for x in trust):
+            raise ValueError("masked_prediction_walk: tt_key, ft_key and q_eff go together")
+        specs += list(zip(("tt_key", "ft_key", "q_eff"), trust, (i64, i64, f64)))
     specs += _law_specs(f_gap[0], f_law, f_lp, "f_") + _law_specs(fp_gap[0], fp_law, fp_lp, "fp_")
     dev = _check("masked_prediction_walk", specs)
     if dev.type == "cpu":
         out = prediction_walk(
             mask, fp_mask, *cur, *consts, f_gap=f_gap, fp_gap=fp_gap, f_law=f_law,
-            f_lp=f_lp, fp_law=fp_law, fp_lp=fp_lp, until=until, tally=tally,
+            f_lp=f_lp, fp_law=fp_law, fp_lp=fp_lp, until=until, tt_key=tt_key,
+            ft_key=ft_key, q_eff=q_eff, tally=tally,
         )
         for dst, src in zip(cur, out):
             dst.copy_(src)
@@ -682,11 +739,11 @@ def masked_prediction_walk(
     from . import build
 
     lib = build.load("sim_step")
+    ptr = lambda x: x.data_ptr() if x is not None else None  # noqa: E731
     head = (
-        mask.numel(), mask.data_ptr(), fp_mask.data_ptr() if fp_mask is not None else None,
-        t.data_ptr() if t is not None else None,
-        lead_act.data_ptr() if lead_act is not None else None,
+        mask.numel(), mask.data_ptr(), ptr(fp_mask), ptr(t), ptr(lead_act),
         *(x.data_ptr() for x in cur), *(x.data_ptr() for x in consts),
+        *(ptr(x) for x in trust),
     )
     indexed = "indexed" in (f_gap[0], fp_gap[0])
     if indexed:
@@ -775,6 +832,58 @@ masked_strike_walk.launches = 0
 masked_strike_walk.indexed_launches = 0
 
 
+def masked_silent_walk(
+    silr, t, sf_ctr, sf_time, corrupt, key, mean, horizon,
+    *, kind: str, param: float, law=None, lp=None, tally=None,
+):
+    """:func:`silent_walk`, **in place**: ``sf_ctr`` (int32), ``sf_time``
+    and ``corrupt`` (f64) are both inputs and outputs, and are returned.
+    ``silr`` is bool, ``key`` int64, ``t`` / ``mean`` / ``horizon`` f64,
+    all flat ``(L,)``.
+
+    CUDA tensors launch ``sim_step_silent_walk`` (its ``_indexed`` variant
+    for ``kind="indexed"``): one launch, no host sync.  CPU tensors run
+    the plain version, whose loop condition goes through ``tally.any``.
+    ``masked_silent_walk.launches`` counts the single-law kernel's
+    launches, ``.indexed_launches`` the law-indexed kernel's."""
+    f64 = torch.float64
+    specs = [
+        ("silr", silr, torch.bool), ("t", t, f64), ("sf_ctr", sf_ctr, torch.int32),
+        ("sf_time", sf_time, f64), ("corrupt", corrupt, f64),
+        ("key", key, torch.int64), ("mean", mean, f64), ("horizon", horizon, f64),
+    ] + _law_specs(kind, law, lp)
+    dev = _check("masked_silent_walk", specs)
+    state = (sf_ctr, sf_time, corrupt)
+    if dev.type == "cpu":
+        out = silent_walk(silr, t, sf_ctr, sf_time, corrupt, key, mean, horizon,
+                          kind=kind, param=param, law=law, lp=lp, tally=tally)
+        for dst, src in zip(state, out):
+            dst.copy_(src)
+        return state
+    from . import build
+
+    lib = build.load("sim_step")
+    head = (t.numel(), silr.data_ptr(), t.data_ptr(), *(x.data_ptr() for x in state),
+            key.data_ptr(), mean.data_ptr(), horizon.data_ptr())
+    if kind == "indexed":
+        rc = lib.sim_step_silent_walk_indexed(
+            *head, law.data_ptr(), lp[0].data_ptr(), lp[1].data_ptr(), _stream_ptr(dev),
+        )
+    else:
+        rc = lib.sim_step_silent_walk(*head, *law_constants(kind, param), _stream_ptr(dev))
+    _raise_on("masked_silent_walk", rc)
+    if t.numel():
+        if kind == "indexed":
+            masked_silent_walk.indexed_launches += 1
+        else:
+            masked_silent_walk.launches += 1
+    return state
+
+
+masked_silent_walk.launches = 0
+masked_silent_walk.indexed_launches = 0
+
+
 # --------------------------------------------------------------------------- #
 # Cell multiplexing (fused experiment sweeps)
 # --------------------------------------------------------------------------- #
@@ -854,15 +963,19 @@ def sample_lane_laws(L: int, seed: int, block: int = 1) -> dict:
 
 
 def sample_walk_state(L: int, seed: int) -> dict:
-    """Seeded NumPy lane states of the kind the lane machine hands the two
+    """Seeded NumPy lane states of the kind the lane machine hands the
     walks: heads of the prediction cursors and strike dates before and
     after the clock (walks of many steps and of none), recall 0.3 or 0.85,
     windows 0 to 3000 s, exhausted lookahead cursors (date ``inf``, slot
     ``inf`` / ``nan``), lanes without false predictions (``fp_mean`` and
     ``fp_time`` ``inf``), horizons that retire cursors mid-walk, cancel
     slots on the strike cursor's counter and the next ones, and masks
-    clear on about a third of the lanes.  Keys are uint64 (``f_key``,
-    ``tc_key``, ``fp_key``, and ``key`` of the strike walk)."""
+    clear on about a third of the lanes; trust ``q_eff`` of 0, 0.3, 0.5
+    or 1 with the trust-coin keys, and for the silent walk (on the strike
+    walk's cursor) the mask ``silr`` and latent corruptions ``corrupt``,
+    ``inf`` on half the lanes.  Keys are uint64 (``f_key``, ``tc_key``,
+    ``fp_key``, ``tt_key``, ``ft_key``, and ``key`` of the strike and
+    silent walks)."""
     rng = np.random.default_rng(seed)
     W = 8 * 86400.0
     t = rng.uniform(0.0, 1.2 * W, L)
@@ -881,7 +994,7 @@ def sample_walk_state(L: int, seed: int) -> dict:
     def cancel(offset, p):
         return np.where(rng.random(L) < p, sf_ctr + offset, -1).astype(np.int32)
 
-    return {
+    out = {
         "mask": rng.random(L) < 0.7,
         "fp_mask": rng.random(L) < 0.5,
         "t": t,
@@ -912,6 +1025,15 @@ def sample_walk_state(L: int, seed: int) -> dict:
         "cancel1": cancel(1, 0.2),
         "cancel2": cancel(3, 0.1),
     }
+    # drawn after the keys above, which keep their values
+    out.update(
+        tt_key=stream_key64_np(seed, lanes, STREAM_TP_TRUST),
+        ft_key=stream_key64_np(seed, lanes, STREAM_FP_TRUST),
+        q_eff=rng.choice([0.0, 0.3, 0.5, 1.0], L),
+        silr=rng.random(L) < 0.5,
+        corrupt=np.where(rng.random(L) < 0.5, np.inf, t - rng.uniform(0.0, 5e4, L)),
+    )
+    return out
 
 
 def lane_state_tensors(x: dict, device) -> dict:

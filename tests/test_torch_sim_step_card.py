@@ -1,8 +1,9 @@
 """On a CUDA card: the port's hot-step kernels (``csrc/sim_step.cu``)
 against their plain PyTorch versions, both the single-law and the
 law-indexed variant, and each law's lanes of the indexed launch against
-the single-law launch; the same for the two cursor walks, whose launch
-counters must move by one a call.  Imports neither JAX nor the
+the single-law launch; the same for the cursor walks (the prediction
+walk also with the trust coins of fractional trust, and the silent
+walk), whose launch counters must move by one a call.  Imports neither JAX nor the
 reference, so it runs on the card's machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_sim_step_card.py
@@ -145,9 +146,10 @@ def _laws(gap, s, prefix):
     return s[f"{prefix}law"], (s[f"{prefix}s1"], s[f"{prefix}s2"])
 
 
-def _walks(tx, f_gap, fp_gap, plain: bool) -> dict:
+def _walks(tx, f_gap, fp_gap, plain: bool, trust: bool = False) -> dict:
     """The skip walk, a refill and the strike walk (with cancel slots) on
-    copies of ``tx``: {name: outputs}."""
+    copies of ``tx``: {name: outputs}; ``trust`` adds the trust coins to
+    the prediction walks."""
     pred = K.prediction_walk if plain else K.masked_prediction_walk
     strike = K.strike_walk if plain else K.masked_strike_walk
     out = {}
@@ -156,10 +158,11 @@ def _walks(tx, f_gap, fp_gap, plain: bool) -> dict:
         f_law, f_lp = _laws(f_gap, s, "f_")
         fp_law, fp_lp = _laws(fp_gap, s, "fp_")
         until = mode == "until"
+        coins = ({k: s[k] for k in ("tt_key", "ft_key", "q_eff")} if trust else {})
         got = pred(s["mask"], None if until else s["fp_mask"],
                    *(s[k] for k in K.PREDICTION_CURSORS), *(s[k] for k in _CONSTS),
                    f_gap=f_gap, fp_gap=fp_gap, f_law=f_law, f_lp=f_lp, fp_law=fp_law,
-                   fp_lp=fp_lp, until=(s["t"], s["lead_act"]) if until else None)
+                   fp_lp=fp_lp, until=(s["t"], s["lead_act"]) if until else None, **coins)
         out[mode] = dict(zip(K.PREDICTION_CURSORS, got))
     s = {k: v.clone() for k, v in tx.items()}
     law, lp = _laws(f_gap, s, "f_")
@@ -229,3 +232,69 @@ def test_indexed_walks_give_single_law_bits_on_card(cuda_device, li):
             if w.dtype.is_floating_point:  # 0 ulp, nan for nan
                 g, w = g.view(torch.int64), w.view(torch.int64)
             assert torch.equal(g[on], w[on]), (mode, k)
+
+
+# --------------------------------------------------------------------------- #
+# Fractional trust and the silent walk
+# --------------------------------------------------------------------------- #
+_TRUST = {"exponential": (("exponential", 0.0),) * 2, "weibull": (("weibull", 0.7),) * 2,
+          "indexed": _INDEXED["both"]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("law", list(_TRUST))
+def test_trust_walk_kernels_match_plain_versions_on_card(cuda_device, law):
+    """The prediction walk with trust coins (q_eff 0, 0.3, 0.5, 1; q = 0
+    lanes walk to the stream's end) against its plain version; on the
+    q = 1 lanes it gives the coin-free walk's bits."""
+    f_gap, fp_gap = _TRUST[law]
+    tx = _walk_lanes(cuda_device, 100_000, 19)
+    n0 = _walk_counts()
+    got = _walks(tx, f_gap, fp_gap, plain=False, trust=True)
+    indexed = law == "indexed"
+    assert _walk_counts() == [n0[0] + 2 * (not indexed), n0[1] + 2 * indexed,
+                              n0[2] + (not indexed), n0[3] + indexed]
+    _assert_walks_close(got, _walks(tx, f_gap, fp_gap, plain=True, trust=True))
+    free = _walks(tx, f_gap, fp_gap, plain=False)
+    one = tx["q_eff"] == 1.0
+    for mode in ("until", "refill"):
+        for k, w in free[mode].items():
+            g = got[mode][k]
+            if w.dtype.is_floating_point:
+                g, w = g.view(torch.int64), w.view(torch.int64)
+            assert torch.equal(g[one], w[one]), (mode, k)
+    extra = got["refill"]["la_ctr"] - free["refill"]["la_ctr"]
+    assert int((extra[(tx["q_eff"] > 0.0) & ~one] > 0).sum()) > 1000
+
+
+_SILENT = ("sf_ctr", "sf_time", "corrupt")
+
+
+def _silent(tx, gap, plain: bool) -> dict:
+    s = {k: v.clone() for k, v in tx.items()}
+    law, lp = _laws(gap, s, "f_")
+    fn = K.silent_walk if plain else K.masked_silent_walk
+    got = fn(s["silr"], s["t"], s["sf_ctr"], s["sf_time"], s["corrupt"], s["key"], s["mean"],
+             s["horizon"], kind=gap[0], param=gap[1], law=law, lp=lp)
+    torch.cuda.synchronize()
+    return dict(zip(_SILENT, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,param", LAWS + [("indexed", 0.0)])
+def test_silent_walk_kernel_matches_plain_version_on_card(cuda_device, kind, param):
+    """Counters and the latent corruption bit-equal, the cursor date
+    within 4 ulp; lanes outside ``silr`` untouched."""
+    tx = _walk_lanes(cuda_device, 100_000, 18)
+    fn = K.masked_silent_walk
+    n0 = (fn.launches, fn.indexed_launches)
+    got = _silent(tx, (kind, param), plain=False)
+    indexed = kind == "indexed"
+    assert (fn.launches, fn.indexed_launches) == (n0[0] + (not indexed), n0[1] + indexed)
+    want = _silent(tx, (kind, param), plain=True)
+    assert torch.equal(got["sf_ctr"], want["sf_ctr"])
+    assert torch.equal(got["corrupt"].view(torch.int64), want["corrupt"].view(torch.int64))
+    assert _ulps(got["sf_time"], want["sf_time"]) <= 4
+    steps = got["sf_ctr"] - tx["sf_ctr"]
+    assert int(steps.max()) >= 3 and bool((steps[~tx["silr"]] == 0).all())
+    assert torch.equal(got["sf_time"][~tx["silr"]], tx["sf_time"][~tx["silr"]])

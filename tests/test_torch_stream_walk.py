@@ -1,13 +1,16 @@
-"""The port's cursor walks (repro_torch.kernels.sim_step prediction_walk
-and strike_walk, and their wrappers on the CPU) against step-by-step loops
-built from the JAX reference's own ``stream_advance`` and
-``counter_uniform2`` (repro.kernels.sim_step), written as the reference
-engine writes them (``tp_consume``, ``p_body`` and ``s_body`` of
-repro.core.jax_sim).
+"""The port's cursor walks (repro_torch.kernels.sim_step prediction_walk,
+strike_walk and silent_walk, and their wrappers on the CPU) against
+step-by-step loops built from the JAX reference's own ``stream_advance``,
+``counter_uniform`` and ``counter_uniform2`` (repro.kernels.sim_step),
+written as the reference engine writes them (``tp_consume``,
+``fp_consume``, ``p_body``, ``s_body`` and ``sc_body`` of
+repro.core.jax_sim), the prediction walk with and without the trust
+coins of fractional trust.
 
 Inputs are seeded lanes of ``sample_walk_state`` (exhausted cursors,
-recall 0.3 and 0.85, lanes with the mask clear, cancel slots that match)
-handed to both sides as numpy.  Tolerances: counters, masks and fault
+recall 0.3 and 0.85, trust 0, 0.3, 0.5 and 1, lanes with the mask clear,
+cancel slots that match, latent corruptions) handed to both sides as
+numpy.  Tolerances: counters, masks and fault
 counts exact; dates rtol 1e-13 (the gap transform through libm versus XLA
 transcendentals, as test_stream_advance_matches_jnp_and_pallas), with
 ``inf`` and ``nan`` in the same places.
@@ -72,7 +75,7 @@ def _walk_kw(x, f_gap, fp_gap, conv):
 # --------------------------------------------------------------------------- #
 # The reference's loops, step by step
 # --------------------------------------------------------------------------- #
-def _ref_prediction_walk(x, f_gap, fp_gap, until: bool):
+def _ref_prediction_walk(x, f_gap, fp_gap, until: bool, trust: bool = False):
     j = {k: jnp.asarray(v) for k, v in x.items()}
     f_kw = _law_kw(f_gap, x, "f_", jnp.asarray)
     fp_kw = _law_kw(fp_gap, x, "fp_", jnp.asarray)
@@ -84,8 +87,11 @@ def _ref_prediction_walk(x, f_gap, fp_gap, until: bool):
             ctr, tm = JK.stream_advance(act, ctr, tm, (j["f_key"],), j["f_mean"],
                                         j["horizon"], **f_kw)
             u_coin, u_off = JK.counter_uniform2((j["tc_key"],), ctr, jnp.float64)
+            vis = u_coin < j["recall"]
+            if trust:
+                vis &= JK.counter_uniform((j["tt_key"],), ctr, jnp.float64) < j["q_eff"]
             alive = jnp.isfinite(tm)
-            good = act & (u_coin < j["recall"]) & alive
+            good = act & vis & alive
             t0 = jnp.where(good, jnp.maximum(0.0, tm - u_off * j["window"]), t0)
             ft = jnp.where(good, tm, ft)
             tc = jnp.where(good, ctr, tc)
@@ -96,8 +102,16 @@ def _ref_prediction_walk(x, f_gap, fp_gap, until: bool):
         return ctr, tm, t0, ft, tc
 
     def fp_consume(m, ctr, tm):
-        return JK.stream_advance(m, ctr, tm, (j["fp_key"],), j["fp_mean"], j["horizon"],
-                                 **fp_kw)
+        act = m
+        while bool(jnp.any(act)):
+            ctr, tm = JK.stream_advance(act, ctr, tm, (j["fp_key"],), j["fp_mean"],
+                                        j["horizon"], **fp_kw)
+            if trust:
+                vis = JK.counter_uniform((j["ft_key"],), ctr, jnp.float64) < j["q_eff"]
+            else:
+                vis = jnp.ones_like(act)
+            act = act & ~vis & jnp.isfinite(tm)
+        return ctr, tm
 
     c = [j[k] for k in K.PREDICTION_CURSORS]
     if not until:
@@ -144,13 +158,25 @@ def _ref_strike_walk(x, gap, has_mig: bool):
             (("t", t), ("sf_ctr", ctr), ("sf_time", tm), ("n_faults", nf))}
 
 
-def _assert_same(got: dict, want: dict, dates):
+def _ref_silent_walk(x, gap):
+    j = {k: jnp.asarray(v) for k, v in x.items()}
+    kw = _law_kw(gap, x, "f_", jnp.asarray)
+    silr, t, ctr, tm, cor = j["silr"], j["t"], j["sf_ctr"], j["sf_time"], j["corrupt"]
+    while bool(jnp.any(silr & (tm <= t))):
+        hit = silr & (tm <= t)
+        cor = jnp.where(hit, jnp.minimum(cor, tm), cor)
+        ctr, tm = JK.stream_advance(hit, ctr, tm, (j["key"],), j["mean"], j["horizon"], **kw)
+    return {k: np.asarray(v) for k, v in
+            (("sf_ctr", ctr), ("sf_time", tm), ("corrupt", cor))}
+
+
+def _assert_same(got: dict, want: dict, dates, atol: float = 0.0):
     for k, w in want.items():
         g = got[k].numpy() if isinstance(got[k], torch.Tensor) else got[k]
         if k in dates:
             np.testing.assert_array_equal(np.isnan(g), np.isnan(w), err_msg=k)
             np.testing.assert_array_equal(np.isinf(g), np.isinf(w), err_msg=k)
-            np.testing.assert_allclose(g, w, rtol=1e-13, atol=0, err_msg=k)
+            np.testing.assert_allclose(g, w, rtol=1e-13, atol=atol, err_msg=k)
         else:
             np.testing.assert_array_equal(g, w, err_msg=k)
 
@@ -210,6 +236,60 @@ def test_strike_walk_matches_reference_loop(law, has_mig):
     if has_mig:  # a cancelled current fault is skipped without a hit
         cancelled = x["res"] & (x["sf_ctr"] == x["cancel0"]) & (x["sf_time"] >= x["t"])
         assert cancelled.any() and (steps[cancelled] >= 1).all()
+
+
+@pytest.mark.parametrize("until", [True, False], ids=["until", "refill"])
+@pytest.mark.parametrize("law", ["exponential", "weibull", "lognormal", "indexed"])
+def test_trust_prediction_walk_matches_reference_loop(law, until):
+    """The trust coins: visible true positives and false predictions
+    thinned per event where ``0 < q_eff < 1``, no thinning where
+    ``q_eff = 1``.  As in the engine, whose priming masks them out, no
+    lane of ``q_eff = 0`` walks here (the card tests walk them to the
+    stream's end, kernel against plain version).  Dates: rtol 1e-13 and
+    atol 1e-8 s, since ``sample_walk_state`` starts some lookahead
+    cursors below date 0, where a step can land near 0 and carry the
+    rounding of a gap of up to 1e5 s."""
+    f_gap, fp_gap = LAWS[law]
+    x = _state(44)
+    x["mask"] &= x["q_eff"] > 0.0
+    x["fp_mask"] &= x["q_eff"] > 0.0
+    tx = K.lane_state_tensors(x, "cpu")
+    want = _ref_prediction_walk(x, f_gap, fp_gap, until, trust=True)
+    args = (tx["mask"], None if until else tx["fp_mask"],
+            *(tx[k] for k in K.PREDICTION_CURSORS), *_consts(tx))
+    kw = dict(**_walk_kw(tx, f_gap, fp_gap, lambda v: v),
+              until=(tx["t"], tx["lead_act"]) if until else None)
+    got = dict(zip(K.PREDICTION_CURSORS, K.prediction_walk(
+        *args, **kw, tt_key=tx["tt_key"], ft_key=tx["ft_key"], q_eff=tx["q_eff"])))
+    _assert_same(got, want, DATES, atol=1e-8)
+    # q = 1 lanes walk as without coins; lower trust walks further
+    plain = dict(zip(K.PREDICTION_CURSORS, K.prediction_walk(*args, **kw)))
+    one = x["q_eff"] == 1.0
+    for k in K.PREDICTION_CURSORS:
+        torch.testing.assert_close(got[k][one], plain[k][one], rtol=0, atol=0, equal_nan=True)
+    frac = (x["q_eff"] > 0.0) & (x["q_eff"] < 1.0)
+    extra = (got["la_ctr"] - plain["la_ctr"]).numpy() + (got["fp_ctr"] - plain["fp_ctr"]).numpy()
+    assert (extra[frac] > 0).sum() > 50 and (extra >= 0).all()
+
+
+@pytest.mark.parametrize("law", ["exponential", "weibull", "lognormal", "indexed"])
+def test_silent_walk_matches_reference_loop(law):
+    gap = LAWS[law][0]
+    x = _state(45)
+    tx = K.lane_state_tensors(x, "cpu")
+    want = _ref_silent_walk(x, gap)
+    got = K.silent_walk(tx["silr"], tx["t"], tx["sf_ctr"], tx["sf_time"], tx["corrupt"],
+                        tx["key"], tx["mean"], tx["horizon"], **_law_kw(gap, tx, "f_", lambda v: v))
+    got = dict(zip(("sf_ctr", "sf_time", "corrupt"), got))
+    _assert_same(got, want, ("sf_time",))
+    np.testing.assert_array_equal(got["corrupt"].numpy(), want["corrupt"])  # bit for bit
+    steps = got["sf_ctr"].numpy() - x["sf_ctr"]
+    assert steps.max() >= 3 and (steps[~x["silr"]] == 0).all()
+    hit = steps > 0
+    # the earliest latent corruption: the first struck date, or an earlier one
+    np.testing.assert_array_equal(got["corrupt"].numpy()[hit],
+                                  np.minimum(x["corrupt"], x["sf_time"])[hit])
+    assert (hit & np.isinf(x["corrupt"])).any() and (hit & np.isfinite(x["corrupt"])).any()
 
 
 # --------------------------------------------------------------------------- #
@@ -314,3 +394,58 @@ def test_walk_wrappers_reject_bad_inputs(bad):
                              s["DR"], s["key"], s["mean"], s["horizon"], **strike_kw,
                              cancels=cancels)
 
+
+
+def test_silent_and_trust_wrappers_take_plain_path_in_place_on_cpu():
+    K.masked_silent_walk.launches = K.masked_silent_walk.indexed_launches = 0
+    K.masked_prediction_walk.launches = K.masked_prediction_walk.indexed_launches = 0
+    tx = K.lane_state_tensors(_state(46), "cpu")
+    sil = ("silr", "t", "sf_ctr", "sf_time", "corrupt", "key", "mean", "horizon")
+    want = K.silent_walk(*(tx[k] for k in sil), kind="weibull", param=0.7)
+    s = {k: v.clone() for k, v in tx.items()}
+    tally = _Count()
+    got = K.masked_silent_walk(*(s[k] for k in sil), kind="weibull", param=0.7, tally=tally)
+    assert tally.syncs >= 3
+    for g, w, k in zip(got, want, ("sf_ctr", "sf_time", "corrupt")):
+        assert g is s[k]
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    trust = dict(tt_key=tx["tt_key"], ft_key=tx["ft_key"], q_eff=tx["q_eff"])
+    kw = _walk_kw(tx, ("exponential", 0.0), ("exponential", 0.0), lambda v: v)
+    want = K.prediction_walk(tx["mask"], tx["fp_mask"], *(tx[k] for k in K.PREDICTION_CURSORS),
+                             *_consts(tx), **kw, **trust)
+    s = {k: v.clone() for k, v in tx.items()}
+    got = K.masked_prediction_walk(s["mask"], s["fp_mask"],
+                                   *(s[k] for k in K.PREDICTION_CURSORS), *_consts(s), **kw,
+                                   **trust)
+    for g, w, k in zip(got, want, K.PREDICTION_CURSORS):
+        assert g is s[k]
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+    for fn in (K.masked_silent_walk, K.masked_prediction_walk):
+        assert fn.launches == fn.indexed_launches == 0
+
+
+@pytest.mark.parametrize("bad", ["partial_trust", "trust_dtype", "silent_dtype",
+                                 "silent_shape", "silent_law"])
+def test_silent_and_trust_wrappers_reject_bad_inputs(bad):
+    s = K.lane_state_tensors(_state(47), "cpu")
+    trust = dict(tt_key=s["tt_key"], ft_key=s["ft_key"], q_eff=s["q_eff"])
+    sil_kw = dict(kind="exponential", param=0.0)
+    if bad == "partial_trust":
+        trust["ft_key"] = None
+    elif bad == "trust_dtype":
+        trust["q_eff"] = trust["q_eff"].to(torch.float32)
+    elif bad == "silent_dtype":
+        s["corrupt"] = s["corrupt"].to(torch.float32)
+    elif bad == "silent_shape":
+        s["silr"] = s["silr"][:100]
+    else:
+        sil_kw = dict(kind="indexed", param=0.0, law=s["f_law"])  # no slots
+    sil = ("silr", "t", "sf_ctr", "sf_time", "corrupt", "key", "mean", "horizon")
+    call = {
+        "partial_trust": lambda: K.masked_prediction_walk(
+            s["mask"], s["fp_mask"], *(s[k] for k in K.PREDICTION_CURSORS), *_consts(s),
+            **_walk_kw(s, ("exponential", 0.0), ("exponential", 0.0), lambda v: v), **trust),
+        "silent": lambda: K.masked_silent_walk(*(s[k] for k in sil), **sil_kw),
+    }
+    with pytest.raises((TypeError, ValueError)):
+        call["partial_trust" if "trust" in bad else "silent"]()

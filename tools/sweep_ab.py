@@ -30,7 +30,7 @@ from pathlib import Path
 RUNS_PER_CELL = 1000
 PROFILE_ITERS = 200
 WRAPPERS = ("masked_primitive_update", "masked_stream_advance",
-            "masked_prediction_walk", "masked_strike_walk")
+            "masked_prediction_walk", "masked_strike_walk", "masked_silent_walk")
 
 
 def grids() -> dict:
@@ -49,8 +49,8 @@ def grids() -> dict:
 
 
 def launches(K) -> dict:
-    """Every sim_step wrapper's launch counts (a checkout without the walks
-    has two wrappers)."""
+    """Every sim_step wrapper's launch counts (an older checkout lacks the
+    walks' wrappers)."""
     out = {}
     for name in WRAPPERS:
         fn = getattr(K, name, None)
