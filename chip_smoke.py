@@ -83,6 +83,22 @@ cells under two laws in one dispatch against the per-family one, and the
 paper grid with fractional trust (q 0.3 / 0.5) on the card against the
 CPU.
 
+Then the host trace mode (phases 26-29): the trace-fed primitive update
+(no stream, the counterpart of the reference's ``_step_kernel``) against
+its plain version on 108,000 sampled lanes, and the three slab walks
+(the prediction skip, the stale-fault cascade with the migration cancel,
+the silent strikes) against theirs on iteration 40 of the host-mode full
+grid and scenario grid, every output bit-equal; the full paper grid with
+host-drawn traces (``run_grid(trace_mode="host")``, 108 cells × 1000
+runs: the wall split into host generation, packing, copy and lane loop,
+the slabs' shapes and bytes, one launch of each kernel an iteration, the
+validation gate with the CPU port's z beside the largest and any
+rejected cell) and the scenario grid in host mode (the silent slab walk's
+path); a 12-cell sub-grid card against CPU and fused against per-cell in
+both trace modes; the paper's Tables 1-2 grid (120 cells, with Weibull
+0.5 superposed fresh-start traces, plus a stationary family) through
+``run_cells``; and the four kernels' times.
+
 Every phase prints one JSON line; any failure exits non-zero before the
 last line, which is ``{"ok": true, "device": {...}}``.  Needs one CUDA
 card; imports nothing of JAX.
@@ -673,7 +689,10 @@ def ptxas_report(log: str) -> dict:
     ``-Xptxas -v`` output: {wrapper name: {...}}."""
     import re
 
-    names = {"primitive_update_kernel": "masked_primitive_update",
+    names = {"slab_prediction_skip_kernel": "masked_slab_prediction_skip",
+             "slab_strike_walk_kernel": "masked_slab_strike_walk",
+             "slab_silent_walk_kernel": "masked_slab_silent_walk",
+             "primitive_update_kernel": "masked_primitive_update",
              "stream_advance_kernel": "masked_stream_advance",
              "prediction_walk_kernel": "masked_prediction_walk",
              "strike_walk_kernel": "masked_strike_walk",
@@ -1835,18 +1854,25 @@ def mixed_grid(preset: str, n_runs: int):
 
 def sim_step_wrappers(K) -> tuple:
     return (K.masked_primitive_update, K.masked_stream_advance,
-            K.masked_prediction_walk, K.masked_strike_walk, K.masked_silent_walk)
+            K.masked_prediction_walk, K.masked_strike_walk, K.masked_silent_walk,
+            K.masked_slab_prediction_skip, K.masked_slab_strike_walk,
+            K.masked_slab_silent_walk)
+
+
+#: each wrapper's launch counters: single-law, law-indexed, trace-fed
+COUNTERS = (("", "launches"), ("[indexed]", "indexed_launches"), ("[host]", "host_launches"))
 
 
 def counts(K) -> dict:
     return {f"{fn.__name__}{tag}": getattr(fn, attr)
-            for fn in sim_step_wrappers(K)
-            for tag, attr in (("", "launches"), ("[indexed]", "indexed_launches"))}
+            for fn in sim_step_wrappers(K) for tag, attr in COUNTERS if hasattr(fn, attr)}
 
 
 def reset_counts(K) -> None:
     for fn in sim_step_wrappers(K):
-        fn.launches = fn.indexed_launches = 0
+        for _, attr in COUNTERS:
+            if hasattr(fn, attr):
+                setattr(fn, attr, 0)
 
 
 def path_launches(launches: dict, meta: dict, suffix: str, max_cursor: float = 4.0) -> dict:
@@ -2532,6 +2558,536 @@ def scenario_phases(dev, regs: dict, main_launches: dict) -> list:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# The host trace mode: host-drawn slabs, the trace-fed primitive, slab walks
+# --------------------------------------------------------------------------- #
+def f64_bits(t):
+    """The bit pattern of an f64 tensor (other tensors as they are)."""
+    import torch
+
+    return t.view(torch.int64) if t.dtype == torch.float64 else t
+
+
+#: the TPU kernel body and the reference loops the host mode's kernels replace
+HOST_REPLACES = {
+    "masked_primitive_update[host]": "src/repro/kernels/sim_step.py:465",
+    "masked_slab_prediction_skip": "src/repro/core/jax_sim.py:460",
+    "masked_slab_strike_walk": "src/repro/core/jax_sim.py:689",
+    "masked_slab_silent_walk": "src/repro/core/jax_sim.py:812",
+}
+SLAB_WALKS = ("masked_slab_prediction_skip", "masked_slab_strike_walk",
+              "masked_slab_silent_walk")
+#: phase 28's sub-grid: cells at this platform size, runs a cell
+HOST_SUB_N, HOST_SUB_RUNS = 2**14, 200
+#: phase 29: the Tables 1-2 grid of the reference benchmark (work, horizon
+#: factor, runs, seed, its superposed families' component cap)
+TABLES_WORK, TABLES_HORIZON, TABLES_RUNS, TABLES_SEED = 10 * 86400.0, 30, 30, 100
+TABLES_COMPONENTS_MAX = 2**15
+
+
+class SlabCall:
+    """One captured slab-walk call: the per-lane arguments and the cancel
+    marks cloned before the call, the read-only event slabs held as they
+    are.  ``mutable`` names what the call updates in place (keys ``a<i>``
+    for positional arguments); :meth:`call` runs it on copies of those."""
+
+    OUT = {"skip": ("a4",), "strike": ("a1", "a2", "a3"), "silent": ("a2", "a3")}
+    FN = {"skip": "slab_prediction_skip", "strike": "slab_strike_walk",
+          "silent": "slab_silent_walk"}
+
+    def __init__(self, name: str, args, kw):
+        import torch
+
+        def keep(v):
+            if not isinstance(v, torch.Tensor):
+                return v
+            slab = v.dim() == 2 and v.dtype == torch.float64
+            return v if slab else v.clone()
+
+        self.name = name
+        self.args = [keep(a) for a in args]
+        self.kw = {k: keep(v) for k, v in kw.items() if k != "tally"}
+        self.mutable = self.OUT[name] + (("Fcancel",) if "Fcancel" in self.kw else ())
+
+    def src(self) -> dict:
+        return {k: self.args[int(k[1:])] if k[0] == "a" else self.kw[k] for k in self.mutable}
+
+    def copy(self) -> dict:
+        return {k: v.clone() for k, v in self.src().items()}
+
+    def head(self, n: int) -> "SlabCall":
+        """The same call on the first ``n`` lanes."""
+        import torch
+
+        def cut(v):
+            if not isinstance(v, torch.Tensor):
+                return v
+            return (v[:, :n] if v.dim() == 2 else v[:n]).contiguous()
+
+        out = SlabCall.__new__(SlabCall)
+        out.name, out.mutable = self.name, self.mutable
+        out.args = [cut(a) for a in self.args]
+        out.kw = {k: cut(v) for k, v in self.kw.items()}
+        return out
+
+    def call(self, K, d: dict, *, plain: bool = False):
+        args = [d.get(f"a{i}", a) for i, a in enumerate(self.args)]
+        kw = {k: d.get(k, v) for k, v in self.kw.items()}
+        fn = getattr(K, ("" if plain else "masked_") + self.FN[self.name])
+        outs = self.OUT[self.name]
+
+        def go():
+            r = fn(*args, **kw)
+            r = r if isinstance(r, tuple) else (r,)
+            if plain:  # the plain versions return new tensors
+                for k, v in zip(outs, r):
+                    args[int(k[1:])].copy_(v)
+            return r
+
+        return go
+
+    def run(self, K, *, plain: bool = False) -> dict:
+        import torch
+
+        d = self.copy()
+        self.call(K, d, plain=plain)()
+        torch.cuda.synchronize()
+        return d
+
+    def work(self, out: dict) -> dict:
+        """What the call must do on its inputs: the rows its lanes step
+        (``steps``), the lanes that walk, the bytes (every lane's masks;
+        the masked lanes' record and the slab row at their cursor; one
+        slab row (and cancel mark) a step; the walking lanes' writes;
+        a cancel's search rows and its mark), and 2 f64 operations (a
+        compare and an add) a step."""
+        import torch
+
+        a, kw = self.args, self.kw
+        L = a[0].numel()
+        cur = {"skip": "a4", "strike": "a2", "silent": "a2"}[self.name]
+        before = a[int(cur[1:])]
+        moved = out[cur] - before
+        steps, walking = int(moved.sum()), int((moved != 0).sum())
+        masked = int(a[0].sum())
+        mig = "Fcancel" in kw
+        if self.name == "skip":  # mask; t, lead_act, pi, P0[pi]; write pi
+            nbytes = L + 32 * masked + 8 * steps + 8 * walking
+        elif self.name == "silent":  # silr; t, fi, F[fi]; corrupt; writes
+            nbytes = L + 24 * masked + 8 * steps + 8 * walking + 16 * walking
+        else:  # res (can); t, fi, F[fi] (mark); rc, n_faults; writes
+            F = a[5]
+            nbytes = (L * (1 + mig) + masked * (24 + mig) + steps * (8 + mig)
+                      + walking * (16 + 24))
+            if mig:
+                can, ep_ft, marks = kw["can"], kw["ep_ft"], kw["Fcancel"]
+                rows = torch.arange(F.shape[0], device=F.device)[:, None]
+                stop = (rows >= a[2][None, :]) & (
+                    (F > ep_ft[None, :]) | ((F == ep_ft[None, :]) & ~marks)
+                    | (rows == F.shape[0] - 1))
+                first = torch.where(stop, rows, F.shape[0]).min(dim=0).values
+                searched = int(((first - a[2] + 1) * can).sum())
+                nbytes += 16 * int(can.sum()) + 9 * searched + int(
+                    (out["Fcancel"] & ~marks).sum())
+        return {"bytes": nbytes, "ops": 2 * steps, "steps": steps,
+                "walking_lanes": walking, "masked_lanes": masked}
+
+
+def capture_slab_walks(layout, dev, at: int, names) -> dict:
+    """Run ``layout``'s host traces on the card for ``at + 1`` outer
+    iterations and keep the arguments of iteration ``at``'s slab walks
+    (``names`` of "skip", "strike", "silent") as they were before each
+    call: {name: :class:`SlabCall`}.  torch_sim's wrappers are wrapped
+    for the run and restored after it."""
+    from repro_torch.core import torch_sim as PT
+
+    real = {n: getattr(PT, n) for n in SLAB_WALKS}
+    seen = dict.fromkeys(("skip", "strike", "silent"), 0)
+    cap = {}
+
+    def spy(name, fn):
+        def wrapped(*args, **kw):
+            if name in names and seen[name] == at:
+                cap[name] = SlabCall(name, args, kw)
+            seen[name] += 1
+            return fn(*args, **kw)
+
+        return wrapped
+
+    for short, n in zip(("skip", "strike", "silent"), SLAB_WALKS):
+        setattr(PT, n, spy(short, real[n]))
+    try:
+        PT.simulate_batch_torch(layout.work_c, layout.plats_c, layout.strats_c,
+                                layout.traces, cell_index=layout.cidx, device=dev,
+                                max_iters=at + 1)
+        raise SmokeFailure(f"the grid finished within {at + 1} iterations")
+    except RuntimeError as e:
+        if "did not converge" not in str(e):
+            raise
+    finally:
+        for n, fn in real.items():
+            setattr(PT, n, fn)
+    check(sorted(cap) == sorted(names), f"captured slab walks {sorted(cap)}")
+    return cap
+
+
+def prim_host_call(K, s, plain: bool = False):
+    """One trace-fed primitive update (no stream) on lanes ``s``."""
+    fn = K.primitive_update if plain else K.masked_primitive_update
+    return lambda: fn(*(s[k] for k in PRIM_ARGS), eps=1e-6, reg_cont=1)
+
+
+def slab_times(K, c: SlabCall, want: dict, what: str) -> dict:
+    """Times of one captured slab walk: the kernel on copies restored
+    before every replay (``device_ms``), its outputs held to the plain
+    version's, the plain version eagerly, the wrapper's host cost and the
+    launch floor (128 lanes)."""
+    import torch
+
+    copy_bytes = sum(v.numel() * v.element_size() for v in c.src().values())
+    n_copies = max(2, math.ceil(3 * L2_BYTES / copy_bytes))
+    cs = [c.copy() for _ in range(n_copies)]
+    ms, _ = device_ms([c.call(K, d) for d in cs], cs, c.src())
+    for k, w in want.items():
+        check(torch.equal(f64_bits(cs[0][k]), f64_bits(w)),
+              f"{what}: a timed call's {k} is not the plain version's")
+    small = c.head(128)
+    floor_copies = [small.copy() for _ in range(64)]
+    return {
+        "ms": ms,
+        "plain_ms": restored_eager_ms(lambda d: c.call(K, d, plain=True), c.src()),
+        "host_call_ms": eager_ms(c.call(K, c.copy()), 200),
+        "launch_floor_ms": device_ms([small.call(K, d) for d in floor_copies],
+                                     floor_copies, small.src())[0],
+        "copies": n_copies, **c.work(want),
+    }
+
+
+def host_sub_grid():
+    """Phase 28's sub-grid: 12 cells at N = ``HOST_SUB_N`` covering
+    fail-stop (Young, exact dates, two windows), migration, two-level,
+    silent errors and trust q of 0, 0.5 and 1."""
+    from dataclasses import replace
+
+    from repro_torch.experiments import (GridSpec, paper_grid_cells, silent_grid_cells,
+                                         two_level_grid_cells)
+
+    paper = {c.label.split("/", 2)[0] + "/" + c.label.split("/", 2)[2]: c
+             for c in paper_grid_cells("validation", n_list=[HOST_SUB_N])}
+    cells = [paper[k] for k in ("p82r85/Young", "p82r85/Exact", "p82r85/Migration",
+                                "p82r85/I1200/Instant", "p82r85/I6000/WithCkptI")]
+    cells += [replace(paper[k], strategy=replace(paper[k].strategy, q=0.5))
+              for k in ("p40r70/Exact", "p40r70/Migration")]
+    cells += two_level_grid_cells("validation", n_list=[HOST_SUB_N])[:3]
+    cells += silent_grid_cells("validation", n_list=[HOST_SUB_N])
+    return GridSpec(tuple(cells), n_runs=HOST_SUB_RUNS, seed=VALIDATION_SEED)
+
+
+def tables_cells():
+    """The reference benchmark's Tables 1-2 grid (``benchmarks/sim_tables.py``
+    ``build_cells(quick=False)``, rebuilt from the port's strategies): (p,
+    r) in {(0.82, 0.85), (0.4, 0.7)} x N in {2^16, 2^19} x I in {300,
+    3000} s x {exponential, Weibull 0.7, Weibull 0.5 fresh-start
+    superposed (min(N, 2^15) components)} x five strategies: 120 cells;
+    plus the Weibull 0.5 family again with stationary components: 40."""
+    from dataclasses import replace
+
+    from repro_torch.configs.paper import C, D, MU_IND, R
+    from repro_torch.core import events as E
+    from repro_torch.core import simulator as S
+    from repro_torch.core.waste import Platform, PredictorModel
+    from repro_torch.experiments import ExperimentCell
+
+    laws = (("exp", E.exponential(), False, False), ("weibull0.7", E.weibull(0.7), False, False),
+            ("weibull0.5-fresh", E.weibull(0.5), True, False))
+    cells, stationary = [], []
+    for p, r in ((0.82, 0.85), (0.4, 0.7)):
+        for n in (2**16, 2**19):
+            plat = Platform(mu=MU_IND / n, C=C, D=D, R=R)
+            for window in (300.0, 3000.0):
+                pred = PredictorModel(r, p, window=window, lead=3600.0)
+                strats = (S.young(plat),
+                          S.exact_prediction(plat, PredictorModel(pred.recall, pred.precision)),
+                          S.instant(plat, pred), S.nockpt(plat, pred), S.withckpt(plat, pred))
+                for name, dist, sup, _ in laws:
+                    for s in strats:
+                        cell = ExperimentCell(
+                            label=f"table12/{name}/p{p}_r{r}/N{n}/I{int(window)}/{s.name}",
+                            work=TABLES_WORK, platform=plat, predictor=pred, strategy=s,
+                            fault_dist=dist,
+                            n_components=min(n, TABLES_COMPONENTS_MAX) if sup else None,
+                            horizon_factor=TABLES_HORIZON)
+                        cells.append(cell)
+                        if sup:
+                            stationary.append(replace(
+                                cell, stationary=True,
+                                label=cell.label.replace("-fresh", "-stationary")))
+    return cells + stationary
+
+
+def cpu_cell_z(layout, positions) -> dict:
+    """The z of the cells at ``positions`` (of ``layout.cell_order``) as
+    the port computes them on the CPU from the same host traces: one
+    engine call a cell (the paper grid's trust levels are 0 and 1, so its
+    lanes are the fused run's)."""
+    import numpy as np
+    from repro_torch.core.torch_sim import simulate_batch_torch
+    from repro_torch.experiments import CellResult, SweepResult
+    from repro_torch.experiments.validation import cell_z_rows
+
+    cells = []
+    for k in positions:
+        lo, hi = int(layout.offs[k]), int(layout.offs[k + 1])
+        n = hi - lo
+        res = simulate_batch_torch(np.full(n, layout.work_c[k]), [layout.plats_c[k]] * n,
+                                   [layout.strats_c[k]] * n,
+                                   layout.traces.take(np.arange(lo, hi)), device="cpu",
+                                   collect="lanes")
+        cells.append(CellResult(cell=layout.grid.cells[layout.cell_order[k]],
+                                waste=res.waste, makespan=res.makespan, n_faults=res.n_faults))
+    rows = cell_z_rows(SweepResult(grid=layout.grid, cells=cells, engine="torch",
+                                   wall_time_s=0.0, collect="lanes"))
+    return {r.label: r.z for r in rows}
+
+
+def host_phases(dev, regs: dict) -> list:
+    """Phases 26-29: the host trace mode.  The trace-fed primitive update
+    and the three slab walks against their plain versions (the walks on
+    iteration 40 of the host-mode full grid and scenario grid); the full
+    grid in host mode (the main host path: wall split, slabs, launches,
+    the validation gate) and the scenario grid in host mode; card against
+    CPU and fused against per-cell on a 12-cell sub-grid; the Tables 1-2
+    grid through ``run_cells``.  Returns the four new entries of the
+    ``kernels`` line."""
+    import numpy as np
+    import torch
+    from repro_torch.experiments import (GridSpec, build_fused_layout, paper_grid_cells,
+                                         run_cells, run_grid, validate_sweep)
+    from repro_torch.kernels import sim_step as K
+
+    full = GridSpec(tuple(paper_grid_cells("full")), n_runs=RUNS_PER_CELL, seed=0)
+    scen = scenario_grid("full", RUNS_PER_CELL, SCENARIO_SEED)
+    L = full.n_lanes
+
+    # ---- 26. the host-mode kernels against their plain versions -------- #
+    t0 = time.monotonic()
+    err, work = {}, {}
+    x = make_inputs(K, L, 300, dev)
+    s_got, s_want = {k: v.clone() for k, v in x.items()}, {k: v.clone() for k, v in x.items()}
+    got = prim_host_call(K, s_got)()
+    want = prim_host_call(K, s_want, plain=True)()
+    torch.cuda.synchronize()
+    for k, g, w in zip(("t", "saved", "unsaved", "pw", "flags"), got, want):
+        check(torch.equal(f64_bits(g), f64_bits(w)),
+              f"masked_primitive_update[host]: {k} differs from the plain version")
+    n_fault = int(want[4].bitwise_and(1).ne(0).sum())
+    check(n_fault > 0, "the trace-fed primitive's inputs exercised no fault")
+    err["masked_primitive_update[host]"] = max_abs_err(zip(got[:4], want[:4]))
+    t1 = time.monotonic()
+    layout = build_fused_layout(full, "host")
+    scen_layout = build_fused_layout(scen, "host")
+    gen_s = time.monotonic() - t1
+    cap = capture_slab_walks(layout, dev, CAPTURE_ITER, ("skip", "strike"))
+    cap.update(capture_slab_walks(scen_layout, dev, CAPTURE_ITER, ("silent",)))
+    check("Fcancel" in cap["strike"].kw, "the full grid's strike walk carries no cancel marks")
+    for name, c in cap.items():
+        wrapper = SLAB_WALKS[("skip", "strike", "silent").index(name)]
+        g, w = c.run(K), c.run(K, plain=True)
+        for k in w:
+            check(torch.equal(f64_bits(g[k]), f64_bits(w[k])),
+                  f"{wrapper}: {k} differs from the plain version")
+        err[wrapper] = max_abs_err((g[k], w[k]) for k in w if w[k].dtype == torch.float64)
+        work[wrapper] = c.work(w)
+        check(work[wrapper]["steps"] > 0, f"{wrapper}: the captured call walks no lane")
+    emit("host_check", seconds=time.monotonic() - t0, lanes=L, faulted_lanes=n_fault,
+         iteration=CAPTURE_ITER, host_gen_s_capture_layouts=gen_s,
+         slab_shapes={n: list(c.args[3 if n == "skip" else -1].shape) for n, c in cap.items()},
+         cancel_lanes=int(cap["strike"].kw["can"].sum()), work=work,
+         compared="trace-fed primitive update (no stream) on 108,000 sampled lanes and the "
+                  "slab walks on iteration 40 of the host-mode full grid (skip, strike with "
+                  "cancel marks) and scenario grid (silent): every output bit-equal to the "
+                  "plain version")
+
+    # ---- 27. the main host path: the full grid, host-drawn traces ------ #
+    reset_counts(K)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    res = run_grid(full, device="cuda", trace_mode="host")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = counts(K)
+    meta = res.meta
+    iters = max(meta["outer_iters"], 1)
+    check(meta["device"].startswith("cuda") and meta["trace_mode"] == "host"
+          and meta["dispatches"] == 1, f"host path: {meta['device']} {meta['trace_mode']}")
+    for name in ("masked_primitive_update[host]", "masked_slab_prediction_skip",
+                 "masked_slab_strike_walk"):
+        check(launches[name] == iters, f"{name}: {launches[name]} launches in {iters} "
+              "outer iterations (one an iteration)")
+    for name, n in launches.items():
+        if name not in ("masked_primitive_update[host]", "masked_slab_prediction_skip",
+                        "masked_slab_strike_walk"):
+            check(n == 0, f"{name}: {n} launches on the host-mode fail-stop path")
+    check(meta["host_syncs"] / iters <= 1.0, f"{meta['host_syncs'] / iters} syncs an iteration")
+    for c in res.cells:
+        check(c.n_runs == RUNS_PER_CELL and 0.0 < c.mean_waste < 1.0
+              and np.isfinite(c.ci95_waste), f"{c.cell.label}: waste {c.mean_waste}")
+    anchors = {}
+    for pk in ("p82r85", "p40r70"):
+        y, e = res[f"{pk}/N65536/Young"].mean_waste, res[f"{pk}/N65536/Exact"].mean_waste
+        check(e < y, f"host path {pk}: ExactPrediction does not beat Young ({e} >= {y})")
+        anchors[pk] = {"Young": y, "Exact": e}
+    t1 = time.monotonic()
+    rows, fails = validate_sweep(res, alpha=VALIDATION_ALPHA)
+    check(len(rows) == 108 and all(math.isfinite(r.z) for r in rows), "host path z rows")
+    near = sorted(rows, key=lambda r: r.z, reverse=True)[:3]
+    pos = {layout.grid.cells[ci].label: k for k, ci in enumerate(layout.cell_order)}
+    cpu_z = cpu_cell_z(layout, [pos[r.label] for r in ([near[0]] + fails)[:3]])
+    gate = {"alpha": VALIDATION_ALPHA, "cells": len(rows), "rejects": len(fails),
+            "rejected": [{"label": r.label, "z": r.z, "cpu_z": cpu_z.get(r.label),
+                          "share_of_margin": abs(r.delta) / r.margin} for r in fails],
+            "z_max": near[0].z, "cpu_z_of_z_max_cell": cpu_z[near[0].label],
+            "abs_z_max": max(abs(r.z) for r in rows),
+            "nearest": [{"label": r.label, "z": r.z, "mean_sim": r.mean_sim,
+                         "analytic": r.analytic, "share_of_margin": abs(r.delta) / r.margin}
+                        for r in near],
+            "seconds": time.monotonic() - t1}
+    emit("host_path", grid="full", cells=len(res.cells), runs_per_cell=RUNS_PER_CELL,
+         lanes=L, seed=0, seconds=wall, lanes_per_s=L / wall,
+         split={k: meta[k] for k in ("host_gen_s", "pack_s", "copy_s", "loop_s")},
+         slab_bytes=meta["slab_bytes"], slabs=meta["slabs"], n_chunks=meta["n_chunks"],
+         outer_iters=meta["outer_iters"], host_syncs=meta["host_syncs"],
+         syncs_per_iter=meta["host_syncs"] / iters,
+         launches={k: v for k, v in launches.items() if v},
+         launches_per_iter={k: v / iters for k, v in launches.items() if v},
+         waste_N65536=anchors, validation=gate,
+         note="split: host generation of the traces (make_event_traces_batch), packing "
+              "(trust filter, slabs into pinned memory), host-to-device copy (CUDA "
+              "events) and the lane loop (wall); a Holm reject is reported beside the "
+              "CPU port's z for the cell, from the same traces")
+    main_launches = launches
+
+    # the scenario grid in host mode: the silent slab walk's path
+    reset_counts(K)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    sres = run_grid(scen, device="cuda", trace_mode="host")
+    torch.cuda.synchronize()
+    swall = time.monotonic() - t0
+    slaunches = counts(K)
+    smeta = sres.meta
+    check(slaunches["masked_slab_silent_walk"] > 0,
+          "the silent slab walk was not launched on the host-mode scenario path")
+    fams = family_counts(sres)
+    check(fams["tl"]["disk_recoveries"] > 0 and fams["sil"]["detections"] > 0,
+          f"host scenario path: {fams}")
+    emit("host_scenario_path", cells=len(sres.cells), runs_per_cell=RUNS_PER_CELL,
+         seed=SCENARIO_SEED, seconds=swall,
+         split={k: smeta[k] for k in ("host_gen_s", "pack_s", "copy_s", "loop_s")},
+         slab_bytes=smeta["slab_bytes"], outer_iters=smeta["outer_iters"],
+         host_syncs=smeta["host_syncs"],
+         launches={k: v for k, v in slaunches.items() if v}, families=fams)
+
+    # ---- 28. card against CPU, fused against per-cell ----------------- #
+    t0 = time.monotonic()
+    sub = host_sub_grid()
+    worst = card_vs_cpu_modes(run_grid(sub, device="cuda", trace_mode="host"),
+                              run_grid(sub, device="cpu", trace_mode="host"))
+    det = GridSpec(tuple(c for c in sub.cells if c.strategy.q in (0.0, 1.0)),
+                   n_runs=sub.n_runs, seed=sub.seed)
+    percell = {}
+    for mode, grid in (("host", det), ("device", sub)):
+        fused = run_grid(grid, device="cuda", collect="lanes", trace_mode=mode)
+        each = run_grid(grid, device="cuda", collect="lanes", trace_mode=mode,
+                        dispatch="percell")
+        check(each.meta["dispatches"] == len(grid.cells), f"{mode} percell dispatches")
+        for a, b in zip(fused.cells, each.cells):
+            for f in ("makespan", "n_faults", "n_proactive_ckpts", "n_regular_ckpts",
+                      "n_migrations", "n_disk_recoveries", "n_detections"):
+                check(np.array_equal(getattr(a, f), getattr(b, f)),
+                      f"{mode} {a.cell.label}: {f} differs fused vs percell")
+        percell[mode] = {"cells": len(grid.cells), "dispatches": each.meta["dispatches"]}
+    emit("host_card_vs_cpu", seconds=time.monotonic() - t0, cells=len(sub.cells),
+         runs_per_cell=sub.n_runs, N=HOST_SUB_N, max_rel_float=worst, rtol=1e-9,
+         fused_vs_percell=percell,
+         note="card vs CPU in host mode: integer columns (disk recoveries and detections "
+              "too) exact, moments rtol 1e-9; fused vs percell lane for lane, host mode on "
+              "the cells of trust 0 and 1 (a fractional q's host coins are drawn per "
+              "engine call), device mode on every cell")
+
+    # ---- 29. the paper's Tables 1-2, superposed and stationary --------- #
+    cells = tables_cells()
+    reset_counts(K)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    tres = run_cells(cells, n_runs=TABLES_RUNS, seed=TABLES_SEED, device="cuda",
+                     trace_mode="host")
+    torch.cuda.synchronize()
+    twall = time.monotonic() - t0
+    tlaunches = counts(K)
+    tmeta = tres.meta
+    check(len(tres.cells) == 160 and all(np.isfinite(c.mean_waste) and 0.0 < c.mean_waste < 1.0
+                                         for c in tres.cells), "tables: a cell's waste")
+    families = {}
+    for c in tres.cells:
+        fam = c.cell.label.split("/")[1]
+        f = families.setdefault(fam, {"cells": 0, "exhausted": 0, "gain_vs_young": []})
+        f["cells"] += 1
+        f["exhausted"] += c.n_exhausted
+        if c.cell.strategy.name != "Young":
+            base = tres[c.cell.label.rsplit("/", 1)[0] + "/Young"].mean_makespan
+            f["gain_vs_young"].append(1.0 - c.mean_makespan / base)
+    for f in families.values():
+        g = f.pop("gain_vs_young")
+        f.update(gain_vs_young_min=min(g), gain_vs_young_max=max(g))
+    emit("tables", cells=len(tres.cells), runs_per_cell=TABLES_RUNS, seed=TABLES_SEED,
+         seconds=twall, host_gen_s=tmeta["host_gen_s"], pack_s=tmeta["pack_s"],
+         copy_s=tmeta["copy_s"], loop_s=tmeta["loop_s"], slab_bytes=tmeta["slab_bytes"],
+         slabs=tmeta["slabs"], outer_iters=tmeta["outer_iters"],
+         host_syncs=tmeta["host_syncs"], launches={k: v for k, v in tlaunches.items() if v},
+         families=families,
+         note="benchmarks/sim_tables.py build_cells(quick=False) plus the Weibull 0.5 "
+              "family with stationary components, one run_cells call in host trace mode; "
+              "host_gen_s: the NumPy trace generation, loop_s: the lane loop on the card")
+
+    # ---- times of the host-mode kernels -------------------------------- #
+    t0 = time.monotonic()
+    xs = make_inputs(K, 128, 301, dev)
+    want_h = dict(zip(("t", "saved", "unsaved", "pw", "flags"), want))
+    n_copies = math.ceil(3 * L2_BYTES / (BYTES_PRIM * L))
+    prim_t = {
+        "ms": timed(lambda c: prim_host_call(K, c), x, n_copies, want_h,
+                    "masked_primitive_update[host]"),
+        "plain_ms": timed(lambda c: prim_host_call(K, c, plain=True), x, n_copies, want_h,
+                          "masked_primitive_update[host] (plain)"),
+        "launch_floor_ms": timed(lambda c: prim_host_call(K, c), xs, 64),
+        "host_call_ms": eager_ms(prim_host_call(K, {k: v.clone() for k, v in x.items()}),
+                                 200),
+        "bytes": BYTES_PRIM * L, "ops": OPS_PRIM * L, "copies": n_copies,
+    }
+    times = {"masked_primitive_update[host]": prim_t}
+    for name, c in cap.items():
+        wrapper = SLAB_WALKS[("skip", "strike", "silent").index(name)]
+        times[wrapper] = slab_times(K, c, c.run(K, plain=True), wrapper)
+    emit("host_timing", seconds=time.monotonic() - t0, lanes=L, iteration=CAPTURE_ITER,
+         times=times, registers={n: regs.get(n) for n in SLAB_WALKS + (
+             "masked_primitive_update",)},
+         note="primitive: device_ms over copies of 108,000 sampled lanes; walks: the "
+              "captured iteration's calls, device_ms over copies of what they update "
+              "(the slabs are read-only and shared); plain_ms: the plain version")
+    path_of = {"masked_slab_silent_walk": ("host-mode scenario grid", slaunches)}
+    out = []
+    for name, tm in times.items():
+        path, lc = path_of.get(name, ("host-mode full grid", main_launches))
+        out.append(sim_step_entry(
+            name, HOST_REPLACES[name], tm, lc[name], err[name], path=path,
+            registers=regs.get("masked_primitive_update" if name.endswith("[host]")
+                               else name),
+            **({"lanes": L, "faulted_lanes": n_fault} if name.endswith("[host]")
+               else {"iteration": CAPTURE_ITER})))
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -2742,6 +3298,7 @@ def main() -> int:
     kernels += mixed_law_phases(dev, regs)
     analytic_phases(dev, res, smi)
     kernels += scenario_phases(dev, regs, launches)
+    kernels += host_phases(dev, regs)
     emit("total", seconds=time.monotonic() - t_script)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

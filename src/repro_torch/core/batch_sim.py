@@ -4,14 +4,18 @@ The port's copy of the parts of the reference ``repro.core.batch_sim``
 that the device lane machine (:mod:`repro_torch.core.torch_sim`) runs on:
 the strategy-mode codes, the lane phases, the primitive kinds, the
 continuation codes with their phase tables, and the per-lane parameter
-packing.  ``tests/test_torch_host.py`` holds every table here against
-the reference.
+packing, and the host trace mode's trust filter :func:`_filter_trusted`.
+``tests/test_torch_host.py`` holds every table here against the
+reference.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from typing import Optional
+
+from .events import BatchTraces
 from .simulator import Strategy
 from .waste import Platform
 
@@ -141,3 +145,40 @@ def pad_lane_axis(a: np.ndarray, n: int, fill) -> np.ndarray:
         return a
     shape = (n - a.shape[0],) + a.shape[1:]
     return np.concatenate([a, np.full(shape, fill, dtype=a.dtype)], axis=0)
+
+
+def _filter_trusted(
+    traces: BatchTraces,
+    q: np.ndarray,
+    mode: np.ndarray,
+    rng: Optional[np.random.Generator],
+):
+    """The host trace mode's per-lane trust filter, as the reference's:
+    mode "none", silent-error lanes and q <= 0 drop every prediction,
+    q >= 1 keeps every one, and a fractional q flips one coin
+    ``rng.random() < q`` per prediction slot (the whole ``(L, P)`` block
+    in one draw; ``rng`` None is ``default_rng(0)``) and re-sorts the
+    kept ones.  Returns ``(pred_t0, pred_fault, n_kept)``."""
+    t0 = traces.pred_t0
+    ft = traces.pred_fault
+    n = traces.n_preds.astype(np.int64)
+    # silent-error lanes never trust the fail-stop predictor
+    q_eff = np.where((mode == _M_NONE) | (mode == _M_SILENT), 0.0, q)
+    frac_any = bool(((q_eff > 0.0) & (q_eff < 1.0)).any())
+    if not frac_any and not ((q_eff <= 0.0) & (n > 0)).any():
+        return t0, ft, n  # nothing dropped
+    cols = np.arange(t0.shape[1])[None, :]
+    keep = cols < n[:, None]
+    keep &= (q_eff > 0.0)[:, None]
+    frac = (q_eff > 0.0) & (q_eff < 1.0)
+    if frac.any():
+        rng = rng or np.random.default_rng(0)
+        keep &= ~frac[:, None] | (rng.random(t0.shape) < q_eff[:, None])
+    t0 = np.where(keep, t0, np.inf)
+    ft = np.where(keep, ft, np.nan)
+    if frac.any():
+        # a fractional lane drops a strict subset mid-row: re-compact
+        order = np.argsort(t0, axis=1, kind="stable")
+        t0 = np.take_along_axis(t0, order, axis=1)
+        ft = np.take_along_axis(ft, order, axis=1)
+    return t0, ft, keep.sum(axis=1).astype(np.int64)

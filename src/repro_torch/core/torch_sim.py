@@ -1,9 +1,11 @@
 """The device lane machine: the fused paper-grid Monte-Carlo sweep in
 PyTorch, with its hot step in hand-written CUDA kernels.
 
-:func:`simulate_batch_torch` is the port of the reference engine's
-device trace mode (``repro.core.jax_sim._jit_run`` with a cell-indexed
-:class:`~repro_torch.core.events.TraceSpec`).  A spec whose laws are
+:func:`simulate_batch_torch` is the port of the reference engine
+``repro.core.jax_sim._jit_run`` in both trace modes: the device trace mode
+(a :class:`~repro_torch.core.events.TraceSpec`, events drawn on the device)
+and the host trace mode (:class:`~repro_torch.core.events.BatchTraces`,
+events drawn on the host with NumPy; see *Host trace mode* below).  A spec whose laws are
 per-cell tuples (the mixed-law layout) ships each cell's law code and
 shape slots as table columns, and every stream draw goes through the
 kernels' law-indexed variant.  Every lane is
@@ -58,13 +60,35 @@ Work is f64 throughout; event counters are int64 and stream counters
 int32, as in the reference's x64 packing.  The per-lane stream subkeys
 are derived on the host with NumPy (:func:`tables_from_numpy`) and ship
 as int64 bit patterns of the 64-bit SplitMix keys.
+
+Host trace mode.  Trust is filtered on the host
+(:func:`~repro_torch.core.batch_sim._filter_trusted`, one NumPy coin per
+prediction at fractional q), then each chunk's events are packed as the
+reference packs them (:func:`_pack_chunk`): per-lane parameters and
+``(events, lanes)`` slabs of the fault dates ``F``, the merged prediction
+window starts ``P0`` and their fault dates ``Pft`` (``+inf`` / ``nan``
+padding) and, on two-level chunks, the tier coins ``Ftier`` (1.0
+padding); each slab is cut to its chunk's widest lane plus the sentinel
+row, and shipped to the card once, through pinned memory.  Every lane
+reads its events through two int64 cursors, ``fi`` (the next fault) and
+``pi`` (the next trusted prediction).  The cursor loops are one launch
+each: :func:`~repro_torch.kernels.sim_step.masked_slab_prediction_skip`,
+:func:`~repro_torch.kernels.sim_step.masked_slab_strike_walk` (which also
+marks a migration's cancelled fault in the ``Fcancel`` slab: the search
+from the lane's own cursor runs inside the kernel, so no ``(F, L)``
+compare and no host sync) and, on silent-error chunks,
+:func:`~repro_torch.kernels.sim_step.masked_slab_silent_walk`; the
+primitive is :func:`~repro_torch.kernels.sim_step.masked_primitive_update`
+without a stream (the trace-fed body).  The rest is the same masked glue
+as in device mode, the pop a gather from the slabs.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
-from typing import Optional
+import time
+from dataclasses import dataclass, replace
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -72,13 +96,15 @@ import torch
 from . import batch_sim as B
 from . import events as E
 from .batch_sim import pad_lane_axis
-from .events import TraceSpec
-from .simulator import _EPS
+from .events import BatchTraces, TraceSpec
+from .simulator import _EPS, Strategy
+from .waste import Platform
 from ..kernels.sim_step import (
     FLAG_CKPT_OK, FLAG_FAULTED, FLAG_FIN, FLAG_OK, FLAG_REG, PREDICTION_CURSORS,
     PRIM_WORK_NC, cell_gather, counter_uniform, masked_prediction_walk,
-    masked_primitive_update, masked_silent_walk, masked_stream_advance,
-    masked_strike_walk, segment_cell_sums,
+    masked_primitive_update, masked_silent_walk, masked_slab_prediction_skip,
+    masked_slab_silent_walk, masked_slab_strike_walk, masked_stream_advance,
+    masked_strike_walk, segment_cell_sums, take,
 )
 
 __all__ = [
@@ -97,6 +123,13 @@ POLL = 8
 #: on the card; the CPU path exists for tests at small sizes)
 _DEFAULT_CHUNK_CUDA = 1 << 20
 _DEFAULT_CHUNK_CPU = 10240
+#: ... in host trace mode: the reference's CPU chunk, and on the card as
+#: many lanes as fit this budget of slab bytes (between the reference's
+#: accelerator chunk and the device mode's), so a paper grid's slabs go
+#: in one chunk and its lane loop runs once
+_DEFAULT_CHUNK_CPU_HOST = 5120
+_HOST_CHUNK_CUDA_MIN = 16384
+_HOST_SLAB_BUDGET_CUDA = 8 << 30
 
 
 def resolve_device(device=None) -> torch.device:
@@ -118,9 +151,19 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def default_chunk_lanes(device: torch.device) -> int:
-    """The lane count ``chunk="auto"`` resolves to on ``device``."""
-    return _DEFAULT_CHUNK_CUDA if device.type == "cuda" else _DEFAULT_CHUNK_CPU
+def default_chunk_lanes(device: torch.device, trace_mode: str = "device",
+                        lane_bytes: int = 0) -> int:
+    """The lane count ``chunk="auto"`` resolves to on ``device``.  In host
+    trace mode on the card it depends on ``lane_bytes``, the slab bytes of
+    one lane: as many lanes as :data:`_HOST_SLAB_BUDGET_CUDA` holds, at
+    least :data:`_HOST_CHUNK_CUDA_MIN` and at most the device mode's
+    chunk."""
+    if trace_mode == "device":
+        return _DEFAULT_CHUNK_CUDA if device.type == "cuda" else _DEFAULT_CHUNK_CPU
+    if device.type != "cuda":
+        return _DEFAULT_CHUNK_CPU_HOST
+    fit = _HOST_SLAB_BUDGET_CUDA // max(int(lane_bytes), 1)
+    return int(min(max(fit, _HOST_CHUNK_CUDA_MIN), _DEFAULT_CHUNK_CUDA))
 
 
 # --------------------------------------------------------------------------- #
@@ -245,6 +288,127 @@ def _pack_chunk_spec_cells(
     consts["cidx"] = pad_lane_axis(cidx[sl].astype(np.int32), n_pad, pad_cell)
     consts.update(_stream_consts(spec, sl, n_pad))
     return consts, state
+
+
+def _pack_scalar_chunk(
+    sl: slice, n_pad: int, fdt, idt,
+    W, C, D, R, M, T_R, T_P, mode, horizon, window, horizon_fill,
+    cidx=None, pad_cell=0, tl=None, sil=None,
+):
+    """Per-lane scalar packing of one chunk (the host trace mode's): the
+    engine constants of the lanes ``sl`` padded to ``n_pad`` with benign
+    fills, the zeroed lane state and, given ``cidx``, the lane -> cell
+    index (padding lanes on row ``pad_cell``).  ``tl`` = ``(C2, R2,
+    fmem, rho)`` and ``sil`` = ``(V, kv)`` add the two-level and
+    silent-error columns.  Returns ``(fvec, consts, state)``."""
+    state = _chunk_state(sl, n_pad, fdt, idt)
+
+    def fvec(x, fill=0.0):
+        return pad_lane_axis(x[sl], n_pad, fill).astype(fdt)
+
+    Ch = fvec(C, 1.0)
+    Mh = fvec(M, 1.0)
+    modeh = pad_lane_axis(mode[sl], n_pad, 0).astype(np.int32)
+    T_Rh = fvec(T_R, 2.0)
+    windowh = fvec(window)
+    consts = {
+        "W": fvec(W, 1.0),
+        "C": Ch,
+        "DR": fvec(D) + fvec(R),
+        "T_R": T_Rh,
+        "T_P": fvec(T_P, np.nan),
+        "mode": modeh,
+        "horizon": fvec(horizon, horizon_fill),
+        "window": windowh,
+        "wpp": np.maximum(T_Rh - Ch, 1e-9),
+        "lead_act": np.where(modeh == B._M_MIGRATION, Mh, Ch),
+        "tp_eff_default": np.maximum(Ch, windowh),
+    }
+    if tl is not None:
+        C2a, R2a, fmema, rhoa = tl
+        consts["C2"] = fvec(C2a)
+        consts["DR2"] = fvec(D) + fvec(R2a)
+        consts["fmem"] = fvec(fmema)
+        consts["rho"] = fvec(rhoa, 1.0)
+    if sil is not None:
+        Va, kva = sil
+        consts["V"] = fvec(Va)
+        consts["kv"] = fvec(kva, 1.0)
+    if cidx is not None:
+        consts["cidx"] = pad_lane_axis(cidx[sl].astype(np.int32), n_pad, pad_cell)
+    return fvec, consts, state
+
+
+#: the host trace mode's event slabs
+_SLABS = ("F", "P0", "Pft", "Ftier")
+
+
+def _pack_chunk(
+    has_migration: bool, sl: slice, n_pad: int, fdt, idt,
+    W, C, D, R, M, T_R, T_P, mode, F, P0, Pft, horizon, window,
+    cidx=None, pad_cell=0, tl=None, sil=None, Ftier=None, alloc=None,
+):
+    """Host trace mode packing of one chunk, as the reference packs it:
+    :func:`_pack_scalar_chunk`'s per-lane parameters plus the event slabs
+    ``F`` / ``P0`` / ``Pft`` (and ``Ftier`` on two-level chunks) in the
+    ``(events, lanes)`` layout, padded with ``+inf`` / ``+inf`` / ``nan``
+    (1.0), and the state's cursors ``fi`` / ``pi`` (int32 zeros) and, on
+    migration chunks, ``ep_ft`` (``nan``) and the ``Fcancel`` marks.
+    ``alloc(shape, dtype)``, when given, supplies each slab's buffer (the
+    pinned staging buffers of a CUDA run); the transpose writes into
+    it."""
+    fvec, consts, state = _pack_scalar_chunk(
+        sl, n_pad, fdt, idt,
+        W, C, D, R, M, T_R, T_P, mode, horizon, window, np.inf,
+        cidx=cidx, pad_cell=pad_cell, tl=tl, sil=sil,
+    )
+
+    def events(a):  # (n_pad, E) -> (E, n_pad)
+        if alloc is None:
+            return np.ascontiguousarray(a.T)
+        out = alloc((a.shape[1], a.shape[0]), a.dtype)
+        np.copyto(out, a.T)
+        return out
+
+    def lanes(a, fill):
+        return pad_lane_axis(a[sl], n_pad, fill).astype(fdt, copy=False)
+
+    consts.update(F=events(lanes(F, np.inf)), P0=events(lanes(P0, np.inf)),
+                  Pft=events(lanes(Pft, np.nan)))
+    if Ftier is not None:
+        # per-fault recovery-tier coins, aligned column for column with F
+        consts["Ftier"] = events(lanes(Ftier, 1.0))
+    state["fi"] = np.zeros(n_pad, np.int32)
+    state["pi"] = np.zeros(n_pad, np.int32)
+    if has_migration:
+        state["ep_ft"] = np.full(n_pad, np.nan, fdt)
+        state["Fcancel"] = np.zeros(consts["F"].shape, bool)
+    return consts, state
+
+
+class _PinnedSlabs:
+    """``alloc`` of :func:`_pack_chunk` on a CUDA run: each slab is
+    staged in page-locked host memory (PyTorch's caching host allocator),
+    and :meth:`ship` copies the chunk's slabs to the card once."""
+
+    def __init__(self):
+        self.bufs = {}
+
+    def __call__(self, shape, dtype):
+        buf = torch.empty(shape, dtype=torch.from_numpy(np.empty(0, dtype)).dtype,
+                          pin_memory=True)
+        arr = buf.numpy()
+        self.bufs[arr.ctypes.data] = buf
+        return arr
+
+    def ship(self, arr: np.ndarray, device) -> torch.Tensor:
+        return self.bufs[arr.ctypes.data].to(device, non_blocking=True)
+
+
+def _host_lane_bytes(fw: int, pw: int, has_mig: bool, has_tl: bool) -> int:
+    """Slab bytes of one lane: ``F`` (and ``Ftier``, the ``Fcancel``
+    marks) over ``fw`` rows, ``P0`` and ``Pft`` over ``pw`` rows."""
+    return fw * (8 + 8 * has_tl + has_mig) + pw * 16
 
 
 _STREAM_WORDS = ("s0", "s1", "sid_lo", "sid_hi")
@@ -404,34 +568,35 @@ def _run_chunk(consts: dict, st: dict, *, gen, has_mig: bool, max_iters: int,
                eps: float, tally: _Tally, has_tl: bool = False,
                has_sil: bool = False, frac_q: bool = False) -> dict:
     """Run one packed chunk to completion (or ``max_iters``); returns the
-    final lane state.  ``consts`` comes from :func:`tables_from_numpy`,
-    ``st`` is the chunk's zeroed state on the same device.  ``gen`` is
-    ``(fault kind, param, false-prediction kind, param)``; a kind
-    ``"indexed"`` draws that stream with the law columns of ``consts``.
+    final lane state.  ``st`` is the chunk's zeroed state on the device of
+    ``consts``.
+
+    Device trace mode: ``consts`` comes from :func:`tables_from_numpy`
+    (cell tables and stream keys) and ``gen`` is ``(fault kind, param,
+    false-prediction kind, param)``; a kind ``"indexed"`` draws that
+    stream with the law columns of ``consts``.  Host trace mode (``consts``
+    holds the slab ``"F"``): ``consts`` holds :func:`_pack_chunk`'s
+    per-lane parameters and slabs, ``st`` its cursors (``gen`` and
+    ``frac_q`` are unused: trust was filtered on the host).
 
     ``has_mig`` / ``has_tl`` / ``has_sil`` say whether the chunk holds
     migration, two-level or silent-error lanes, and ``frac_q`` whether
     any lane trusts with ``0 < q < 1``: each adds its family's state and
     ops, which every other chunk does not run (two-level chunks need the
-    tier columns and ``tier_key`` in ``consts``, fractional ones
-    ``tt_key`` and ``ft_key``)."""
-    c = cell_gather(consts, consts["cidx"],
-                    _CELL_TABLE_KEYS + _LAW_TABLE_KEYS + _TIER_TABLE_KEYS)
+    tier columns and ``tier_key`` (``Ftier``) in ``consts``, fractional
+    ones ``tt_key`` and ``ft_key``)."""
+    host = "F" in consts
+    if host:
+        c = consts
+        F, P0, Pft, Ftier = (consts.get(k) for k in _SLABS)
+    else:
+        c = cell_gather(consts, consts["cidx"],
+                        _CELL_TABLE_KEYS + _LAW_TABLE_KEYS + _TIER_TABLE_KEYS)
     W, C, DR = c["W"], c["C"], c["DR"]
     T_R, T_P, mode = c["T_R"], c["T_P"], c["mode"]
     horizon, window = c["horizon"], c["window"]
     wpp, lead_act = c["wpp"], c["lead_act"]
     tp_eff_default = c["tp_eff_default"]
-    mtbf, fp_mean = c["mtbf"], c["fp_mean"]
-    recall, q_eff = c["recall"], c["q_eff"]
-    fg_key, tc_key, fp_key = c["fg_key"], c["tc_key"], c["fp_key"]
-    f_kind, f_param, fp_kind, fp_param = gen
-    # law-indexed streams: per-lane law code and (s1, s2) slots
-    f_law = f_lp = fp_law = fp_lp = None
-    if f_kind == "indexed":
-        f_law, f_lp = c["fault_law"], (c["fault_s1"], c["fault_s2"])
-    if fp_kind == "indexed":
-        fp_law, fp_lp = c["fp_law"], (c["fp_s1"], c["fp_s2"])
     dev = W.device
     inf, nan = math.inf, math.nan
     i64 = torch.int64
@@ -439,56 +604,72 @@ def _run_chunk(consts: dict, st: dict, *, gen, has_mig: bool, max_iters: int,
     MODE2PH = torch.tensor(B._MODE2PH, dtype=torch.int32, device=dev)
     is_mig = mode == B._M_MIGRATION
     tp_w = torch.where(torch.isnan(T_P), tp_eff_default, T_P) - C
-    fault = dict(kind=f_kind, param=f_param, law=f_law, lp=f_lp)
     # two-level / silent-error constants
     if has_tl:
         tl_m = mode == B._M_TWO_LEVEL
         C2, DR2, fmem, rho = c["C2"], c["DR2"], c["fmem"], c["rho"]
-        tier_key = c["tier_key"]
     if has_sil:
         sil_m = mode == B._M_SILENT
         V, kv = c["V"], c["kv"]
-    trust = dict(tt_key=c["tt_key"], ft_key=c["ft_key"], q_eff=q_eff) if frac_q else {}
 
     s = dict(st)
-
-    def predict(mask, fp_mask, until=None):
-        """Refill the prediction cursors of ``s`` in place (one walk)."""
-        masked_prediction_walk(
-            mask, fp_mask, *(s[k] for k in PREDICTION_CURSORS),
-            fg_key, mtbf, tc_key, recall, window, fp_key, fp_mean, horizon,
-            f_gap=(f_kind, f_param), fp_gap=(fp_kind, fp_param), f_law=f_law,
-            f_lp=f_lp, fp_law=fp_law, fp_lp=fp_lp, until=until, tally=tally,
-            **trust,
-        )
-
-    # prime the cursors: first strike fault, first visible TP, first false
-    # prediction; inert (padding) lanes never activate a stream
     phase = s["phase"]
-    live = phase != B._PH_DONE
-
-    def neg1():
-        return torch.full_like(phase, -1)
 
     def zf():
         return torch.zeros_like(horizon)
 
-    s.update(
-        sf_ctr=neg1(), sf_time=zf(), la_ctr=neg1(), la_time=zf(),
-        tp_t0=torch.full_like(horizon, inf), tp_ft=torch.full_like(horizon, nan),
-        tp_ctr=neg1(), fp_ctr=neg1(), fp_time=zf(),
-    )
-    masked_stream_advance(live, s["sf_ctr"], s["sf_time"], fg_key, mtbf, horizon,
-                          **fault)
-    pvis = live & (q_eff > 0.0)
-    fp_act = pvis & torch.isfinite(fp_mean)
-    predict(pvis & (recall > 0.0), fp_act)
-    s["fp_time"] = s["fp_time"].masked_fill(~fp_act, inf)
-    if has_mig:
+    if host:
+        # int64 cursors into the slabs (the gathers' index type)
+        s.update(fi=s["fi"].to(i64), pi=s["pi"].to(i64))
+    else:
+        mtbf, fp_mean = c["mtbf"], c["fp_mean"]
+        recall, q_eff = c["recall"], c["q_eff"]
+        fg_key, tc_key, fp_key = c["fg_key"], c["tc_key"], c["fp_key"]
+        f_kind, f_param, fp_kind, fp_param = gen
+        # law-indexed streams: per-lane law code and (s1, s2) slots
+        f_law = f_lp = fp_law = fp_lp = None
+        if f_kind == "indexed":
+            f_law, f_lp = c["fault_law"], (c["fault_s1"], c["fault_s2"])
+        if fp_kind == "indexed":
+            fp_law, fp_lp = c["fp_law"], (c["fp_s1"], c["fp_s2"])
+        fault = dict(kind=f_kind, param=f_param, law=f_law, lp=f_lp)
+        if has_tl:
+            tier_key = c["tier_key"]
+        trust = dict(tt_key=c["tt_key"], ft_key=c["ft_key"], q_eff=q_eff) if frac_q else {}
+
+        def predict(mask, fp_mask, until=None):
+            """Refill the prediction cursors of ``s`` in place (one walk)."""
+            masked_prediction_walk(
+                mask, fp_mask, *(s[k] for k in PREDICTION_CURSORS),
+                fg_key, mtbf, tc_key, recall, window, fp_key, fp_mean, horizon,
+                f_gap=(f_kind, f_param), fp_gap=(fp_kind, fp_param), f_law=f_law,
+                f_lp=f_lp, fp_law=fp_law, fp_lp=fp_lp, until=until, tally=tally,
+                **trust,
+            )
+
+        # prime the cursors: first strike fault, first visible TP, first
+        # false prediction; inert (padding) lanes never activate a stream
+        live = phase != B._PH_DONE
+
+        def neg1():
+            return torch.full_like(phase, -1)
+
         s.update(
-            ep_ft=torch.full_like(horizon, nan), ep_fctr=neg1(),
-            cancel0=neg1(), cancel1=neg1(), cancel2=neg1(),
+            sf_ctr=neg1(), sf_time=zf(), la_ctr=neg1(), la_time=zf(),
+            tp_t0=torch.full_like(horizon, inf), tp_ft=torch.full_like(horizon, nan),
+            tp_ctr=neg1(), fp_ctr=neg1(), fp_time=zf(),
         )
+        masked_stream_advance(live, s["sf_ctr"], s["sf_time"], fg_key, mtbf, horizon,
+                              **fault)
+        pvis = live & (q_eff > 0.0)
+        fp_act = pvis & torch.isfinite(fp_mean)
+        predict(pvis & (recall > 0.0), fp_act)
+        s["fp_time"] = s["fp_time"].masked_fill(~fp_act, inf)
+        if has_mig:
+            s.update(
+                ep_ft=torch.full_like(horizon, nan), ep_fctr=neg1(),
+                cancel0=neg1(), cancel1=neg1(), cancel2=neg1(),
+            )
     # the disk-recovery and detection counters ride along on every chunk;
     # rc is the length of the repair in progress (D + R2 after a disk
     # recovery), corrupt the date of the earliest latent corruption
@@ -504,25 +685,30 @@ def _run_chunk(consts: dict, st: dict, *, gen, has_mig: bool, max_iters: int,
         period_work, na_saved = s["period_work"], s["na_saved"]
         ep_t0, ep_end = s["ep_t0"], s["ep_end"]
         phase = s["phase"]
-        sf_ctr, sf_time = s["sf_ctr"], s["sf_time"]
         n_disk, n_det = s["n_disk"], s["n_det"]
         if has_tl:
             saved_d, dk_ctr, rc = s["saved_d"], s["dk_ctr"], s["rc"]
         if has_sil:
             saved_v, ck_v, corrupt = s["saved_v"], s["ck_v"], s["corrupt"]
-        if has_mig:
-            ep_ft, ep_fctr = s["ep_ft"], s["ep_fctr"]
-            # retire cancel slots the strike cursor has passed
-            cancels = [
-                s[k].masked_fill(sf_ctr > s[k], -1)
-                for k in ("cancel0", "cancel1", "cancel2")
-            ]
+        if host:
+            fi, pi = s["fi"], s["pi"]
+            if has_mig:
+                ep_ft, Fcancel = s["ep_ft"], s["Fcancel"]
+        else:
+            sf_ctr, sf_time = s["sf_ctr"], s["sf_time"]
+            if has_mig:
+                ep_ft, ep_fctr = s["ep_ft"], s["ep_fctr"]
+                # retire cancel slots the strike cursor has passed
+                cancels = [
+                    s[k].masked_fill(sf_ctr > s[k], -1)
+                    for k in ("cancel0", "cancel1", "cancel2")
+                ]
 
-            def is_cancelled(ctr):
-                return (
-                    (ctr == cancels[0]) | (ctr == cancels[1])
-                    | (ctr == cancels[2])
-                )
+                def is_cancelled(ctr):
+                    return (
+                        (ctr == cancels[0]) | (ctr == cancels[1])
+                        | (ctr == cancels[2])
+                    )
 
         prim = torch.zeros_like(phase)  # PRIM_NOOP
         target = torch.zeros_like(t)
@@ -530,16 +716,23 @@ def _run_chunk(consts: dict, st: dict, *, gen, has_mig: bool, max_iters: int,
 
         # ---- regular-mode decisions -------------------------------- #
         mn = phase == B._PH_MAIN
-        # skip predictions whose action point passed: consume from the
-        # merged (pending-TP, next-FP) head
-        predict(mn, None, until=(t, lead_act))
-        na = torch.minimum(s["tp_t0"], s["fp_time"]) - lead_act
+        # skip predictions whose action point passed (host: the trusted
+        # prediction cursor; device: consume from the merged (pending-TP,
+        # next-FP) head); curf is the next pending fault
+        if host:
+            masked_slab_prediction_skip(mn, t, lead_act, P0, pi, tally=tally)
+            na = take(P0, pi) - lead_act
+            curf = take(F, fi)
+        else:
+            predict(mn, None, until=(t, lead_act))
+            na = torch.minimum(s["tp_t0"], s["fp_time"]) - lead_act
+            curf = sf_time
 
         # clean-period fast-forward
-        ffm = mn & (period_work == 0.0) & (unsaved == 0.0) & (sf_time >= t)
+        ffm = mn & (period_work == 0.0) & (unsaved == 0.0) & (curf >= t)
         if has_mig:
-            ffm &= ~is_cancelled(sf_ctr)
-        k_fault = torch.floor((sf_time - t) / T_R)
+            ffm &= ~(take(Fcancel, fi) if host else is_cancelled(sf_ctr))
+        k_fault = torch.floor((curf - t) / T_R)
         k_act = torch.floor((na - t) / T_R)
         k_act = torch.where(t + k_act * T_R >= na, k_act - 1.0, k_act)
         k_done = torch.floor((W - saved - eps) / wpp)
@@ -579,20 +772,27 @@ def _run_chunk(consts: dict, st: dict, *, gen, has_mig: bool, max_iters: int,
         # ---- episode entry ----------------------------------------- #
         es = phase == B._PH_EP_START
         emig = es & is_mig
+        mig_cancel = {}
         if has_mig:
-            # the predicted fault hits the vacated node: cancel it by
-            # fault-counter index; slots fill and retire in fault order,
-            # a fourth simultaneously-pending cancel is dropped
+            # the predicted fault hits the vacated node: cancel it
             can = emig & ~torch.isnan(ep_ft) & (ep_ft >= t)
-            c0, c1, c2 = cancels
-            f0 = c0 < 0
-            f1 = ~f0 & (c1 < 0)
-            f2 = ~f0 & ~f1 & (c2 < 0)
-            cancels = [
-                torch.where(can & f0, ep_fctr, c0),
-                torch.where(can & f1, ep_fctr, c1),
-                torch.where(can & f2, ep_fctr, c2),
-            ]
+            if host:
+                # marked in Fcancel by the strike walk below, searching
+                # from the lane's own cursor (nothing reads the marks in
+                # between)
+                mig_cancel = dict(Fcancel=Fcancel, can=can, ep_ft=ep_ft)
+            else:
+                # by fault-counter index; slots fill and retire in fault
+                # order, a fourth simultaneously-pending cancel is dropped
+                c0, c1, c2 = cancels
+                f0 = c0 < 0
+                f1 = ~f0 & (c1 < 0)
+                f2 = ~f0 & ~f1 & (c2 < 0)
+                cancels = [
+                    torch.where(can & f0, ep_fctr, c0),
+                    torch.where(can & f1, ep_fctr, c1),
+                    torch.where(can & f2, ep_fctr, c2),
+                ]
         prim = prim.masked_fill(emig, B._PR_IDLE)
         target = torch.where(emig, ep_t0, target)
         cont = cont.masked_fill(emig, B._C_MIG)
@@ -661,45 +861,68 @@ def _run_chunk(consts: dict, st: dict, *, gen, has_mig: bool, max_iters: int,
         # repair in progress, of length rc: D + R, or D + R2 after a disk
         # recovery); cancelled faults are skipped; silent-error strikes
         # are not fail-stop events, so those lanes skip the cascade
-        t, sf_ctr, sf_time, n_faults = masked_strike_walk(
-            res & ~sil_m if has_sil else res, t, sf_ctr, sf_time, s["n_faults"],
-            rc if has_tl else DR, fg_key, mtbf, horizon,
-            **fault, cancels=cancels if has_mig else None, tally=tally,
-        )
-
-        # the hot step: the struck fault is consumed and the strike cursor
-        # refilled inside the kernel (nf IS the strike cursor's date).
-        # Two-level and silent chunks hand the kernel a copy: sf_time keeps
-        # the struck date (the disk recovery restarts from it) and the
-        # silent lanes' cursor, masked to +inf in the copy (silent strikes
-        # never interrupt a primitive, so the kernel leaves their counter
-        # alone), is kept from it
-        if has_tl:
-            # the tier coin of the fault struck now: the pre-consumption
-            # counter (the kernel advances sf_ctr in place)
-            u_tier = counter_uniform(tier_key, sf_ctr)
-        if has_sil:
-            nf = sf_time.masked_fill(sil_m, inf)
-        elif has_tl:
-            nf = sf_time.clone()
+        res_f = res & ~sil_m if has_sil else res
+        rc_now = rc if has_tl else DR
+        if host:
+            t, fi, n_faults = masked_slab_strike_walk(
+                res_f, t, fi, s["n_faults"], rc_now, F, tally=tally, **mig_cancel,
+            )
+            # the fault struck now (the primitive reads it off the slab)
+            nf = take(F, fi)
+            if has_tl:
+                # its tier coin, at the pre-consumption cursor
+                u_tier = take(Ftier, fi)
+            struck = nf
+            if has_sil:
+                # silent strikes never interrupt a primitive
+                nf = nf.masked_fill(sil_m, inf)
+            # the trace-fed body: no stream to refill
+            t, saved, unsaved, period_work, flags = masked_primitive_update(
+                prim, cont, target, ckend, nf,
+                t, saved, unsaved, period_work, W, DR,
+                eps=eps, reg_cont=int(B._C_CKPTREG),
+            )
         else:
-            nf = sf_time
-        stream = (fg_key, sf_ctr, nf, mtbf, horizon)
-        if f_kind == "indexed":
-            stream += (f_law, *f_lp)
-        # (the refilled cursor lands in sf_ctr and nf, in place)
-        t, saved, unsaved, period_work, flags = masked_primitive_update(
-            prim, cont, target, ckend, nf,
-            t, saved, unsaved, period_work, W, DR,
-            eps=eps, reg_cont=int(B._C_CKPTREG),
-            stream=stream, gap=(f_kind, f_param),
-        )[:5]
+            t, sf_ctr, sf_time, n_faults = masked_strike_walk(
+                res_f, t, sf_ctr, sf_time, s["n_faults"], rc_now, fg_key, mtbf,
+                horizon, **fault, cancels=cancels if has_mig else None, tally=tally,
+            )
+            # the hot step: the struck fault is consumed and the strike
+            # cursor refilled inside the kernel (nf IS the strike cursor's
+            # date).  Two-level and silent chunks hand the kernel a copy:
+            # sf_time keeps the struck date (the disk recovery restarts
+            # from it) and the silent lanes' cursor, masked to +inf in the
+            # copy (silent strikes never interrupt a primitive, so the
+            # kernel leaves their counter alone), is kept from it
+            if has_tl:
+                # the tier coin of the fault struck now: the
+                # pre-consumption counter (the kernel advances sf_ctr)
+                u_tier = counter_uniform(tier_key, sf_ctr)
+            if has_sil:
+                nf = sf_time.masked_fill(sil_m, inf)
+            elif has_tl:
+                nf = sf_time.clone()
+            else:
+                nf = sf_time
+            struck = sf_time
+            stream = (fg_key, sf_ctr, nf, mtbf, horizon)
+            if f_kind == "indexed":
+                stream += (f_law, *f_lp)
+            # (the refilled cursor lands in sf_ctr and nf, in place)
+            t, saved, unsaved, period_work, flags = masked_primitive_update(
+                prim, cont, target, ckend, nf,
+                t, saved, unsaved, period_work, W, DR,
+                eps=eps, reg_cont=int(B._C_CKPTREG),
+                stream=stream, gap=(f_kind, f_param),
+            )[:5]
         faulted = (flags & FLAG_FAULTED) != 0
         ok = (flags & FLAG_OK) != 0
         fin = (flags & FLAG_FIN) != 0
         cok = (flags & FLAG_CKPT_OK) != 0
         reg = (flags & FLAG_REG) != 0
 
+        if host:
+            fi = fi + faulted.to(i64)  # the struck fault is consumed
         n_faults = n_faults + faulted.to(i64)
         phase = phase.masked_fill(faulted, B._PH_MAIN).masked_fill(fin, B._PH_DONE)
         n_pro = s["n_pro"] + (cok & ~reg).to(i64)
@@ -710,7 +933,7 @@ def _run_chunk(consts: dict, st: dict, *, gen, has_mig: bool, max_iters: int,
             # kernel applied the memory-tier rollback t = nf + DR)
             disk = faulted & tl_m & (u_tier >= fmem)
             mem = faulted & tl_m & ~disk
-            t = torch.where(disk, sf_time + DR2, t)
+            t = torch.where(disk, struck + DR2, t)
             saved = torch.where(disk, saved_d, saved)
             dk_ctr = dk_ctr.masked_fill(disk, 0.0)
             rc = torch.where(mem, DR, torch.where(disk, DR2, rc))
@@ -722,18 +945,23 @@ def _run_chunk(consts: dict, st: dict, *, gen, has_mig: bool, max_iters: int,
             saved_d = torch.where(dk, saved, saved_d)
             dk_ctr = dk_ctr.masked_fill(dk, 0.0)
             dk_ctr = torch.where(reg & tl_m & ~disk_int, dk_ctr + 1.0, dk_ctr)
-        if has_sil:
-            sf_time = torch.where(sil_m, sf_time, nf)
-        elif has_tl:
-            sf_time = nf
+        if not host:
+            if has_sil:
+                sf_time = torch.where(sil_m, sf_time, nf)
+            elif has_tl:
+                sf_time = nf
 
         if has_sil:
             # consume latent strikes up to the new clock: they corrupt the
             # state silently instead of interrupting the primitive
-            sf_ctr, sf_time, corrupt = masked_silent_walk(
-                res & sil_m, t, sf_ctr, sf_time, corrupt, fg_key, mtbf, horizon,
-                **fault, tally=tally,
-            )
+            if host:
+                fi, corrupt = masked_slab_silent_walk(res & sil_m, t, fi, corrupt, F,
+                                                      tally=tally)
+            else:
+                sf_ctr, sf_time, corrupt = masked_silent_walk(
+                    res & sil_m, t, sf_ctr, sf_time, corrupt, fg_key, mtbf, horizon,
+                    **fault, tally=tally,
+                )
             # verification caught a latent corruption: roll back past every
             # unverified checkpoint to the verified frontier
             vok = cok & ver_int
@@ -758,35 +986,43 @@ def _run_chunk(consts: dict, st: dict, *, gen, has_mig: bool, max_iters: int,
         popm = cmask & (cont == B._C_POP_EP)
         ckr = cmask & (cont == B._C_CKPTREG)
 
-        # pop the merged-head prediction into the episode registers and
-        # refill the consumed cursor; for _C_CKPTREG (action point fell
+        # pop the next prediction into the episode registers (host: the
+        # trusted-prediction cursor's; device: the merged head's, and the
+        # consumed cursor is refilled); for _C_CKPTREG (action point fell
         # inside the regular checkpoint) enter the episode only if the
         # window start is still current
-        p0v = torch.minimum(s["tp_t0"], s["fp_time"])
+        p0v = take(P0, pi) if host else torch.minimum(s["tp_t0"], s["fp_time"])
         takep = ckr & (na_saved <= t) & torch.isfinite(p0v)
         good = takep & (p0v >= t - 1e-9)
         pop = popm | takep
-        use_tp = pop & (s["tp_t0"] <= s["fp_time"])
         ep_t0 = torch.where(pop, p0v, ep_t0)
         ep_end = torch.where(pop, p0v + window, ep_end)
         phase = phase.masked_fill(popm | good, B._PH_EP_START)
-        if has_mig:
-            ep_ft = torch.where(
-                pop, torch.where(use_tp, s["tp_ft"], nan), ep_ft
-            )
-            ep_fctr = torch.where(
-                pop, s["tp_ctr"].masked_fill(~use_tp, -1), ep_fctr
-            )
-            s.update(ep_ft=ep_ft, ep_fctr=ep_fctr, cancel0=cancels[0],
-                     cancel1=cancels[1], cancel2=cancels[2])
-        predict(use_tp, pop & ~use_tp)
+        if host:
+            if has_mig:
+                ep_ft = torch.where(pop, take(Pft, pi), ep_ft)
+                s.update(ep_ft=ep_ft)
+            pi = pi + pop.to(i64)
+            s.update(fi=fi, pi=pi)
+        else:
+            use_tp = pop & (s["tp_t0"] <= s["fp_time"])
+            if has_mig:
+                ep_ft = torch.where(
+                    pop, torch.where(use_tp, s["tp_ft"], nan), ep_ft
+                )
+                ep_fctr = torch.where(
+                    pop, s["tp_ctr"].masked_fill(~use_tp, -1), ep_fctr
+                )
+                s.update(ep_ft=ep_ft, ep_fctr=ep_fctr, cancel0=cancels[0],
+                         cancel1=cancels[1], cancel2=cancels[2])
+            predict(use_tp, pop & ~use_tp)
+            s.update(sf_ctr=sf_ctr, sf_time=sf_time)
 
         s.update(
             t=t, saved=saved, unsaved=unsaved, period_work=period_work,
             na_saved=na_saved, ep_t0=ep_t0, ep_end=ep_end,
             n_faults=n_faults, n_pro=n_pro, n_reg=n_reg, n_mig=n_mig,
-            phase=phase, exhausted=exhausted, sf_ctr=sf_ctr, sf_time=sf_time,
-            n_disk=n_disk, n_det=n_det,
+            phase=phase, exhausted=exhausted, n_disk=n_disk, n_det=n_det,
         )
         if has_tl:
             s.update(saved_d=saved_d, dk_ctr=dk_ctr, rc=rc)
@@ -832,24 +1068,67 @@ def _dist_static(d):
     return d.kind, float(d.param)
 
 
+def _cell_layout(traces, cell_index, plats_c, strats_c, collect: str):
+    """The lane -> cell index and cell count of a call: a cell-indexed
+    spec's own; a per-lane spec's lanes each their own cell; host traces
+    per-lane unless ``cell_index`` maps them onto the cells of
+    ``plats_c`` / ``strats_c`` (the reference's rules)."""
+    L = traces.n_lanes
+    spec_celled = isinstance(traces, TraceSpec) and traces.cell_index is not None
+    if cell_index is None and spec_celled:
+        cell_index = traces.cell_index
+    if collect == "stats" and cell_index is None:
+        raise ValueError("collect='stats' requires cell_index")
+    if isinstance(traces, TraceSpec) and not spec_celled and cell_index is not None:
+        raise ValueError("cell_index with a TraceSpec requires the cell-indexed "
+                         "layout (TraceSpec.cell_index)")
+    if cell_index is None:
+        return np.arange(L, dtype=np.int32), L
+    cidx = np.asarray(cell_index, np.int32)
+    if cidx.shape != (L,):
+        raise ValueError(f"cell_index must have shape ({L},), got {cidx.shape}")
+    if spec_celled:
+        if traces.cell_index is not cell_index and not np.array_equal(traces.cell_index, cidx):
+            raise ValueError("cell_index does not match traces.cell_index")
+        n_cells = traces.n_cells
+    else:
+        for arg in (plats_c, strats_c):
+            if not isinstance(arg, (Platform, Strategy)):
+                n_cells = len(arg)
+                break
+        else:
+            n_cells = int(cidx.max()) + 1 if L else 0
+    if L and (cidx.min() < 0 or cidx.max() >= n_cells):
+        raise ValueError(f"cell_index entries must be in [0, {n_cells})")
+    return cidx, n_cells
+
+
 def simulate_batch_torch(
     work_c,
     plats_c,
     strats_c,
-    spec: TraceSpec,
+    traces: Union[TraceSpec, BatchTraces],
     *,
+    rng: Optional[np.random.Generator] = None,
+    cell_index=None,
     device=None,
     chunk="auto",
     max_iters: int = 5_000_000,
     collect: str = "stats",
     info: Optional[dict] = None,
 ):
-    """Run a cell-indexed device-trace sweep through the lane machine.
+    """Run a sweep through the lane machine.
 
-    ``work_c`` / ``plats_c`` / ``strats_c`` describe the ``spec.n_cells``
-    cells; ``spec`` maps the lanes onto them and carries the failure law:
-    one :class:`~repro_torch.core.events.Distribution` (the single-law
-    kernels) or a tuple of them, one per cell (the law-indexed kernels).
+    ``traces`` is a :class:`~repro_torch.core.events.TraceSpec` (device
+    trace mode: events drawn on the device from per-lane counter streams;
+    ``rng`` unused) or host-drawn :class:`~repro_torch.core.events.
+    BatchTraces` (host trace mode: trust filtered on the host with
+    ``rng``, events shipped as slabs).  ``cell_index`` maps each lane onto
+    a cell: ``work_c`` / ``plats_c`` / ``strats_c`` then describe cells.
+    It defaults to a cell-indexed spec's own; without one every lane is
+    its own cell (``collect="stats"`` needs cells).  A spec's law is one
+    :class:`~repro_torch.core.events.Distribution` (the single-law
+    kernels) or a tuple of them, one per row (the law-indexed kernels).
     Every strategy mode runs (two-level and silent-error cells among
     them), at any trust level.  Runs on CUDA unless ``device`` names
     another device (``device="cpu"`` runs the kernels' plain PyTorch
@@ -860,66 +1139,152 @@ def simulate_batch_torch(
                 from the rounding of the per-cell float sums.
     collect     "stats" (default): per-cell :class:`CellSums` reduced on
                 the device; "lanes": per-lane :class:`LaneResult`.
-    info        a dict the call fills with its device, outer iterations
-                (summed over chunks), host syncs and chunk count.
+    info        a dict the call fills with its device, trace mode, outer
+                iterations (summed over chunks), host syncs and chunk
+                count; in host trace mode also the host packing seconds,
+                the slabs' host-to-device copy seconds (CUDA events on the
+                card), the lane loops' wall seconds and the slab shapes
+                and bytes of each chunk.
     """
     dev = resolve_device(device)
     if collect not in ("lanes", "stats"):
         raise ValueError(f"unknown collect {collect!r} (expected 'lanes' or 'stats')")
-    if not isinstance(spec, TraceSpec):
-        raise TypeError("simulate_batch_torch needs a cell-indexed TraceSpec")
-    L, n_cells = spec.n_lanes, spec.n_cells
-    cidx_g = spec.cell_index
+    if not isinstance(traces, (TraceSpec, BatchTraces)):
+        raise TypeError("simulate_batch_torch needs a TraceSpec or BatchTraces")
+    host = isinstance(traces, BatchTraces)
+    L = traces.n_lanes
+    cidx_g, n_cells = _cell_layout(traces, cell_index, plats_c, strats_c, collect)
     plats, strats = B._cell_lists(plats_c, strats_c, n_cells)
     W, C, D, R, M, T_R, T_P, mode, q = B._lane_params(work_c, plats, strats, n_cells)
     tl_c, sil_c = mode == B._M_TWO_LEVEL, mode == B._M_SILENT
     tier = B._tier_params(plats, strats) if (tl_c | sil_c).any() else None
-    # no predictions on mode "none"; silent-error cells never trust the
-    # fail-stop predictor; 0 < q < 1 thins both prediction streams by
-    # trust coins
-    q_eff = np.where((mode == B._M_NONE) | sil_c, 0.0, np.clip(q, 0.0, 1.0))
-    frac_c = (q_eff > 0.0) & (q_eff < 1.0)
-    f_kind, f_param = _dist_static(spec.fault_dist)
-    fp_kind, fp_param = _dist_static(spec.false_pred_dist)
-    gen = (f_kind, f_param, fp_kind, fp_param)
     n_tab = max(8, 1 << int(n_cells).bit_length())
     fdt, idt = np.float64, np.int64
-    tables = _cell_tables(
-        n_cells, n_tab, fdt, W, C, D, R, M, T_R, T_P, mode,
-        spec.horizon, spec.window,
-        spec.mtbf, spec.fp_mean, spec.recall, q_eff,
-        fault_laws=E.law_table(spec.fault_dist) if f_kind == "indexed" else None,
-        fp_laws=E.law_table(spec.false_pred_dist) if fp_kind == "indexed" else None,
-        tier=tier,
-    )
+    meta = {"trace_mode": "host" if host else "device"}
+    if host:
+        t_pack = time.monotonic()
+        lane = dict(zip(("W", "C", "D", "R", "M", "T_R", "T_P", "mode", "q"),
+                        (a[cidx_g] for a in (W, C, D, R, M, T_R, T_P, mode, q))))
+        if tier is not None:
+            lane.update(zip(("C2", "R2", "V", "fmem", "rho", "kv"),
+                            (a[cidx_g] for a in tier)))
+        p_t0, p_ft, _ = B._filter_trusted(traces, lane["q"], lane["mode"], rng)
+        F = E.pad_sentinel(traces.fault_times, traces.n_faults, np.inf)
+        P0 = E.pad_sentinel(p_t0, traces.n_preds, np.inf)
+        Pft = E.pad_sentinel(p_ft, traces.n_preds, np.nan)
+        Ftier = None
+        if tl_c.any():
+            Ftier = traces.fault_tier
+            if Ftier is None:
+                if float(tier[3][tl_c].max(initial=0.0)) > 0.0:
+                    raise ValueError(
+                        "two-level lanes with f > 0 need per-fault tier draws: "
+                        "generate traces with make_event_traces_batch(..., tier=True)"
+                    )
+                Ftier = np.ones_like(traces.fault_times)
+            Ftier = E.pad_sentinel(Ftier, traces.n_faults, 1.0)
+        meta.update(pack_s=time.monotonic() - t_pack, copy_s=0.0, loop_s=0.0,
+                    slab_bytes=0, slabs=[])
+        lane_bytes = _host_lane_bytes(F.shape[1], P0.shape[1], bool(
+            (mode == B._M_MIGRATION).any()), Ftier is not None)
+    else:
+        spec = traces
+        if spec.cell_index is None:  # per-lane parameters: one cell a lane
+            spec = replace(spec, cell_index=cidx_g)
+        # no predictions on mode "none"; silent-error cells never trust
+        # the fail-stop predictor; 0 < q < 1 thins both prediction streams
+        # by trust coins
+        q_eff = np.where((mode == B._M_NONE) | sil_c, 0.0, np.clip(q, 0.0, 1.0))
+        frac_c = (q_eff > 0.0) & (q_eff < 1.0)
+        f_kind, f_param = _dist_static(spec.fault_dist)
+        fp_kind, fp_param = _dist_static(spec.false_pred_dist)
+        gen = (f_kind, f_param, fp_kind, fp_param)
+        tables = _cell_tables(
+            n_cells, n_tab, fdt, W, C, D, R, M, T_R, T_P, mode,
+            spec.horizon, spec.window,
+            spec.mtbf, spec.fp_mean, spec.recall, q_eff,
+            fault_laws=E.law_table(spec.fault_dist) if f_kind == "indexed" else None,
+            fp_laws=E.law_table(spec.false_pred_dist) if fp_kind == "indexed" else None,
+            tier=tier,
+        )
+        lane_bytes = 0
     if chunk == "auto":
-        chunk = default_chunk_lanes(dev)
+        chunk = default_chunk_lanes(dev, meta["trace_mode"], lane_bytes)
     chunk = max(L, 1) if chunk is None else min(int(chunk), max(L, 1))
     tally = _Tally()
     acc = torch.zeros(n_tab, 13, dtype=torch.float64, device=dev)
     outs = []
     n_chunks = 0
+    cuda = dev.type == "cuda"
+    copy_events = []
     for lo in range(0, L, chunk):
         sl = slice(lo, min(lo + chunk, L))
+        n = sl.stop - sl.start
         n_chunks += 1
-        consts, state = _pack_chunk_spec_cells(
-            tables, spec, cidx_g, n_cells, sl, sl.stop - sl.start, fdt, idt
-        )
         # each chunk runs the state and ops of the families it holds
         cells = cidx_g[sl]
         has_mig = bool((mode[cells] == B._M_MIGRATION).any())
         has_tl, has_sil = bool(tl_c[cells].any()), bool(sil_c[cells].any())
-        frac_q = bool(frac_c[cells].any())
-        keys = _BASE_KEYS + ("tier_key",) * has_tl + ("tt_key", "ft_key") * frac_q
-        c = tables_from_numpy(consts, dev, keys)
-        fin = _run_chunk(
-            c, _to_device(state, dev), gen=gen, has_mig=has_mig, has_tl=has_tl,
-            has_sil=has_sil, frac_q=frac_q, max_iters=max_iters, eps=float(_EPS),
-            tally=tally,
-        )
+        if host:
+            t0 = time.monotonic()
+            # slabs cut to the chunk's widest lane and its sentinel row
+            fw = int(traces.n_faults[sl].max(initial=0)) + 1
+            pw = int(traces.n_preds[sl].max(initial=0)) + 1
+            pinned = _PinnedSlabs() if cuda else None
+            consts, state = _pack_chunk(
+                has_mig, sl, n, fdt, idt,
+                *(lane[k] for k in ("W", "C", "D", "R", "M", "T_R", "T_P", "mode")),
+                F[:, :fw], P0[:, :pw], Pft[:, :pw], traces.horizon, traces.window,
+                cidx=cidx_g, pad_cell=n_cells,
+                tl=tuple(lane[k] for k in ("C2", "R2", "fmem", "rho")) if has_tl else None,
+                sil=(lane["V"], lane["kv"]) if has_sil else None,
+                Ftier=Ftier[:, :fw] if has_tl else None, alloc=pinned,
+            )
+            state.pop("Fcancel", None)  # zeros: made on the device
+            meta["pack_s"] += time.monotonic() - t0
+            slabs = {k: consts.pop(k) for k in _SLABS if k in consts}
+            c = _to_device(consts, dev)
+            t0 = time.monotonic()
+            if cuda:
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                c.update({k: pinned.ship(v, dev) for k, v in slabs.items()})
+                ev[1].record()
+                copy_events.append(ev)
+            else:
+                c.update({k: torch.from_numpy(v) for k, v in slabs.items()})
+                meta["copy_s"] += time.monotonic() - t0
+            st = _to_device(state, dev)
+            if has_mig:
+                st["Fcancel"] = torch.zeros(c["F"].shape, dtype=torch.bool, device=dev)
+            nbytes = sum(v.nbytes for v in slabs.values()) + (
+                st["Fcancel"].numel() if has_mig else 0)
+            meta["slab_bytes"] += nbytes
+            meta["slabs"].append({**{k: list(v.shape) for k, v in slabs.items()},
+                                  "bytes": nbytes})
+            t0 = time.monotonic()
+            fin = _run_chunk(c, st, gen=None, has_mig=has_mig, has_tl=has_tl,
+                             has_sil=has_sil, max_iters=max_iters, eps=float(_EPS),
+                             tally=tally)
+            meta["loop_s"] += time.monotonic() - t0
+            cidx_dev = c["cidx"]
+            Wl = c["W"]
+        else:
+            consts, state = _pack_chunk_spec_cells(tables, spec, cidx_g, n_cells, sl, n,
+                                                   fdt, idt)
+            frac_q = bool(frac_c[cells].any())
+            keys = _BASE_KEYS + ("tier_key",) * has_tl + ("tt_key", "ft_key") * frac_q
+            c = tables_from_numpy(consts, dev, keys)
+            fin = _run_chunk(
+                c, _to_device(state, dev), gen=gen, has_mig=has_mig, has_tl=has_tl,
+                has_sil=has_sil, frac_q=frac_q, max_iters=max_iters, eps=float(_EPS),
+                tally=tally,
+            )
+            cidx_dev = c["cidx"]
+            Wl = c["W"].index_select(0, cidx_dev)
         if collect == "stats":
-            Wl = c["W"].index_select(0, c["cidx"])
-            acc += _cell_sums(fin, Wl, c["cidx"], n_tab)
+            acc += _cell_sums(fin, Wl, cidx_dev, n_tab)
         else:
             out = {
                 k: fin[k].cpu().numpy()
@@ -929,10 +1294,13 @@ def simulate_batch_torch(
             if not (out.pop("phase") == B._PH_DONE).all():
                 raise RuntimeError("torch lane machine did not converge")
             outs.append(out)
+    if copy_events:
+        torch.cuda.synchronize(dev)
+        meta["copy_s"] = sum(a.elapsed_time(b) for a, b in copy_events) / 1e3
     if info is not None:
         info.update(
             device=str(dev), outer_iters=tally.iters, host_syncs=tally.syncs,
-            n_chunks=n_chunks,
+            n_chunks=n_chunks, **meta,
         )
     if collect == "stats":
         cs = acc.cpu().numpy()

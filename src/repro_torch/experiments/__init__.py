@@ -10,7 +10,7 @@ from .paper_grid import (
     silent_grid_cells,
     two_level_grid_cells,
 )
-from .runner import build_fused_layout, run_grid
+from .runner import FusedLayout, build_fused_layout, run_cells, run_grid
 from .validation import (
     analytic_waste,
     analytic_waste_batch,
@@ -31,7 +31,9 @@ __all__ = [
     "paper_policy_table",
     "silent_grid_cells",
     "two_level_grid_cells",
+    "FusedLayout",
     "build_fused_layout",
+    "run_cells",
     "run_grid",
     "analytic_waste",
     "analytic_waste_batch",

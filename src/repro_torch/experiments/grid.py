@@ -31,8 +31,12 @@ __all__ = ["ExperimentCell", "GridSpec", "CellResult", "SweepResult"]
 class ExperimentCell:
     """One grid cell: a (platform, predictor, strategy, failure-law) point.
 
-    ``n_runs`` overrides the grid-wide Monte-Carlo repetition count for
-    this cell; ``None`` inherits :attr:`GridSpec.n_runs`."""
+    ``n_components`` draws the fault trace as the superposition of that
+    many component renewal processes (host trace mode only), fresh at
+    t = 0 or, with ``stationary``, each started from its equilibrium
+    residual life.  ``n_runs`` overrides the grid-wide Monte-Carlo
+    repetition count for this cell; ``None`` inherits
+    :attr:`GridSpec.n_runs`.  The fields keep the reference's order."""
 
     label: str
     work: float
@@ -41,6 +45,8 @@ class ExperimentCell:
     strategy: Strategy
     fault_dist: Optional[Distribution] = None  # None -> exponential
     false_pred_dist: Optional[Distribution] = None
+    n_components: Optional[int] = None
+    stationary: bool = False
     horizon_factor: float = 12.0
     n_runs: Optional[int] = None
 
@@ -49,9 +55,15 @@ class ExperimentCell:
         return self.fault_dist or exponential()
 
     def group_key(self) -> Tuple:
-        """Cells sharing a key sample their traces from one law family."""
+        """Cells sharing a key sample their traces from one law family
+        with one superposition setting."""
         fp = self.false_pred_dist
-        return (self.dist.name, fp.name if fp is not None else None)
+        return (
+            self.dist.name,
+            fp.name if fp is not None else None,
+            self.n_components,
+            self.stationary,
+        )
 
 
 @dataclass(frozen=True)

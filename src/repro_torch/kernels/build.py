@@ -78,6 +78,13 @@ _SIGNATURES = {
         # silr, t, sf_ctr, sf_time, corrupt, key, mean, horizon; the law
         "sim_step_silent_walk": [_I64] + [_P] * 8 + [_I32, _F64, _F64, _P],
         "sim_step_silent_walk_indexed": [_I64] + [_P] * 8 + [_P, _P, _P, _P],
+        # the host trace mode's slab walks: lanes, slab rows, then pointers
+        # mask, t, lead_act, P0, pi
+        "sim_step_slab_prediction_skip": [_I64, _I64] + [_P] * 6,
+        # res, t, fi, n_faults, rc, F, Fcancel, can, ep_ft
+        "sim_step_slab_strike_walk": [_I64, _I64] + [_P] * 10,
+        # silr, t, fi, corrupt, F
+        "sim_step_slab_silent_walk": [_I64, _I64] + [_P] * 6,
     },
     "ckpt_codec": {
         "ckpt_quantize": [_I64, _P, _P, _P, _P, _I32, _P],

@@ -103,6 +103,34 @@
 // log1p or the lognormal's log / cos / exp in f64, dependent on the last),
 // not bytes: the bound counts both.
 //
+// sim_step_slab_prediction_skip, sim_step_slab_strike_walk and
+// sim_step_slab_silent_walk are the host trace mode's cursor loops, which the
+// reference runs as lax.while_loops with no Pallas kernel
+// (src/repro/core/jax_sim.py l.460-469, l.689-716, l.812-829).  There the
+// events are host-drawn slabs laid out (events, lanes): row r holds every
+// lane's r-th event, so slab[r * n + i] is lane i's event r and neighbouring
+// threads read neighbouring addresses while their cursors move in step.
+// Each lane walks its own int64 cursor in place, one thread per lane:
+//   - prediction skip: on the lanes of mask, advance pi while the window
+//     start P0[pi] less lead_act is before t (predictions whose action point
+//     has passed);
+//   - slab strike walk: first, on the lanes of can (a migration's vacated
+//     node), mark the first not yet cancelled row at or after fi whose fault
+//     date is ep_ft in the Fcancel slab (rows are sorted, so the search stops
+//     at the first later date); then on the lanes of res, while the fault at
+//     fi is before t or cancelled: a fault within the repair window rc
+//     restarts the repair (t = date + rc, one more fault), then fi moves on;
+//   - slab silent walk: on the lanes of silr, while the fault at fi is at or
+//     before t, it corrupts the state silently (corrupt = min(corrupt,
+//     date)) and fi moves on.
+// No cursor passes the slab's last row (the +inf sentinel row every host
+// slab ends with).  The walks only compare and add, so a lane's outputs are
+// bit for bit those of the plain versions' masked passes
+// (kernels/sim_step.py slab_prediction_skip, slab_strike_walk,
+// slab_silent_walk).  What bounds them: the mask of every lane, the record
+// of the masked lanes, and one slab element per step a lane takes; a step is
+// a dependent load, so a walk's time is its longest warp's chain of loads.
+//
 // Numerics: build with --fmad=false.  Otherwise nvcc contracts
 // tm + g, tm - u_off * window and the lognormal exponent into FMAs, and the
 // kernels differ in the last bits from their plain PyTorch versions (and
@@ -657,6 +685,105 @@ __global__ void silent_walk_kernel(int64_t n, SilentArgs a) {
   }
 }
 
+// ---- the host trace mode's slab walks --------------------------------- //
+
+__global__ void slab_prediction_skip_kernel(int64_t n, int64_t rows,
+                                            const bool* __restrict__ mask,
+                                            const double* __restrict__ t,
+                                            const double* __restrict__ lead_act,
+                                            const double* __restrict__ P0,
+                                            int64_t* __restrict__ pi) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t last = rows - 1;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n; i += stride) {
+    if (!mask[i]) continue;
+    const double tt = t[i];
+    const double lead = lead_act[i];
+    const int64_t p0 = pi[i];
+    int64_t p = p0;
+    while (p < last && P0[p * n + i] - lead < tt) ++p;
+    if (p != p0) pi[i] = p;
+  }
+}
+
+__global__ void slab_strike_walk_kernel(
+    int64_t n, int64_t rows, const bool* __restrict__ res,
+    double* __restrict__ t, int64_t* __restrict__ fi,
+    int64_t* __restrict__ n_faults, const double* __restrict__ rc,
+    const double* __restrict__ F, bool* __restrict__ Fcancel,
+    const bool* __restrict__ can, const double* __restrict__ ep_ft) {
+  const bool has_mig = Fcancel != nullptr;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t last = rows - 1;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n; i += stride) {
+    const bool r = res[i];
+    const bool cn = can != nullptr && can[i];
+    if (!r && !cn) continue;
+    const int64_t f0 = fi[i];
+    if (cn) {
+      // cancel the vacated node's predicted fault: the first row at or after
+      // the cursor with its date and no cancel mark yet
+      const double e = ep_ft[i];
+      for (int64_t j = f0;; ++j) {
+        const double v = F[j * n + i];
+        if (v == e && !Fcancel[j * n + i]) {
+          Fcancel[j * n + i] = true;
+          break;
+        }
+        if (!(v <= e) || j >= last) break;
+      }
+    }
+    if (!r) continue;
+    double tt = t[i];
+    double cf = F[f0 * n + i];
+    bool cc = has_mig && Fcancel[f0 * n + i];
+    if (!((cc || cf < tt) && f0 < last)) continue;
+    const double dr = rc[i];
+    int64_t nflt = n_faults[i];
+    int64_t f = f0;
+    do {  // a fault during the repair restarts it; cancelled ones are skipped
+      if (!cc && cf >= tt - dr) {
+        tt = cf + dr;
+        ++nflt;
+      }
+      ++f;
+      cf = F[f * n + i];
+      cc = has_mig && Fcancel[f * n + i];
+    } while ((cc || cf < tt) && f < last);
+    t[i] = tt;
+    fi[i] = f;
+    n_faults[i] = nflt;
+  }
+}
+
+__global__ void slab_silent_walk_kernel(int64_t n, int64_t rows,
+                                        const bool* __restrict__ silr,
+                                        const double* __restrict__ t,
+                                        int64_t* __restrict__ fi,
+                                        double* __restrict__ corrupt,
+                                        const double* __restrict__ F) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t last = rows - 1;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n; i += stride) {
+    if (!silr[i]) continue;
+    const double tt = t[i];
+    int64_t f = fi[i];
+    double cf = F[f * n + i];
+    if (!(cf <= tt && f < last)) continue;
+    double cor = corrupt[i];
+    do {  // the fault at or before the clock corrupts silently
+      cor = nan_min(cor, cf);
+      ++f;
+      cf = F[f * n + i];
+    } while (cf <= tt && f < last);
+    fi[i] = f;
+    corrupt[i] = cor;
+  }
+}
+
 unsigned int blocks_for(int64_t n) {
   int64_t b = (n + kThreads - 1) / kThreads;
   return static_cast<unsigned int>(b < kMaxBlocks ? b : kMaxBlocks);
@@ -830,5 +957,43 @@ extern "C" int sim_step_silent_walk_indexed(
                      key,  mean, horizon, LawRef{kLawExponential, 0.0, 0.0, law_i, s1, s2}};
   silent_walk_kernel<true><<<blocks_for(n), kThreads, 0,
                              static_cast<cudaStream_t>(stream)>>>(n, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The host trace mode's slab walks: n lanes, slabs of rows x n, int64
+// cursors.  Fcancel, can and ep_ft are null without migration.
+extern "C" int sim_step_slab_prediction_skip(int64_t n, int64_t rows,
+                                             const bool* mask, const double* t,
+                                             const double* lead_act,
+                                             const double* P0, int64_t* pi,
+                                             void* stream) {
+  if (n <= 0) return 0;
+  slab_prediction_skip_kernel<<<blocks_for(n), kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      n, rows, mask, t, lead_act, P0, pi);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int sim_step_slab_strike_walk(int64_t n, int64_t rows,
+                                         const bool* res, double* t,
+                                         int64_t* fi, int64_t* n_faults,
+                                         const double* rc, const double* F,
+                                         bool* Fcancel, const bool* can,
+                                         const double* ep_ft, void* stream) {
+  if (n <= 0) return 0;
+  slab_strike_walk_kernel<<<blocks_for(n), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      n, rows, res, t, fi, n_faults, rc, F, Fcancel, can, ep_ft);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int sim_step_slab_silent_walk(int64_t n, int64_t rows,
+                                         const bool* silr, const double* t,
+                                         int64_t* fi, double* corrupt,
+                                         const double* F, void* stream) {
+  if (n <= 0) return 0;
+  slab_silent_walk_kernel<<<blocks_for(n), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      n, rows, silr, t, fi, corrupt, F);
   return static_cast<int>(cudaGetLastError());
 }

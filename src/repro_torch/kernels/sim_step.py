@@ -23,7 +23,18 @@ kernel, with no host sync; their plain versions, :func:`prediction_walk`,
 passes over all lanes, each pass's condition one host sync.  Every
 wrapper updates its state arguments in place and returns them.
 
-Every kernel comes in two variants.  The single-law one takes one
+The host trace mode reads host-drawn event slabs laid out ``(events,
+lanes)`` through per-lane int64 cursors; its three cursor loops are one
+launch each too: :func:`masked_slab_prediction_skip` (the skip over
+predictions whose action point has passed), :func:`masked_slab_strike_walk`
+(a migration's cancel mark, then the stale-fault cascade) and
+:func:`masked_slab_silent_walk` (latent strikes up to the clock), with
+plain versions :func:`slab_prediction_skip`, :func:`slab_strike_walk` and
+:func:`slab_silent_walk`.  Its primitive is :func:`masked_primitive_update`
+without a stream, the trace-fed body, counted apart in
+``.host_launches``.
+
+The device-trace kernels come in two variants.  The single-law one takes one
 ``(kind, param)`` per launch and stream; the law-indexed one
 (``kind="indexed"``, the mixed-law sweep) takes three more per-lane
 inputs, the int32 law code and the ``s1`` / ``s2`` shape slots of
@@ -65,7 +76,9 @@ __all__ = [
     "stream_advance", "primitive_update", "prediction_walk", "strike_walk",
     "silent_walk", "masked_stream_advance", "masked_primitive_update",
     "masked_prediction_walk", "masked_strike_walk", "masked_silent_walk",
-    "PREDICTION_CURSORS",
+    "PREDICTION_CURSORS", "take", "slab_prediction_skip", "slab_strike_walk",
+    "slab_silent_walk", "masked_slab_prediction_skip", "masked_slab_strike_walk",
+    "masked_slab_silent_walk", "sample_slab_state",
     "cell_gather", "segment_cell_sums", "sample_lane_state", "SAMPLE_LAWS",
     "sample_lane_laws", "sample_walk_state", "lane_state_tensors",
 ]
@@ -458,6 +471,97 @@ def silent_walk(
 
 
 # --------------------------------------------------------------------------- #
+# The host trace mode's slab walks
+# --------------------------------------------------------------------------- #
+def take(slab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``slab[idx[l], l]`` for every lane ``l`` of an ``(events, lanes)``
+    slab and int64 cursors ``idx``."""
+    return slab.gather(0, idx.unsqueeze(0)).squeeze(0)
+
+
+def slab_prediction_skip(mask, t, lead_act, P0, pi, *, tally=None):
+    """On the lanes of ``mask``, advance the prediction cursor ``pi`` while
+    the window start ``P0[pi]`` less ``lead_act`` is before ``t`` (the
+    reference's host-mode skip loop).  A cursor stops at the slab's last
+    row.  Returns the new ``pi``.  Masked passes, each pass's condition one
+    host sync through ``tally.any``."""
+    any_ = _sync(tally)
+    last = P0.shape[0] - 1
+    while True:
+        adv = mask & (take(P0, pi) - lead_act < t) & (pi < last)
+        if not any_(adv):
+            return pi
+        pi = pi + adv.to(pi.dtype)
+
+
+def slab_strike_walk(res, t, fi, n_faults, rc, F, *, Fcancel=None, can=None,
+                     ep_ft=None, tally=None):
+    """The host trace mode's stale-fault cascade on the fault slab ``F``
+    (the reference's host-mode ``s_cond`` / ``s_body``), with the
+    migration cancel before it.
+
+    With ``Fcancel`` (the bool cancel-mark slab of a migration chunk) and
+    ``can`` / ``ep_ft``: on the lanes of ``can``, the first row at or
+    after ``fi`` whose date is ``ep_ft`` and whose mark is clear gets its
+    mark set (rows are sorted, so the search ends at the first later
+    date); ``Fcancel`` is updated in place.  Then on the lanes of ``res``,
+    while the fault at ``fi`` is before ``t`` or marked: an unmarked fault
+    within the repair window ``rc`` restarts the repair (``t = date +
+    rc``, one more fault), and ``fi`` moves on.  No cursor passes the
+    slab's last row.  Returns ``(t, fi, n_faults)`` as new tensors.
+    Masked passes, each pass's condition one host sync through
+    ``tally.any``."""
+    any_ = _sync(tally)
+    last = F.shape[0] - 1
+    if can is not None:
+        lane = torch.arange(F.shape[1], device=F.device)
+        flat = Fcancel.view(-1)
+        j, act = fi, can
+        while any_(act):
+            v = take(F, j)
+            cur = take(Fcancel, j)
+            hit = act & (v == ep_ft) & ~cur
+            flat.scatter_(0, j * F.shape[1] + lane, cur | hit)
+            act = act & ~hit & (v <= ep_ft) & (j < last)
+            j = j + act.to(j.dtype)
+    while True:
+        cf = take(F, fi)
+        stale = cf < t
+        if Fcancel is not None:
+            cc = take(Fcancel, fi)
+            stepm = res & (cc | stale) & (fi < last)
+        else:
+            stepm = res & stale & (fi < last)
+        if not any_(stepm):
+            return t, fi, n_faults
+        hit = stepm & (cf >= t - rc)
+        if Fcancel is not None:
+            hit &= ~cc
+        t = torch.where(hit, cf + rc, t)
+        n_faults = n_faults + hit.to(n_faults.dtype)
+        fi = fi + stepm.to(fi.dtype)
+
+
+def slab_silent_walk(silr, t, fi, corrupt, F, *, tally=None):
+    """On the lanes of ``silr``, while the fault at ``fi`` of the slab
+    ``F`` is at or before ``t``: it corrupts the state silently
+    (``corrupt = min(corrupt, date)``) and ``fi`` moves on (the
+    reference's host-mode ``sc_cond`` / ``sc_body``).  No cursor passes
+    the slab's last row.  Returns ``(fi, corrupt)`` as new tensors.
+    Masked passes, each pass's condition one host sync through
+    ``tally.any``."""
+    any_ = _sync(tally)
+    last = F.shape[0] - 1
+    while True:
+        cf = take(F, fi)
+        hit = silr & (cf <= t) & (fi < last)
+        if not any_(hit):
+            return fi, corrupt
+        corrupt = torch.where(hit, torch.minimum(corrupt, cf), corrupt)
+        fi = fi + hit.to(fi.dtype)
+
+
+# --------------------------------------------------------------------------- #
 # Kernel wrappers
 # --------------------------------------------------------------------------- #
 def _check(name: str, specs) -> torch.device:
@@ -600,10 +704,15 @@ def masked_primitive_update(
     0.0)``.  prim / cont / ctr / law are int32, key int64, the rest f64,
     all flat ``(L,)``.
 
+    Without a stream (the host trace mode: ``nf`` read off the host-drawn
+    fault slab) it is the trace-fed body, the counterpart of the
+    reference's ``_step_kernel``.
+
     CUDA tensors launch ``sim_step_primitive_update`` (its ``_indexed``
     variant for the 8-tuple); CPU tensors run the plain version.
     ``masked_primitive_update.launches`` counts the single-law kernel's
-    launches, ``.indexed_launches`` the law-indexed kernel's."""
+    launches with a stream, ``.indexed_launches`` the law-indexed
+    kernel's, ``.host_launches`` the trace-fed launches (no stream)."""
     f64, i32 = torch.float64, torch.int32
     specs = [
         ("prim", prim, i32), ("cont", cont, i32), ("target", target, f64),
@@ -671,6 +780,8 @@ def masked_primitive_update(
     if t.numel():
         if indexed:
             masked_primitive_update.indexed_launches += 1
+        elif stream is None:
+            masked_primitive_update.host_launches += 1
         else:
             masked_primitive_update.launches += 1
     if stream is None:
@@ -680,6 +791,7 @@ def masked_primitive_update(
 
 masked_primitive_update.launches = 0
 masked_primitive_update.indexed_launches = 0
+masked_primitive_update.host_launches = 0
 
 
 def masked_prediction_walk(
@@ -884,6 +996,146 @@ masked_silent_walk.launches = 0
 masked_silent_walk.indexed_launches = 0
 
 
+def _check_slab(name: str, dev: torch.device, n: int, specs) -> None:
+    """Validate ``(arg_name, slab, dtype)`` specs: 2-D ``(rows, n)`` with
+    at least one row, contiguous, on ``dev``."""
+    for arg, x, dt in specs:
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{name}: {arg} must be a tensor")
+        if x.device != dev:
+            raise ValueError(f"{name}: {arg} is on {x.device}, expected {dev}")
+        if x.dtype != dt:
+            raise TypeError(f"{name}: {arg} has dtype {x.dtype}, expected {dt}")
+        if x.dim() != 2 or x.shape[1] != n or x.shape[0] < 1:
+            raise ValueError(
+                f"{name}: {arg} has shape {tuple(x.shape)}, expected (rows, {n})"
+            )
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: {arg} is not contiguous")
+
+
+def masked_slab_prediction_skip(mask, t, lead_act, P0, pi, *, tally=None):
+    """:func:`slab_prediction_skip`, **in place**: ``pi`` (int64) is both
+    input and output, and is returned.  ``mask`` is bool, ``t`` /
+    ``lead_act`` f64, all flat ``(L,)``; ``P0`` is the f64 ``(rows, L)``
+    slab.
+
+    CUDA tensors launch ``sim_step_slab_prediction_skip``: one launch, no
+    host sync.  CPU tensors run the plain version.
+    ``masked_slab_prediction_skip.launches`` counts the launches."""
+    f64 = torch.float64
+    dev = _check("masked_slab_prediction_skip", [
+        ("mask", mask, torch.bool), ("t", t, f64), ("lead_act", lead_act, f64),
+        ("pi", pi, torch.int64),
+    ])
+    _check_slab("masked_slab_prediction_skip", dev, pi.numel(), [("P0", P0, f64)])
+    if dev.type == "cpu":
+        pi.copy_(slab_prediction_skip(mask, t, lead_act, P0, pi, tally=tally))
+        return pi
+    from . import build
+
+    rc = build.load("sim_step").sim_step_slab_prediction_skip(
+        pi.numel(), P0.shape[0], mask.data_ptr(), t.data_ptr(), lead_act.data_ptr(),
+        P0.data_ptr(), pi.data_ptr(), _stream_ptr(dev),
+    )
+    _raise_on("masked_slab_prediction_skip", rc)
+    if pi.numel():
+        masked_slab_prediction_skip.launches += 1
+    return pi
+
+
+masked_slab_prediction_skip.launches = 0
+
+
+def masked_slab_strike_walk(res, t, fi, n_faults, rc, F, *, Fcancel=None, can=None,
+                            ep_ft=None, tally=None):
+    """:func:`slab_strike_walk`, **in place**: ``t``, ``fi`` (int64) and
+    ``n_faults`` (int64) are both inputs and outputs, and are returned;
+    ``Fcancel`` (bool, the shape of ``F``) is updated in place.  ``res`` /
+    ``can`` are bool, ``rc`` / ``ep_ft`` f64, all flat ``(L,)``; ``F`` is
+    the f64 ``(rows, L)`` fault slab.  ``Fcancel``, ``can`` and ``ep_ft``
+    come all three (a migration chunk) or not at all.
+
+    CUDA tensors launch ``sim_step_slab_strike_walk``: one launch, no host
+    sync.  CPU tensors run the plain version.
+    ``masked_slab_strike_walk.launches`` counts the launches."""
+    f64 = torch.float64
+    specs = [
+        ("res", res, torch.bool), ("t", t, f64), ("fi", fi, torch.int64),
+        ("n_faults", n_faults, torch.int64), ("rc", rc, f64),
+    ]
+    mig = (Fcancel, can, ep_ft)
+    if any(x is not None for x in mig):
+        if any(x is None for x in mig):
+            raise ValueError("masked_slab_strike_walk: Fcancel, can and ep_ft go together")
+        specs += [("can", can, torch.bool), ("ep_ft", ep_ft, f64)]
+    dev = _check("masked_slab_strike_walk", specs)
+    slabs = [("F", F, f64)]
+    if Fcancel is not None:
+        slabs.append(("Fcancel", Fcancel, torch.bool))
+        if Fcancel.shape != F.shape:
+            raise ValueError("masked_slab_strike_walk: Fcancel is not the shape of F")
+    _check_slab("masked_slab_strike_walk", dev, t.numel(), slabs)
+    state = (t, fi, n_faults)
+    if dev.type == "cpu":
+        out = slab_strike_walk(res, t, fi, n_faults, rc, F, Fcancel=Fcancel, can=can,
+                               ep_ft=ep_ft, tally=tally)
+        for dst, src in zip(state, out):
+            dst.copy_(src)
+        return state
+    from . import build
+
+    ptr = lambda x: x.data_ptr() if x is not None else None  # noqa: E731
+    code = build.load("sim_step").sim_step_slab_strike_walk(
+        t.numel(), F.shape[0], res.data_ptr(), t.data_ptr(), fi.data_ptr(),
+        n_faults.data_ptr(), rc.data_ptr(), F.data_ptr(), *(ptr(x) for x in mig),
+        _stream_ptr(dev),
+    )
+    _raise_on("masked_slab_strike_walk", code)
+    if t.numel():
+        masked_slab_strike_walk.launches += 1
+    return state
+
+
+masked_slab_strike_walk.launches = 0
+
+
+def masked_slab_silent_walk(silr, t, fi, corrupt, F, *, tally=None):
+    """:func:`slab_silent_walk`, **in place**: ``fi`` (int64) and
+    ``corrupt`` (f64) are both inputs and outputs, and are returned.
+    ``silr`` is bool, ``t`` f64, all flat ``(L,)``; ``F`` is the f64
+    ``(rows, L)`` fault slab.
+
+    CUDA tensors launch ``sim_step_slab_silent_walk``: one launch, no host
+    sync.  CPU tensors run the plain version.
+    ``masked_slab_silent_walk.launches`` counts the launches."""
+    f64 = torch.float64
+    dev = _check("masked_slab_silent_walk", [
+        ("silr", silr, torch.bool), ("t", t, f64), ("fi", fi, torch.int64),
+        ("corrupt", corrupt, f64),
+    ])
+    _check_slab("masked_slab_silent_walk", dev, t.numel(), [("F", F, f64)])
+    state = (fi, corrupt)
+    if dev.type == "cpu":
+        out = slab_silent_walk(silr, t, fi, corrupt, F, tally=tally)
+        for dst, src in zip(state, out):
+            dst.copy_(src)
+        return state
+    from . import build
+
+    rc = build.load("sim_step").sim_step_slab_silent_walk(
+        t.numel(), F.shape[0], silr.data_ptr(), t.data_ptr(), fi.data_ptr(),
+        corrupt.data_ptr(), F.data_ptr(), _stream_ptr(dev),
+    )
+    _raise_on("masked_slab_silent_walk", rc)
+    if t.numel():
+        masked_slab_silent_walk.launches += 1
+    return state
+
+
+masked_slab_silent_walk.launches = 0
+
+
 # --------------------------------------------------------------------------- #
 # Cell multiplexing (fused experiment sweeps)
 # --------------------------------------------------------------------------- #
@@ -1036,8 +1288,54 @@ def sample_walk_state(L: int, seed: int) -> dict:
     return out
 
 
+def sample_slab_state(L: int, E: int, seed: int) -> dict:
+    """Seeded NumPy states of the kind the host trace mode hands the slab
+    walks: ``(E, L)`` slabs of sorted dates with ``+inf`` past each lane's
+    count (at least the last row; some lanes repeat a date), cursors at or
+    before each lane's count, clocks before and well past the cursor's
+    date (walks of many rows and of none), about 5% of the fault rows
+    marked cancelled, cancelling lanes whose ``ep_ft`` is a later row's
+    date (marked or not), a date between rows, or one before the cursor,
+    and masks clear on about a third of the lanes."""
+    rng = np.random.default_rng(seed)
+    rows = np.arange(E)[:, None]
+
+    def slab(mean):
+        n = rng.integers(0, E, L)  # valid dates; row E - 1 is always +inf
+        n = np.minimum(n, E - 1)
+        d = np.cumsum(rng.exponential(mean, (E, L)), axis=0)
+        rep = (rng.random(L) < 0.1) & (E > 1)  # a repeated date
+        j = rng.integers(0, max(E - 1, 1), L)
+        d[j[rep] + 1, np.flatnonzero(rep)] = d[j[rep], np.flatnonzero(rep)]
+        return np.where(rows < n[None, :], d, np.inf), n
+
+    F, nf = slab(3e3)
+    P0, npr = slab(2e3)
+    fi = rng.integers(0, nf + 1)
+    pi = rng.integers(0, npr + 1)
+    lanes = np.arange(L)
+    base = np.where(np.isfinite(F[fi, lanes]), F[fi, lanes], 0.0)
+    t = base + rng.uniform(-2e3, 3e4, L)
+    ahead = np.minimum(fi + rng.integers(0, 6, L), E - 1)
+    ep_ft = np.where(rng.random(L) < 0.7, F[ahead, lanes], base + 1.5)
+    ep_ft = np.where(rng.random(L) < 0.1, base - 10.0, ep_ft)
+    can = (rng.random(L) < 0.3) & np.isfinite(ep_ft)
+    return {
+        "F": F, "P0": P0, "fi": fi.astype(np.int64), "pi": pi.astype(np.int64),
+        "t": t, "lead_act": rng.choice([60.0, 600.0], L),
+        "mask": rng.random(L) < 0.7, "res": rng.random(L) < 0.7,
+        "silr": rng.random(L) < 0.5,
+        "rc": rng.choice([660.0, 3600.0], L),
+        "n_faults": rng.integers(0, 50, L).astype(np.int64),
+        "corrupt": np.where(rng.random(L) < 0.5, np.inf, t - rng.uniform(0.0, 5e4, L)),
+        "Fcancel": (rng.random((E, L)) < 0.05) & np.isfinite(F),
+        "can": can, "ep_ft": ep_ft,
+    }
+
+
 def lane_state_tensors(x: dict, device) -> dict:
-    """:func:`sample_lane_state`'s (or :func:`sample_walk_state`'s) arrays
+    """:func:`sample_lane_state`'s (or :func:`sample_walk_state`'s, or
+    :func:`sample_slab_state`'s) arrays
     as the wrappers take them, on ``device``: the uint64 keys as int64 bit
     patterns."""
     out = {}

@@ -3,9 +3,12 @@ reference: rate identities, laws, the scalar waste forms, periods and
 their case analyses, strategies, lane codes, per-lane packing, the
 shared analytic table, the fused layout, the chunk packers, the
 mixed-law layout (law tables, concatenated specs, law columns), the
-two-level and silent grids and the host checkpoint codec.  Everything
-here is NumPy or Python doubles on both sides, so every comparison is
-exact."""
+two-level and silent grids, the host checkpoint codec, and the host
+trace mode's copies (batched and superposed traces drawn from the same
+seeds, ``BatchTraces``, the ``TraceSpec`` host replay, the trust filter,
+the host chunk packer, the host layout, ``ExperimentCell``'s field
+order).  Everything here is NumPy or Python doubles on both sides, so
+every comparison is exact."""
 
 import math
 from dataclasses import replace
@@ -605,3 +608,204 @@ def test_analytic_cell_tables_match():
         for k, v in ta.items():
             np.testing.assert_array_equal(v, tb[k], err_msg=k)
             assert v.dtype == tb[k].dtype, k
+
+
+# --------------------------------------------------------------------------- #
+# the host trace mode: batched traces, trust filter, host packing, layout
+# --------------------------------------------------------------------------- #
+TRACE_FIELDS = ("horizon", "fault_times", "fault_predicted", "n_faults", "pred_t0",
+                "pred_fault", "n_preds", "window", "lead", "fault_tier")
+
+
+def _same_traces(a, b):
+    for k in TRACE_FIELDS:
+        x, y = getattr(a, k), getattr(b, k)
+        assert (x is None) == (y is None), k
+        if x is not None:
+            np.testing.assert_array_equal(x, y, err_msg=k)
+            assert x.dtype == y.dtype, k
+
+
+def _trace_pair(L=40, seed=3, law=("exponential",), **kw):
+    """The same batch drawn by both sides from one seed."""
+    rd, pd = getattr(RE, law[0])(*law[1:]), getattr(PE, law[0])(*law[1:])
+    args = dict(horizon=np.linspace(1e5, 4e5, L), mtbf=np.linspace(2e3, 3e4, L),
+                recall=np.linspace(0.0, 1.0, L), precision=0.4, window=900.0, lead=60.0)
+    args.update(kw)
+    return (RE.make_event_traces_batch(np.random.default_rng(seed), L, fault_dist=rd, **args),
+            PE.make_event_traces_batch(np.random.default_rng(seed), L, fault_dist=pd, **args))
+
+
+@pytest.mark.parametrize("round_pow2,min_width", [(False, 1), (True, 8), (True, 1)])
+def test_pad_sentinel_matches(round_pow2, min_width):
+    rng = np.random.default_rng(2)
+    for width in (0, 3, 9):
+        a = np.sort(rng.random((6, width)), axis=1)
+        counts = rng.integers(0, width + 1, 6)
+        np.testing.assert_array_equal(
+            PE.pad_sentinel(a, counts, np.inf, round_pow2, min_width),
+            RE.pad_sentinel(a, counts, np.inf, round_pow2, min_width))
+
+
+@pytest.mark.parametrize("law", [("exponential",), ("weibull", 0.7), ("lognormal", 1.0),
+                                 ("uniform",)])
+@pytest.mark.parametrize("tier", [False, True])
+def test_event_traces_batch_match(law, tier):
+    _same_traces(*_trace_pair(law=law, tier=tier))
+
+
+@pytest.mark.parametrize("stationary", [False, True])
+@pytest.mark.parametrize("law", [("exponential",), ("weibull", 0.5)])
+def test_superposed_traces_match(stationary, law):
+    a, b = _trace_pair(L=12, law=law, n_components=48, stationary=stationary, tier=True)
+    _same_traces(a, b)
+    rd, pd = getattr(RE, law[0])(*law[1:]), getattr(PE, law[0])(*law[1:])
+    h, m = np.full(9, 2e5), np.linspace(1e3, 9e3, 9)
+    for x, y in zip(RE.superposed_fault_times_batch(np.random.default_rng(4), h, m, 32, rd,
+                                                    stationary),
+                    PE.superposed_fault_times_batch(np.random.default_rng(4), h, m, 32, pd,
+                                                    stationary)):
+        np.testing.assert_array_equal(x, y)
+
+
+def test_batch_traces_take_tile_concat_lane_match():
+    (ra, pa), (rb, pb) = _trace_pair(tier=True), _trace_pair(L=7, seed=5)
+    rows = np.array([3, 3, 0, 39, 12])
+    _same_traces(ra.take(rows), pa.take(rows))
+    _same_traces(ra.tile(3), pa.tile(3))
+    _same_traces(RE.BatchTraces.concat([ra, rb, ra.take(rows)]),
+                 PE.BatchTraces.concat([pa, pb, pa.take(rows)]))
+    assert pa.n_lanes == ra.n_lanes
+    for i in (0, 17, 39):
+        x, y = ra.lane(i), pa.lane(i)
+        assert x.horizon == y.horizon
+        assert [(f.time, f.predicted, f.tier_u) for f in x.faults] == [
+            (f.time, f.predicted, f.tier_u) for f in y.faults]
+        assert [(p.t0, p.window, p.fault_time, p.lead, p.announce_time, p.is_true_positive)
+                for p in x.predictions] == [
+            (p.t0, p.window, p.fault_time, p.lead, p.announce_time, p.is_true_positive)
+            for p in y.predictions]
+        for k in ("n_true_positive", "n_false_positive", "n_false_negative"):
+            assert getattr(x, k) == getattr(y, k)
+        assert x.empirical_recall() == y.empirical_recall()
+        assert x.empirical_precision() == y.empirical_precision()
+
+
+@pytest.mark.parametrize("law", [("exponential", 0.0), ("weibull", 0.7), ("weibull", 0.5),
+                                 ("lognormal", 1.0), ("uniform", 0.0)])
+def test_gap_transform_np_matches(law):
+    rng = np.random.default_rng(6)
+    x0, x1 = (rng.integers(0, 2**32, 300, dtype=np.uint32) for _ in range(2))
+    mean = rng.uniform(10.0, 1e5, 300)
+    np.testing.assert_array_equal(PE.gap_transform_np(*law, mean, x0, x1),
+                                  RE.gap_transform_np(*law, mean, x0, x1))
+
+
+def _spec_pair(mixed: bool):
+    kw = dict(horizon=[1e5, 2e5, 3e5], mtbf=[3e3, 5e3, 2e4], recall=[0.5, 0.9, 0.0],
+              precision=[0.4, 0.8, 1.0], window=[600.0, 0.0, 3000.0], lead=60.0,
+              seed=4, stream=np.arange(100, 121), cell_index=np.repeat([0, 1, 2], 7))
+    laws = ((RE.weibull(0.7), RE.lognormal(0.5), RE.exponential()),
+            (PE.weibull(0.7), PE.lognormal(0.5), PE.exponential()))
+    if not mixed:
+        laws = (RE.weibull(0.7), PE.weibull(0.7))
+    return (RE.make_trace_spec(21, fault_dist=laws[0], **kw),
+            PE.make_trace_spec(21, fault_dist=laws[1], **kw))
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_trace_spec_expand_take_materialize_match(mixed):
+    rs, ps = _spec_pair(mixed)
+    rows = np.array([20, 0, 7, 7, 13])
+    for a, b in ((rs.expand(), ps.expand()), (rs.take(rows), ps.take(rows)),
+                 (rs.expand().take(rows), ps.expand().take(rows)),
+                 (rs.tile(2), ps.tile(2)), (rs.expand().indexed(), ps.expand().indexed())):
+        for k in ("horizon", "mtbf", "recall", "precision", "window", "lead", "stream"):
+            np.testing.assert_array_equal(getattr(a, k), getattr(b, k), err_msg=k)
+        assert (a.cell_index is None) == (b.cell_index is None) and a.n_cells == b.n_cells
+        if a.cell_index is not None:
+            np.testing.assert_array_equal(a.cell_index, b.cell_index)
+        for k in ("fault_dist", "false_pred_dist"):
+            da, db = getattr(a, k), getattr(b, k)
+            da, db = (da, db) if isinstance(da, tuple) else ((da,), (db,))
+            assert [(d.kind, d.param) for d in da] == [(d.kind, d.param) for d in db]
+    _same_traces(rs.materialize(), ps.materialize())
+    _same_traces(rs.take(rows).materialize(), ps.take(rows).materialize())
+
+
+@pytest.mark.parametrize("q", [0.0, 0.5, 1.0])
+def test_filter_trusted_matches(q):
+    ra, pa = _trace_pair(L=30)
+    mode = np.resize(np.array([0, 1, 4, 6, 3], np.int8), 30)
+    qs = np.where(np.arange(30) % 3 == 0, 1.0, q)
+    for x, y in zip(RB._filter_trusted(ra, qs, mode, np.random.default_rng(9)),
+                    PB._filter_trusted(pa, qs, mode, np.random.default_rng(9))):
+        np.testing.assert_array_equal(x, y)
+        assert x.dtype == y.dtype
+
+
+@pytest.mark.parametrize("families", ["plain", "migration+two_level+silent"])
+def test_host_chunk_packer_matches(families):
+    ra, pa = _trace_pair(L=50, tier=True)
+    L, rng = 50, np.random.default_rng(8)
+    cols = [rng.uniform(1.0, 9.0, L) for _ in range(7)]  # W C D R M T_R T_P
+    mode = np.resize(np.array([0, 4, 5, 6, 1], np.int8) if families != "plain"
+                     else np.array([0, 1, 3], np.int8), L)
+    F = RE.pad_sentinel(ra.fault_times, ra.n_faults, np.inf, round_pow2=True, min_width=8)
+    P0 = RE.pad_sentinel(ra.pred_t0, ra.n_preds, np.inf, round_pow2=True, min_width=8)
+    Pft = RE.pad_sentinel(ra.pred_fault, ra.n_preds, np.nan, round_pow2=True, min_width=8)
+    Ft = RE.pad_sentinel(ra.fault_tier, ra.n_faults, 1.0, round_pow2=True, min_width=8)
+    extra = {}
+    if families != "plain":
+        extra = dict(tl=tuple(rng.uniform(0.0, 1.0, L) for _ in range(4)),
+                     sil=(rng.uniform(1.0, 5.0, L), rng.integers(1, 4, L)), Ftier=Ft)
+    sl = slice(5, 5 + 37)
+    args = (families != "plain", sl, 64, np.float64, np.int64, *cols, mode, F, P0, Pft,
+            ra.horizon, ra.window)
+    cidx = rng.integers(0, 9, L).astype(np.int32)
+    (ca, sa), (cb, sb) = (mod._pack_chunk(*args, cidx=cidx, pad_cell=9, **extra)
+                          for mod in (PT, RJ))
+    for a, b in ((ca, cb), (sa, sb)):
+        assert set(a) == set(b)
+        for k, v in a.items():
+            np.testing.assert_array_equal(v, b[k], err_msg=k)
+            assert v.dtype == b[k].dtype and v.shape == b[k].shape, k
+            assert v.flags.c_contiguous, k
+
+
+@pytest.mark.parametrize("preset", ["validation", "bench"])
+def test_host_fused_layout_matches(preset):
+    cells = lambda mk, ev: tuple(  # noqa: E731
+        list(mk(preset)) + [replace(c, label="sp/" + c.label, fault_dist=ev.weibull(0.5),
+                                    n_components=16, stationary=i == 1)
+                            for i, c in enumerate(mk("validation")[:2])])
+    ref = RGridSpec(cells(ref_cells, RE), n_runs=3, seed=5)
+    port = GridSpec(cells(paper_grid_cells, PE), n_runs=3, seed=5)
+    a, b = build_fused_layout(port, "host"), ref_layout(ref, "host")
+    assert a.cell_order == b.cell_order and a.n_groups == b.n_groups and not a.specs
+    for k in ("runs_o", "offs", "cidx", "work_c"):
+        np.testing.assert_array_equal(getattr(a, k), getattr(b, k))
+    _same_traces(a.traces, b.traces)
+    _same_traces(a.host_traces(), b.host_traces())
+    # a device layout's host traces: its streams replayed on the host
+    d = build_fused_layout(GridSpec(port.cells[:-2], n_runs=3, seed=5), "device")
+    e = ref_layout(RGridSpec(ref.cells[:-2], n_runs=3, seed=5), "device")
+    assert d.traces is None
+    _same_traces(d.host_traces(), e.host_traces())
+
+
+def test_experiment_cell_positional_fields_match():
+    from repro.experiments import ExperimentCell as RCell
+    from repro_torch.experiments import ExperimentCell as PCell
+
+    assert [f for f in PCell.__dataclass_fields__] == [f for f in RCell.__dataclass_fields__]
+    ref_c, port_c = ref_cells("validation")[1], paper_grid_cells("validation")[1]
+    ra = (ref_c.label, 1e5, ref_c.platform, ref_c.predictor, ref_c.strategy,
+          RE.weibull(0.5), RE.uniform(), 64, True, 6.0, 17)
+    pa = (port_c.label, 1e5, port_c.platform, port_c.predictor, port_c.strategy,
+          PE.weibull(0.5), PE.uniform(), 64, True, 6.0, 17)
+    a, b = RCell(*ra), PCell(*pa)
+    for k in ("label", "work", "n_components", "stationary", "horizon_factor", "n_runs"):
+        assert getattr(a, k) == getattr(b, k), k
+    assert (a.dist.name, a.false_pred_dist.name) == (b.dist.name, b.false_pred_dist.name)
+    assert a.group_key() == b.group_key()

@@ -270,3 +270,154 @@ def test_cell_gather_and_segment_sums_match_jnp():
     )
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-13, atol=0)
     np.testing.assert_array_equal(got.numpy()[:, 1:], np.asarray(want)[:, 1:])
+
+
+# --------------------------------------------------------------------------- #
+# The host trace mode: the trace-fed primitive and the slab walks
+# --------------------------------------------------------------------------- #
+def test_trace_fed_wrapper_matches_step_kernel():
+    """Without a stream the wrapper runs the trace-fed body: on the CPU
+    its plain version, in place, equal to the reference's ``_step_kernel``
+    (interpret mode); no launch is counted."""
+    x = _lane_inputs(512, 21)
+    s = _torch_args(x)
+    n0 = (K.masked_primitive_update.launches, K.masked_primitive_update.host_launches)
+    got = K.masked_primitive_update(*(s[k] for k in _PRIM_ARGS), eps=1e-6, reg_cont=1)
+    assert len(got) == 5 and all(g is s[k] for g, k in zip(got, ("t", "saved", "unsaved",
+                                                                   "pw")))
+    want = JK.masked_primitive_update(*(jnp.asarray(x[k]) for k in _PRIM_ARGS), eps=1e-6,
+                                      reg_cont=1, interpret=True)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert (K.masked_primitive_update.launches,
+            K.masked_primitive_update.host_launches) == n0
+
+
+def _np_skip(mask, t, lead, P0, pi):
+    """The reference's host-mode skip loop (``jax_sim.py`` l.460-467)."""
+    pi, lanes = pi.copy(), np.arange(pi.shape[0])
+    while True:
+        adv = mask & (P0[pi, lanes] - lead < t)
+        if not adv.any():
+            return pi
+        pi += adv
+
+
+def _np_strike(res, t, fi, nflt, rc, F, Fcancel=None, can=None, ep_ft=None):
+    """The reference's host-mode migration cancel (l.547-569) and
+    stale-fault loop (l.689-716)."""
+    t, fi, nflt = t.copy(), fi.copy(), nflt.copy()
+    lanes, rows = np.arange(fi.shape[0]), np.arange(F.shape[0])[:, None]
+    if Fcancel is not None:
+        Fcancel = Fcancel.copy()
+        m = (F == ep_ft[None, :]) & (rows >= fi[None, :]) & ~Fcancel
+        cj, setm = np.argmax(m, axis=0), can & m.any(axis=0)
+        Fcancel[cj[setm], lanes[setm]] = True
+    while True:
+        cf = F[fi, lanes]
+        cc = Fcancel[fi, lanes] if Fcancel is not None else np.zeros_like(res)
+        stepm = res & (cc | (cf < t))
+        if not stepm.any():
+            return t, fi, nflt, Fcancel
+        hit = stepm & ~cc & (cf >= t - rc)
+        t = np.where(hit, cf + rc, t)
+        nflt += hit
+        fi += stepm
+
+
+def _np_silent(silr, t, fi, corrupt, F):
+    """The reference's host-mode silent-strike loop (l.812-829)."""
+    fi, corrupt, lanes = fi.copy(), corrupt.copy(), np.arange(fi.shape[0])
+    while True:
+        cf = F[fi, lanes]
+        hit = silr & (cf <= t)
+        if not hit.any():
+            return fi, corrupt
+        corrupt = np.where(hit, np.minimum(corrupt, cf), corrupt)
+        fi += hit
+
+
+@pytest.mark.parametrize("E_rows", [1, 24])
+def test_slab_walks_match_reference_loops(E_rows):
+    x = K.sample_slab_state(700, E_rows, 22)
+    s = K.lane_state_tensors(x, "cpu")
+    tally = []
+
+    class Tally:
+        def any(self, m):
+            tally.append(1)
+            return bool(m.any())
+
+    got = K.slab_prediction_skip(s["mask"], s["t"], s["lead_act"], s["P0"], s["pi"],
+                                 tally=Tally())
+    want = _np_skip(x["mask"], x["t"], x["lead_act"], x["P0"], x["pi"])
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want != x["pi"]).any() or E_rows == 1
+    for mig in (False, True):
+        kw = dict(Fcancel=s["Fcancel"].clone(), can=s["can"], ep_ft=s["ep_ft"]) if mig else {}
+        out = K.slab_strike_walk(s["res"], s["t"], s["fi"], s["n_faults"], s["rc"], s["F"],
+                                 **kw)
+        ref = _np_strike(x["res"], x["t"], x["fi"], x["n_faults"], x["rc"], x["F"],
+                         *((x["Fcancel"], x["can"], x["ep_ft"]) if mig else ()))
+        for g, w in zip(out, ref[:3]):
+            np.testing.assert_array_equal(g.numpy(), w)
+        if mig:
+            np.testing.assert_array_equal(kw["Fcancel"].numpy(), ref[3])
+            new = ref[3] & ~x["Fcancel"]
+            assert new.any() or E_rows == 1
+        assert (ref[2] != x["n_faults"]).any() or E_rows == 1
+    fi, cor = K.slab_silent_walk(s["silr"], s["t"], s["fi"], s["corrupt"], s["F"])
+    wfi, wcor = _np_silent(x["silr"], x["t"], x["fi"], x["corrupt"], x["F"])
+    np.testing.assert_array_equal(fi.numpy(), wfi)
+    np.testing.assert_array_equal(cor.numpy(), wcor)
+    assert tally  # the plain loops count their conditions
+
+
+def test_slab_wrappers_take_plain_path_in_place_on_cpu():
+    names = ("masked_slab_prediction_skip", "masked_slab_strike_walk",
+             "masked_slab_silent_walk")
+    for n in names:
+        getattr(K, n).launches = 0
+    x = K.sample_slab_state(300, 20, 23)
+    s = K.lane_state_tensors(x, "cpu")
+    pi = s["pi"].clone()
+    assert K.masked_slab_prediction_skip(s["mask"], s["t"], s["lead_act"], s["P0"], pi) is pi
+    np.testing.assert_array_equal(pi.numpy(), _np_skip(x["mask"], x["t"], x["lead_act"],
+                                                       x["P0"], x["pi"]))
+    st = [s[k].clone() for k in ("t", "fi", "n_faults")]
+    Fc = s["Fcancel"].clone()
+    out = K.masked_slab_strike_walk(s["res"], *st[:2], st[2], s["rc"], s["F"], Fcancel=Fc,
+                                    can=s["can"], ep_ft=s["ep_ft"])
+    assert all(a is b for a, b in zip(out, st))
+    ref = _np_strike(x["res"], x["t"], x["fi"], x["n_faults"], x["rc"], x["F"],
+                     x["Fcancel"], x["can"], x["ep_ft"])
+    for g, w in zip(st + [Fc], ref):
+        np.testing.assert_array_equal(g.numpy(), w)
+    fi, cor = s["fi"].clone(), s["corrupt"].clone()
+    out = K.masked_slab_silent_walk(s["silr"], s["t"], fi, cor, s["F"])
+    assert out[0] is fi and out[1] is cor
+    for g, w in zip(out, _np_silent(x["silr"], x["t"], x["fi"], x["corrupt"], x["F"])):
+        np.testing.assert_array_equal(g.numpy(), w)
+    assert all(getattr(K, n).launches == 0 for n in names)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "slab_shape", "slab_stride", "partial_mig"])
+def test_slab_wrappers_reject_bad_inputs(bad):
+    s = K.lane_state_tensors(K.sample_slab_state(64, 8, 24), "cpu")
+    F, P0, fi, pi = s["F"], s["P0"], s["fi"], s["pi"]
+    mig = dict(Fcancel=s["Fcancel"], can=s["can"], ep_ft=s["ep_ft"])
+    if bad == "dtype":
+        fi, pi = fi.to(torch.int32), pi.to(torch.int32)
+    elif bad == "slab_shape":
+        F, P0 = F[:, :32].contiguous(), P0[:, :32].contiguous()
+    elif bad == "slab_stride":
+        F, P0 = F.t().contiguous().t(), P0.t().contiguous().t()
+    else:
+        mig.pop("can")
+    with pytest.raises((TypeError, ValueError)):
+        K.masked_slab_strike_walk(s["res"], s["t"], fi, s["n_faults"], s["rc"], F, **mig)
+    if bad != "partial_mig":
+        with pytest.raises((TypeError, ValueError)):
+            K.masked_slab_prediction_skip(s["mask"], s["t"], s["lead_act"], P0, pi)
+        with pytest.raises((TypeError, ValueError)):
+            K.masked_slab_silent_walk(s["silr"], s["t"], fi, s["corrupt"], F)

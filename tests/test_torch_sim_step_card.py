@@ -298,3 +298,84 @@ def test_silent_walk_kernel_matches_plain_version_on_card(cuda_device, kind, par
     steps = got["sf_ctr"] - tx["sf_ctr"]
     assert int(steps.max()) >= 3 and bool((steps[~tx["silr"]] == 0).all())
     assert torch.equal(got["sf_time"][~tx["silr"]], tx["sf_time"][~tx["silr"]])
+
+
+# --------------------------------------------------------------------------- #
+# The host trace mode: the trace-fed primitive and the slab walks
+# --------------------------------------------------------------------------- #
+@pytest.mark.cuda
+def test_trace_fed_primitive_matches_plain_version_on_card(cuda_device):
+    """The no-stream launch (``gen == 0``): every output bit-equal to the
+    plain version's, counted in ``.host_launches`` alone."""
+    tx = {k: v.to(cuda_device) for k, v in _torch_args(_lane_inputs(100_000, 25)).items()}
+    s = {k: v.clone() for k, v in tx.items()}
+    fn = K.masked_primitive_update
+    n0 = (fn.launches, fn.indexed_launches, fn.host_launches)
+    want = K.primitive_update(*(tx[k] for k in _PRIM_ARGS), eps=1e-6, reg_cont=1)
+    got = fn(*(s[k] for k in _PRIM_ARGS), eps=1e-6, reg_cont=1)
+    assert (fn.launches, fn.indexed_launches, fn.host_launches) == (n0[0], n0[1], n0[2] + 1)
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int64) if g.dtype == torch.float64 else g,
+                           w.view(torch.int64) if w.dtype == torch.float64 else w)
+    assert torch.equal(s["nf"], tx["nf"]) and torch.equal(s["ctr"], tx["ctr"])
+    assert bool((got[4] & K.FLAG_FAULTED).ne(0).any())
+
+
+def _slab_walks(tx: dict, plain: bool) -> dict:
+    """The three slab walks (the strike walk with and without migration)
+    on copies of ``tx``; returns every output."""
+    s = {k: v.clone() for k, v in tx.items()}
+    fns = ((K.slab_prediction_skip, K.slab_strike_walk, K.slab_silent_walk) if plain else
+           (K.masked_slab_prediction_skip, K.masked_slab_strike_walk,
+            K.masked_slab_silent_walk))
+    out = {"pi": fns[0](s["mask"], s["t"], s["lead_act"], s["P0"], s["pi"].clone())}
+    for mig in (False, True):
+        fc = s["Fcancel"].clone()
+        kw = dict(Fcancel=fc, can=s["can"], ep_ft=s["ep_ft"]) if mig else {}
+        t, fi, nflt = fns[1](s["res"], s["t"].clone(), s["fi"].clone(),
+                             s["n_faults"].clone(), s["rc"], s["F"], **kw)
+        out.update({f"t{mig}": t, f"fi{mig}": fi, f"n_faults{mig}": nflt})
+        if mig:
+            out["Fcancel"] = fc
+    out["silent_fi"], out["corrupt"] = fns[2](s["silr"], s["t"], s["fi"].clone(),
+                                              s["corrupt"].clone(), s["F"])
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 40, 1200])
+def test_slab_walk_kernels_match_plain_versions_on_card(cuda_device, rows):
+    """Every output bit-equal (the walks only compare and add), each
+    wrapper's counter up by one a call."""
+    tx = K.lane_state_tensors(K.sample_slab_state(20_000 if rows == 1200 else 100_000,
+                                                  rows, 26), cuda_device)
+    names = ("masked_slab_prediction_skip", "masked_slab_strike_walk",
+             "masked_slab_silent_walk")
+    n0 = [getattr(K, n).launches for n in names]
+    got = _slab_walks(tx, plain=False)
+    assert [getattr(K, n).launches for n in names] == [n0[0] + 1, n0[1] + 2, n0[2] + 1]
+    want = _slab_walks(tx, plain=True)
+    for k, w in want.items():
+        g = got[k]
+        if w.dtype == torch.float64:
+            g, w = g.view(torch.int64), w.view(torch.int64)
+        assert torch.equal(g, w), k
+    if rows > 1:
+        assert int((got["pi"] - tx["pi"]).max()) >= 3
+        assert int((got["fiTrue"] - tx["fi"]).max()) >= 3
+        assert bool((got["Fcancel"] & ~tx["Fcancel"]).any())
+
+
+@pytest.mark.cuda
+def test_slab_walks_reject_bad_inputs_on_card(cuda_device):
+    tx = K.lane_state_tensors(K.sample_slab_state(512, 16, 27), cuda_device)
+    with pytest.raises(TypeError):
+        K.masked_slab_prediction_skip(tx["mask"], tx["t"], tx["lead_act"], tx["P0"],
+                                      tx["pi"].to(torch.int32))
+    with pytest.raises(ValueError):
+        K.masked_slab_strike_walk(tx["res"], tx["t"], tx["fi"], tx["n_faults"], tx["rc"],
+                                  tx["F"].t().contiguous().t())
+    with pytest.raises(ValueError):
+        K.masked_slab_silent_walk(tx["silr"], tx["t"], tx["fi"], tx["corrupt"],
+                                  tx["F"].cpu())
