@@ -97,7 +97,18 @@ rejected cell) and the scenario grid in host mode (the silent slab walk's
 path); a 12-cell sub-grid card against CPU and fused against per-cell in
 both trace modes; the paper's Tables 1-2 grid (120 cells, with Weibull
 0.5 superposed fresh-start traces, plus a stationary family) through
-``run_cells``; and the four kernels' times.
+``run_cells`` (its 120 cells from ``repro_torch.paper.sim_tables.
+build_cells``); and the four kernels' times.
+
+Then the engine API (phases 30-33, no kernel of their own): the 12-cell
+sub-grid through ``run_grid(grid, EngineConfig(...))`` in both trace
+modes, bit for bit the keyword call, and its lanes against the NumPy
+engine and the scalar engine on the same traces; ``devices=`` as None,
+1, "all" and the card named twice, lane for lane; BestPeriod
+(``optimize(method="search")``, seven families, 100 runs at N = 2^19) on
+the card against the NumPy engine, with each call's iterations, host
+syncs and launches; the paper's drivers (``repro_torch.paper``) on the
+card against the NumPy engine.
 
 Every phase prints one JSON line; any failure exits non-zero before the
 last line, which is ``{"ok": true, "device": {...}}``.  Needs one CUDA
@@ -2579,10 +2590,8 @@ SLAB_WALKS = ("masked_slab_prediction_skip", "masked_slab_strike_walk",
               "masked_slab_silent_walk")
 #: phase 28's sub-grid: cells at this platform size, runs a cell
 HOST_SUB_N, HOST_SUB_RUNS = 2**14, 200
-#: phase 29: the Tables 1-2 grid of the reference benchmark (work, horizon
-#: factor, runs, seed, its superposed families' component cap)
-TABLES_WORK, TABLES_HORIZON, TABLES_RUNS, TABLES_SEED = 10 * 86400.0, 30, 30, 100
-TABLES_COMPONENTS_MAX = 2**15
+#: phase 29: the runs and seed of the reference's Tables 1-2 benchmark
+TABLES_RUNS, TABLES_SEED = 30, 100
 
 
 class SlabCall:
@@ -2784,44 +2793,17 @@ def host_sub_grid():
 
 
 def tables_cells():
-    """The reference benchmark's Tables 1-2 grid (``benchmarks/sim_tables.py``
-    ``build_cells(quick=False)``, rebuilt from the port's strategies): (p,
-    r) in {(0.82, 0.85), (0.4, 0.7)} x N in {2^16, 2^19} x I in {300,
-    3000} s x {exponential, Weibull 0.7, Weibull 0.5 fresh-start
-    superposed (min(N, 2^15) components)} x five strategies: 120 cells;
-    plus the Weibull 0.5 family again with stationary components: 40."""
+    """The paper's Tables 1-2 grid as the port's driver builds it
+    (``repro_torch.paper.sim_tables.build_cells(quick=False)``, the
+    reference benchmark's 120 cells), plus its Weibull 0.5 family again
+    with stationary components: 40 more."""
     from dataclasses import replace
 
-    from repro_torch.configs.paper import C, D, MU_IND, R
-    from repro_torch.core import events as E
-    from repro_torch.core import simulator as S
-    from repro_torch.core.waste import Platform, PredictorModel
-    from repro_torch.experiments import ExperimentCell
+    from repro_torch.paper.sim_tables import build_cells
 
-    laws = (("exp", E.exponential(), False, False), ("weibull0.7", E.weibull(0.7), False, False),
-            ("weibull0.5-fresh", E.weibull(0.5), True, False))
-    cells, stationary = [], []
-    for p, r in ((0.82, 0.85), (0.4, 0.7)):
-        for n in (2**16, 2**19):
-            plat = Platform(mu=MU_IND / n, C=C, D=D, R=R)
-            for window in (300.0, 3000.0):
-                pred = PredictorModel(r, p, window=window, lead=3600.0)
-                strats = (S.young(plat),
-                          S.exact_prediction(plat, PredictorModel(pred.recall, pred.precision)),
-                          S.instant(plat, pred), S.nockpt(plat, pred), S.withckpt(plat, pred))
-                for name, dist, sup, _ in laws:
-                    for s in strats:
-                        cell = ExperimentCell(
-                            label=f"table12/{name}/p{p}_r{r}/N{n}/I{int(window)}/{s.name}",
-                            work=TABLES_WORK, platform=plat, predictor=pred, strategy=s,
-                            fault_dist=dist,
-                            n_components=min(n, TABLES_COMPONENTS_MAX) if sup else None,
-                            horizon_factor=TABLES_HORIZON)
-                        cells.append(cell)
-                        if sup:
-                            stationary.append(replace(
-                                cell, stationary=True,
-                                label=cell.label.replace("-fresh", "-stationary")))
+    cells = build_cells(quick=False)
+    stationary = [replace(c, stationary=True, label=c.label.replace("-fresh", "-stationary"))
+                  for c in cells if c.n_components]
     return cells + stationary
 
 
@@ -3046,7 +3028,8 @@ def host_phases(dev, regs: dict) -> list:
          slabs=tmeta["slabs"], outer_iters=tmeta["outer_iters"],
          host_syncs=tmeta["host_syncs"], launches={k: v for k, v in tlaunches.items() if v},
          families=families,
-         note="benchmarks/sim_tables.py build_cells(quick=False) plus the Weibull 0.5 "
+         note="repro_torch.paper.sim_tables.build_cells(quick=False) (the reference "
+              "benchmark's grid) plus the Weibull 0.5 "
               "family with stationary components, one run_cells call in host trace mode; "
               "host_gen_s: the NumPy trace generation, loop_s: the lane loop on the card")
 
@@ -3086,6 +3069,266 @@ def host_phases(dev, regs: dict) -> list:
             **({"lanes": L, "faulted_lanes": n_fault} if name.endswith("[host]")
                else {"iteration": CAPTURE_ITER})))
     return out
+
+
+# --------------------------------------------------------------------------- #
+# The engine API: EngineConfig, devices=, BestPeriod, the paper's drivers
+# --------------------------------------------------------------------------- #
+#: phase 32: BestPeriod's families, platform size, runs and seed (the
+#: paper's 100 runs, the default period grid: 1,000 lanes a call)
+SEARCH_FAMILIES = ("young", "daly", "exact", "instant", "nockpt", "withckpt", "migration")
+SEARCH_N, SEARCH_RUNS, SEARCH_SEED = 2**19, 100, 0
+#: phase 30: the scalar engine checks the first lanes of every cell
+SCALAR_LANES = 8
+#: the host-trace kernels (one launch of each an iteration of a
+#: fail-stop host-mode call)
+HOST_KERNELS = ("masked_primitive_update[host]", "masked_slab_prediction_skip",
+                "masked_slab_strike_walk")
+LANE_INTS = ("n_faults", "n_proactive_ckpts", "n_regular_ckpts", "n_migrations",
+             "n_disk_recoveries", "n_detections")
+
+
+def lanes_agree(got, want, what: str, cells=None, rtol: float = 0.0) -> float:
+    """Hold two per-run sweeps' cells to each other: integer columns and
+    exhaustion exact, makespans within ``rtol`` (0: bit for bit).  Only
+    the cells labelled in ``cells`` when given.  Returns the largest
+    relative makespan gap."""
+    import numpy as np
+
+    worst = 0.0
+    for a, b in zip(got.cells, want.cells):
+        if cells is not None and a.cell.label not in cells:
+            continue
+        check(a.cell.label == b.cell.label, f"{what}: cell order")
+        for k in LANE_INTS:
+            check(np.array_equal(getattr(a, k), getattr(b, k)),
+                  f"{what} {a.cell.label}: {k} differs")
+        check(a.n_exhausted == b.n_exhausted, f"{what} {a.cell.label}: exhaustion differs")
+        rel = float(np.max(np.abs(a.makespan - b.makespan) / np.abs(b.makespan)))
+        worst = max(worst, rel)
+        check(rel <= rtol, f"{what} {a.cell.label}: makespan rel {rel} > {rtol}")
+    return worst
+
+
+def stats_agree(got, want, what: str, rtol: float) -> float:
+    """Per-cell stats: integer columns exact, moments within ``rtol``."""
+    worst = 0.0
+    for a, b in zip(got.cells, want.cells):
+        for k in ("n", "mean_faults", "mean_proactive_ckpts", "mean_regular_ckpts",
+                  "mean_migrations", "mean_disk_recoveries", "mean_detections"):
+            check(a.stats[k] == b.stats[k], f"{what} {a.cell.label}: {k} differs")
+        check(a.n_exhausted == b.n_exhausted, f"{what} {a.cell.label}: exhaustion")
+        for k in ("mean_waste", "ci95_waste", "mean_makespan", "ci95_makespan"):
+            rel = abs(a.stats[k] - b.stats[k]) / abs(b.stats[k])
+            worst = max(worst, rel)
+            check(rel <= rtol, f"{what} {a.cell.label}: {k} rel {rel} > {rtol}")
+    return worst
+
+
+def driver_records(run) -> list:
+    """The (name, derived) records a paper driver emits, its stdout kept
+    out of this script's."""
+    import contextlib
+    import io
+
+    from repro_torch.paper import common as PC
+
+    PC.reset_records()
+    with contextlib.redirect_stdout(io.StringIO()):
+        run()
+    return [(r["name"], r["derived"]) for r in PC.RECORDS]
+
+
+def engine_phases(dev) -> None:
+    """Phases 30-33: the engine API.  ``run_grid`` through an
+    ``EngineConfig`` against the keyword call, and the torch engine's
+    lanes against the NumPy and scalar engines on the same traces;
+    ``devices=`` in its four spellings; BestPeriod
+    (``optimize(method="search")``) on the card against the NumPy engine,
+    with each call's iterations and launches; the paper's drivers on the
+    card against the NumPy engine."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.paper import platform
+    from repro_torch.core import EngineConfig, optimize, simulate
+    from repro_torch.core.waste import PredictorModel
+    from repro_torch.experiments import build_fused_layout, run_grid
+    from repro_torch.kernels import sim_step as K
+    from repro_torch.paper import recall_precision, simulate_cluster, waste_curves
+
+    sub = host_sub_grid()
+    det = {c.label for c in sub.cells if c.strategy.q in (0.0, 1.0)}
+
+    # ---- 30. EngineConfig, and the host engines on the same traces ----- #
+    t0 = time.monotonic()
+    api = {}
+    for mode in ("host", "device"):
+        # the EngineConfig call is the keyword call, bit for bit: per-run
+        # lanes and per-cell stats (their sums in a fixed order)
+        lanes = run_grid(sub, EngineConfig(trace_mode=mode), device=dev)
+        lanes_agree(lanes, run_grid(sub, device=dev, trace_mode=mode, collect="lanes"),
+                    f"engine_api {mode} lanes")
+        keyword = run_grid(sub, device=dev, trace_mode=mode)
+        configured = run_grid(sub, EngineConfig(trace_mode=mode, collect="stats"),
+                              device=dev)
+        check(keyword.collect == configured.collect == "stats", "engine_api collect")
+        stats_agree(configured, keyword, f"engine_api {mode} config", 0.0)
+        # and the per-cell sums reduced on the card are the mean of its lanes
+        lane_rel = max(abs(a.mean_waste - b.stats["mean_waste"]) / b.stats["mean_waste"]
+                       for a, b in zip(lanes.cells, keyword.cells))
+        check(lane_rel <= 1e-12, f"engine_api {mode}: stats vs lanes mean waste {lane_rel}")
+        # the NumPy engine on the same traces (device mode: the streams
+        # replayed on the host; a fractional q's coins differ there)
+        cells = None if mode == "host" else det
+        tb = time.monotonic()
+        batch = run_grid(sub, EngineConfig(engine="batch", trace_mode=mode))
+        batch_s = time.monotonic() - tb
+        rel_b = lanes_agree(lanes, batch, f"engine_api {mode} torch vs batch", cells, 1e-9)
+        # the scalar engine on the first lanes of each cell of trust 0 or 1
+        # (its fractional-q coins are its own)
+        layout = build_fused_layout(sub, mode)
+        traces = layout.host_traces()
+        rel_s, n_scalar = 0.0, 0
+        for k, ci in enumerate(layout.cell_order):
+            got = lanes.cells[ci]
+            if got.cell.label not in det:
+                continue
+            lo = int(layout.offs[k])
+            for j in range(SCALAR_LANES):
+                r = simulate(float(layout.work_c[k]), layout.plats_c[k], layout.strats_c[k],
+                             traces.lane(lo + j),
+                             np.random.default_rng([sub.seed, layout.n_groups, lo + j]))
+                for f in LANE_INTS:
+                    check(getattr(r, f) == getattr(got, f)[j],
+                          f"engine_api {mode} {got.cell.label} lane {j}: {f} torch vs scalar")
+                rel = abs(r.makespan - got.makespan[j]) / r.makespan
+                check(rel <= 1e-9, f"engine_api {mode} {got.cell.label} lane {j}: makespan "
+                      f"rel {rel}")
+                rel_s, n_scalar = max(rel_s, rel), n_scalar + 1
+        api[mode] = {"stats_vs_lanes_mean_waste_rel": lane_rel,
+                     "cells_vs_batch": len(cells or sub.cells), "max_rel_vs_batch": rel_b,
+                     "batch_s": batch_s, "scalar_lanes": n_scalar,
+                     "max_rel_vs_scalar": rel_s}
+    emit("engine_api", seconds=time.monotonic() - t0, cells=len(sub.cells),
+         runs_per_cell=sub.n_runs, modes=api,
+         compared="run_grid(EngineConfig(engine='torch', ...)) equal to the keyword call bit "
+                  "for bit (lanes and stats); torch lanes against engine='batch' on the same "
+                  "traces (device mode: the cells of q 0 and 1) and the scalar engine on the "
+                  "first 8 lanes of each cell of q 0 and 1: integers exact, makespans rtol "
+                  "1e-9")
+
+    # ---- 31. devices= ------------------------------------------------- #
+    t0 = time.monotonic()
+    n_dev = torch.cuda.device_count()
+    spellings = {"None": None, "1": 1, "all": "all", "[cuda:0, cuda:0]": [dev, dev]}
+    ref_lanes = run_grid(sub, EngineConfig(trace_mode="host"), device=dev)
+    ref_stats = run_grid(sub, EngineConfig(trace_mode="host", collect="stats"),
+                         device=dev)
+    shards = {}
+    for name, devices in spellings.items():
+        cfg = EngineConfig(trace_mode="host", devices=devices)
+        got = run_grid(sub, cfg)
+        lanes_agree(got, ref_lanes, f"devices={name} lanes")
+        st = run_grid(sub, cfg.replace(collect="stats"))
+        rel = stats_agree(st, ref_stats, f"devices={name} stats", 1e-12)
+        shards[name] = {"devices": got.meta["devices"], "outer_iters": got.meta["outer_iters"],
+                        "host_syncs": got.meta["host_syncs"], "max_rel_stats": rel}
+    check(shards["[cuda:0, cuda:0]"]["devices"] == [str(dev)] * 2, "two shards on cuda:0")
+    dev_two = run_grid(sub, EngineConfig(trace_mode="device", devices=[dev, dev]))
+    lanes_agree(dev_two, run_grid(sub, EngineConfig(trace_mode="device"), device=dev),
+                "devices=[cuda:0, cuda:0] device mode")
+    emit("devices", seconds=time.monotonic() - t0, device_count=n_dev, spellings=shards,
+         compared="per-lane results equal to devices=None (integers exact, makespans bit "
+                  "for bit), per-cell stats integers exact and moments rtol 1e-12, host "
+                  "trace mode; two shards on one card in device mode lane for lane")
+
+    # ---- 32. BestPeriod on the card ----------------------------------- #
+    t0 = time.monotonic()
+    plat = platform(SEARCH_N)
+    pred = PredictorModel(0.85, 0.82, window=300.0)
+    calls, got = {}, []
+    for name in SEARCH_FAMILIES:
+        reset_counts(K)
+        torch.cuda.synchronize()
+        tc = time.monotonic()
+        info = []
+        pol = optimize(name, plat, pred, method="search", n_runs=SEARCH_RUNS,
+                       seed=SEARCH_SEED, device=dev, info=info)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - tc
+        launches = counts(K)
+        rec = info[0]
+        iters = max(rec["outer_iters"], 1)
+        for k in HOST_KERNELS:
+            check(launches[k] == rec["outer_iters"],
+                  f"BestPeriod {name}: {k} {launches[k]} launches in {iters} iterations")
+        for k, n in launches.items():
+            check(k in HOST_KERNELS or n == 0, f"BestPeriod {name}: {k} launched {n} times")
+        check(rec["n_chunks"] == 1 and rec["devices"] == [str(dev)],
+              f"BestPeriod {name}: {rec['n_chunks']} chunks on {rec['devices']}")
+        got.append(pol)
+        calls[name] = {"T_R": pol.T_R, "waste": pol.waste, "wall_s": wall,
+                       "outer_iters": rec["outer_iters"], "host_syncs": rec["host_syncs"],
+                       "ms_per_iter": 1e3 * wall / iters,
+                       "launches": {k: launches[k] for k in HOST_KERNELS},
+                       "split": {k: rec[k] for k in ("pack_s", "copy_s", "loop_s")}}
+    card_s = time.monotonic() - t0
+    tb = time.monotonic()
+    batch = optimize(list(SEARCH_FAMILIES), plat, pred, method="search", n_runs=SEARCH_RUNS,
+                     seed=SEARCH_SEED, engine="batch")
+    batch_s = time.monotonic() - tb
+    newton = optimize(list(SEARCH_FAMILIES), plat, pred, method="newton", device=dev)
+    worst = 0.0
+    for i, (name, pol) in enumerate(zip(SEARCH_FAMILIES, got)):
+        check(pol.T_R == batch.T_R[i], f"BestPeriod {name}: T_R {pol.T_R} on the card, "
+              f"{batch.T_R[i]} on the NumPy engine")
+        rel = abs(pol.waste - batch.waste[i]) / batch.waste[i]
+        worst = max(worst, rel)
+        check(rel <= 1e-9, f"BestPeriod {name}: waste rel {rel}")
+        calls[name]["T_R_over_newton"] = pol.T_R / float(newton.T_R[i])
+        calls[name]["newton_T_R"] = float(newton.T_R[i])
+    emit("best_period", seconds=time.monotonic() - t0, N=SEARCH_N, runs=SEARCH_RUNS,
+         seed=SEARCH_SEED, lanes_per_call=SEARCH_RUNS * 10, card_s=card_s,
+         batch_engine_s=batch_s, max_rel_waste_vs_batch=worst, calls=calls,
+         note="optimize(families, platform(2**19), PredictorModel(0.85, 0.82, window=300), "
+              "method='search', n_runs=100): one cell-multiplexed host-trace dispatch a "
+              "family on the card; the same argmin T_R as engine='batch' on the same "
+              "traces, waste rtol 1e-9; T_R_over_newton: the searched period over "
+              "method='newton''s (a finding, not a gate)")
+
+    # ---- 33. the paper's drivers on the card -------------------------- #
+    t0 = time.monotonic()
+    drivers = {}
+    for name, mod in (("waste_curves", waste_curves), ("recall_precision", recall_precision)):
+        reset_counts(K)
+        tc = time.monotonic()
+        on_card = driver_records(lambda m=mod: m.run(quick=False, engine="torch",
+                                                     device=dev))
+        wall = time.monotonic() - tc
+        launched = sum(counts(K)[k] for k in HOST_KERNELS)
+        check(launched > 0, f"{name}: no host-trace kernel launched on the card")
+        on_host = driver_records(lambda m=mod: m.run(quick=False, engine="batch"))
+        check(on_card == on_host, f"{name}: the card's records differ from the NumPy "
+              "engine's")
+        drivers[name] = {"records": len(on_card), "card_s": wall, "launches": launched}
+    import contextlib
+    import io
+
+    reset_counts(K)
+    tc = time.monotonic()
+    with contextlib.redirect_stdout(io.StringIO()):
+        card_lines = simulate_cluster.run(engine="torch", device=dev)
+        host_lines = simulate_cluster.run(engine="batch")
+    check(card_lines[:-1] == host_lines[:-1]
+          and card_lines[-1].split("[sweep:")[0] == host_lines[-1].split("[sweep:")[0],
+          "simulate_cluster: the card's table differs from the NumPy engine's")
+    drivers["simulate_cluster"] = {"lines": len(card_lines), "seconds": time.monotonic() - tc,
+                                   "launches": sum(counts(K)[k] for k in HOST_KERNELS),
+                                   "table": card_lines[1:-1]}
+    emit("paper_drivers", seconds=time.monotonic() - t0, drivers=drivers,
+         compared="waste_curves and recall_precision at full size and simulate_cluster on "
+                  "the card (torch engine, host traces) against engine='batch': every "
+                  "emitted field equal at its printed rounding")
 
 
 def main() -> int:
@@ -3299,6 +3542,9 @@ def main() -> int:
     analytic_phases(dev, res, smi)
     kernels += scenario_phases(dev, regs, launches)
     kernels += host_phases(dev, regs)
+    t0 = time.monotonic()
+    engine_phases(dev)
+    emit("engine_phases", seconds=time.monotonic() - t0)
     emit("total", seconds=time.monotonic() - t_script)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

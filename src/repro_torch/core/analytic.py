@@ -17,14 +17,15 @@ On top sits the unified optimizer entry point
 
     optimize(strategy, platform, pred, *,
              objective="waste" | "availability",
-             method="analytic" | "newton", ...)
+             method="analytic" | "newton" | "search", ...)
 
 over the per-strategy case analyses of :mod:`repro_torch.core.periods`
-(``method="analytic"``) and the batched safeguarded-Newton solver
-(``method="newton"``).  Scalar inputs return an
+(``method="analytic"``), the batched safeguarded-Newton solver
+(``method="newton"``) and BestPeriod, the simulated brute force of the
+regular period on the lane machine or the NumPy engine
+(``method="search"``).  Scalar inputs return an
 :class:`~repro_torch.core.periods.OptimalPolicy`; sequence inputs return
-a :class:`PolicyTable`.  ``method="search"`` (the simulated brute force
-over ``best_period_search``) is not ported yet and raises.
+a :class:`PolicyTable`.
 
 The predictor's precision is derived from the table's ``fp_mean`` column
 (inverting :func:`repro_torch.core.events.false_prediction_mtbf`),
@@ -484,6 +485,15 @@ def optimize(
     method: str = "analytic",
     capped: bool = False,
     device=None,
+    engine=None,
+    devices=None,
+    config=None,
+    work: float = 8 * 86400.0,
+    n_runs: int = 20,
+    seed: int = 0,
+    fault_dist=None,
+    grid=None,
+    info: Optional[list] = None,
 ) -> Union[OptimalPolicy, "PolicyTable"]:
     """The unified period optimizer.
 
@@ -501,11 +511,24 @@ def optimize(
                             table models, the whole batch in one call on
                             ``device`` (CUDA unless the caller names
                             another);
-                "search"    the simulated brute force: not ported yet,
-                            raises ``NotImplementedError``.
+                "search"    BestPeriod, the simulated brute force
+                            (:func:`repro_torch.core.simulator.
+                            _best_period_search`), one engine call per
+                            item: ``work``, ``n_runs``, ``seed``,
+                            ``fault_dist``, ``grid`` (period multipliers,
+                            default ``PERIOD_GRID``) and ``engine`` /
+                            ``devices`` / ``config`` apply; the engine is
+                            ``"torch"`` (one cell-multiplexed dispatch on
+                            ``device``, CUDA unless the caller names
+                            another) or ``"batch"``.  "best" is refused,
+                            and a two-level or silent family searches
+                            with its stride at 1, as the reference's.
     capped      restrict periods to the Section 3.2/4.3 validity domain
                 ``T <= ALPHA mu_e`` (the paper's own simulations use the
                 uncapped default).
+    info        method "search": a list that receives each item's engine
+                call record (outer iterations, host syncs, chunks; torch
+                engine only).
     """
     if objective not in ("waste", "availability"):
         raise ValueError(
@@ -567,10 +590,10 @@ def optimize(
         )
 
     if method == "search":
-        raise NotImplementedError(
-            "optimize(method='search') needs best_period_search, which the "
-            "port does not have yet (ROADMAP queue 1 item 4, the host "
-            "engines); use method='analytic' or 'newton'"
+        return _search_policies(
+            names, platforms, preds, objective, batched, engine=engine,
+            devices=devices, config=config, device=device, work=work,
+            n_runs=n_runs, seed=seed, fault_dist=fault_dist, grid=grid, info=info,
         )
 
     table = _newton_policies(
@@ -579,6 +602,53 @@ def optimize(
     if batched:
         return table
     return table[0]
+
+
+def _search_policies(names, platforms, preds, objective, batched, *, engine,
+                     devices, config, device, work, n_runs, seed, fault_dist,
+                     grid, info):
+    """``optimize(method="search")``: BestPeriod per item, as the
+    reference's branch."""
+    from . import simulator as S
+    from .engine import EngineConfig
+
+    cfg = config
+    if cfg is None:
+        cfg = EngineConfig(engine=engine if engine is not None else "torch",
+                           devices=devices)
+    elif engine is not None or devices is not None:
+        raise ValueError(
+            "optimize: pass either config= or engine=/devices=, not both"
+        )
+    policies = []
+    for name, plat, pm in zip(names, platforms, preds):
+        if name == "best":
+            raise ValueError("strategy 'best' is not supported with method='search'")
+        base = _strategy_stub(name, plat, pm)
+        kwargs = {} if grid is None else {"grid": grid}
+        rec: Dict = {}
+        best_t, best_w = S._best_period_search(
+            work, plat, base, pm, n_runs=n_runs, seed=seed,
+            fault_dist=fault_dist, config=cfg, device=device, info=rec, **kwargs,
+        )
+        if info is not None:
+            info.append(rec)
+        pol = OptimalPolicy(
+            name, int(round(base.q)), best_t, min(best_w, 1.0), T_P=base.T_P
+        )
+        policies.append(_with_objective(pol, objective))
+    if not batched:
+        return policies[0]
+    return PolicyTable(
+        strategy=tuple(p.strategy for p in policies),
+        q=np.array([p.q for p in policies], np.float64),
+        T_R=np.array([p.T_R for p in policies]),
+        waste=np.array([p.waste for p in policies]),
+        value=np.array([p.value for p in policies]),
+        objective=objective,
+        method="search",
+        T_P=np.array([p.T_P if p.T_P is not None else np.nan for p in policies]),
+    )
 
 
 def optimize_cells(

@@ -5,7 +5,9 @@ that the fused paper-grid sweep and the server need: the Section
 2.3 rate identities, the inter-arrival law descriptors (sampled on the
 device through :mod:`repro_torch.kernels.sim_step`, and on the host with
 NumPy for the scalar traces), the scalar merged trace
-:func:`make_event_trace` (the server's wall-clock faults), the
+:func:`make_event_trace` (the server's wall-clock faults and the legacy
+per-run pipeline, single or superposed :func:`superposed_fault_times`
+streams), the
 NumPy Threefry-2x32 / SplitMix64 generators that derive each lane's
 stream keys on the host, the cell-indexed :class:`TraceSpec` and its
 mixed-law layout (:func:`law_table`, :func:`gap_transform_indexed_np`),
@@ -40,6 +42,8 @@ __all__ = [
     "FaultEvent",
     "PredictionEvent",
     "EventTrace",
+    "make_fault_trace",
+    "superposed_fault_times",
     "make_event_trace",
     "BatchTraces",
     "pad_sentinel",
@@ -258,6 +262,50 @@ def _arrival_times(rng: np.random.Generator, dist: Distribution, mean: float,
     return np.asarray(times)
 
 
+def make_fault_trace(
+    rng: np.random.Generator,
+    horizon: float,
+    mtbf: float,
+    dist: Optional[Distribution] = None,
+) -> List[FaultEvent]:
+    """One renewal stream of faults of mean ``mtbf`` over ``(0, horizon]``."""
+    dist = dist or exponential()
+    return [FaultEvent(float(t)) for t in _arrival_times(rng, dist, mtbf, horizon)]
+
+
+def superposed_fault_times(
+    rng: np.random.Generator,
+    horizon: float,
+    mtbf: float,
+    n_components: int,
+    dist: Optional[Distribution] = None,
+    stationary: bool = False,
+) -> np.ndarray:
+    """One platform trace as the superposition of ``n_components`` i.i.d.
+    component renewals, each of MTBF ``n_components * mtbf`` (Section
+    2.1: mu = mu_ind / N), drawn as the reference draws it.  Every
+    component starts fresh at t = 0 (the burn-in of Weibull shapes below
+    1), or with ``stationary`` from its equilibrium residual life (a gap
+    drawn length-biased from a pool, times a uniform)."""
+    dist = dist or exponential()
+    mu_ind = n_components * mtbf
+    if stationary:
+        pool = np.maximum(dist.sample(rng, mu_ind, max(4 * n_components, 20000)), 1e-9)
+        gaps = rng.choice(pool, size=n_components, p=pool / pool.sum())
+        first = rng.uniform(0.0, 1.0, n_components) * gaps
+    else:
+        first = dist.sample(rng, mu_ind, n_components)
+    times: List[float] = []
+    frontier = first[first < horizon]
+    times.extend(frontier.tolist())
+    while len(frontier):
+        nxt = frontier + np.maximum(dist.sample(rng, mu_ind, len(frontier)), 1e-9)
+        nxt = nxt[nxt < horizon]
+        times.extend(nxt.tolist())
+        frontier = nxt
+    return np.sort(np.asarray(times))
+
+
 def make_event_trace(
     rng: np.random.Generator,
     horizon: float,
@@ -268,15 +316,22 @@ def make_event_trace(
     lead: float = math.inf,
     fault_dist: Optional[Distribution] = None,
     false_pred_dist: Optional[Distribution] = None,
+    n_components: Optional[int] = None,
+    stationary: bool = False,
 ) -> EventTrace:
     """The paper's merged trace (Section 5), drawn as the reference's
-    ``make_event_trace`` draws it (single renewal stream): faults of mean
-    ``mtbf``; each predicted with probability ``recall``, its window placed
-    so that the fault is uniform inside it; false predictions of mean
-    ``p mu / (r (1 - p))``; merged and sorted."""
+    ``make_event_trace`` draws it: faults of mean ``mtbf`` (one renewal
+    stream, or with ``n_components`` the superposition of
+    :func:`superposed_fault_times`); each predicted with probability
+    ``recall``, its window placed so that the fault is uniform inside it;
+    false predictions of mean ``p mu / (r (1 - p))``; merged and sorted."""
     fault_dist = fault_dist or exponential()
     false_pred_dist = false_pred_dist or fault_dist
-    faults = [FaultEvent(float(t)) for t in _arrival_times(rng, fault_dist, mtbf, horizon)]
+    if n_components:
+        faults = [FaultEvent(float(t)) for t in superposed_fault_times(
+            rng, horizon, mtbf, n_components, fault_dist, stationary)]
+    else:
+        faults = make_fault_trace(rng, horizon, mtbf, fault_dist)
     predictions: List[PredictionEvent] = []
     for f in faults:
         if rng.random() < recall:

@@ -88,7 +88,8 @@ from __future__ import annotations
 import math
 import time
 from dataclasses import dataclass, replace
-from typing import Optional, Union
+from contextlib import nullcontext
+from typing import List, Optional, Union
 
 import numpy as np
 import torch
@@ -97,7 +98,7 @@ from . import batch_sim as B
 from . import events as E
 from .batch_sim import pad_lane_axis
 from .events import BatchTraces, TraceSpec
-from .simulator import _EPS, Strategy
+from .simulator import _EPS, SimResult, Strategy
 from .waste import Platform
 from ..kernels.sim_step import (
     FLAG_CKPT_OK, FLAG_FAULTED, FLAG_FIN, FLAG_OK, FLAG_REG, PREDICTION_CURSORS,
@@ -112,6 +113,7 @@ __all__ = [
     "CellSums",
     "LaneResult",
     "resolve_device",
+    "resolve_devices",
     "default_chunk_lanes",
     "tables_from_numpy",
 ]
@@ -149,6 +151,39 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def resolve_devices(devices=None, device=None) -> List[torch.device]:
+    """The device set a sweep's lanes are sharded over, by the reference's
+    rules for ``devices=``: ``None`` is the one device of
+    :func:`resolve_device` (``device=`` is that spelling, and passing both
+    raises), ``"all"`` every CUDA device, an int ``n`` the first ``n``
+    CUDA devices, and a sequence those devices (repeats allowed: two
+    shards on one card)."""
+    if devices is None:
+        return [resolve_device(device)]
+    if device is not None:
+        raise ValueError("pass either device= or devices=, not both")
+    n_cuda = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if isinstance(devices, str):
+        if devices != "all":
+            raise ValueError(f"devices={devices!r} (expected 'all')")
+        if not n_cuda:
+            raise RuntimeError(
+                "devices='all' found no CUDA device; name the devices, e.g. "
+                "devices=['cpu'], to run the plain PyTorch path on the CPU"
+            )
+        return [torch.device("cuda", i) for i in range(n_cuda)]
+    if isinstance(devices, int) and not isinstance(devices, bool):
+        if not 1 <= devices <= n_cuda:
+            raise ValueError(
+                f"devices={devices} but this process has {n_cuda} CUDA device(s)"
+            )
+        return [torch.device("cuda", i) for i in range(devices)]
+    devs = [resolve_device(d) for d in devices]
+    if not devs:
+        raise ValueError("devices= must name at least one device")
+    return devs
 
 
 def default_chunk_lanes(device: torch.device, trace_mode: str = "device",
@@ -548,6 +583,23 @@ class LaneResult:
     def waste(self) -> np.ndarray:
         return 1.0 - self.work / self.makespan
 
+    def to_results(self) -> List[SimResult]:
+        """One scalar :class:`~repro_torch.core.simulator.SimResult` a
+        lane, as the NumPy engine's ``BatchResult.to_results``."""
+        return [
+            SimResult(
+                makespan=float(self.makespan[i]), work=float(self.work[i]),
+                n_faults=int(self.n_faults[i]),
+                n_proactive_ckpts=int(self.n_proactive_ckpts[i]),
+                n_regular_ckpts=int(self.n_regular_ckpts[i]),
+                n_migrations=int(self.n_migrations[i]),
+                trace_exhausted=bool(self.trace_exhausted[i]),
+                n_disk_recoveries=int(self.n_disk_recoveries[i]),
+                n_detections=int(self.n_detections[i]),
+            )
+            for i in range(self.makespan.shape[0])
+        ]
+
 
 @dataclass
 class _Tally:
@@ -564,12 +616,62 @@ class _Tally:
 # --------------------------------------------------------------------------- #
 # The lane machine
 # --------------------------------------------------------------------------- #
-def _run_chunk(consts: dict, st: dict, *, gen, has_mig: bool, max_iters: int,
-               eps: float, tally: _Tally, has_tl: bool = False,
-               has_sil: bool = False, frac_q: bool = False) -> dict:
-    """Run one packed chunk to completion (or ``max_iters``); returns the
-    final lane state.  ``st`` is the chunk's zeroed state on the device of
-    ``consts``.
+def _on(dev: torch.device):
+    """Make ``dev`` the current CUDA device (the kernels launch on the
+    current device's stream); a no-op context on the CPU."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else nullcontext()
+
+
+def _run_shards(machines, devs, max_iters: int, tally: _Tally) -> list:
+    """Run the shards of one chunk to completion (or ``max_iters``) with
+    their outer iterations interleaved: an iteration steps every live
+    shard once, each on its own device, so shards on several cards run
+    concurrently.  Every :data:`POLL` iterations the termination poll
+    reads each live shard's flag (a host sync each) and drops the shards
+    whose lanes are all done.  ``machines`` are :func:`_chunk_machine`'s
+    ``(state, step)`` pairs, ``devs`` their devices; returns the final
+    states."""
+    live = list(range(len(machines)))
+    it = 0
+    while it < max_iters:
+        if it % POLL == 0:
+            live = [i for i in live
+                    if tally.any(machines[i][0]["phase"] != B._PH_DONE)]
+            if not live:
+                break
+        for i in live:
+            with _on(devs[i]):
+                machines[i][1]()
+        it += 1
+    tally.iters += it
+    return [m[0] for m in machines]
+
+
+def _run_chunk(consts, st, *, max_iters: int, tally: _Tally, devs=None, **kw):
+    """Run one packed chunk to completion (or ``max_iters``) and return its
+    final lane state.  ``consts`` / ``st`` are one shard's dicts, or lists
+    of them, one a shard on the devices ``devs`` (then a list of final
+    states comes back); ``kw`` are :func:`_chunk_machine`'s keywords."""
+    if isinstance(consts, dict):
+        return _run_chunk([consts], [st], max_iters=max_iters, tally=tally,
+                          devs=devs, **kw)[0]
+    devs = devs or [c["W"].device for c in consts]
+    machines = []
+    for c, s, d in zip(consts, st, devs):
+        with _on(d):
+            machines.append(_chunk_machine(c, s, tally=tally, **kw))
+    return _run_shards(machines, devs, max_iters, tally)
+
+
+def _chunk_machine(consts: dict, st: dict, *, gen, has_mig: bool, eps: float,
+                   tally: _Tally, has_tl: bool = False, has_sil: bool = False,
+                   frac_q: bool = False):
+    """The lane machine of one packed chunk (or shard): primes the
+    chunk's cursors and returns ``(state, step)``, where ``step()``
+    advances every lane by one outer iteration and updates the ``state``
+    dict in place (:func:`_run_shards` runs it).  ``st`` is the chunk's
+    zeroed state on the device of ``consts``, which must be the current
+    device while priming and stepping.
 
     Device trace mode: ``consts`` comes from :func:`tables_from_numpy`
     (cell tables and stream keys) and ``gen`` is ``(fault kind, param,
@@ -1029,14 +1131,7 @@ def _run_chunk(consts: dict, st: dict, *, gen, has_mig: bool, max_iters: int,
         if has_sil:
             s.update(saved_v=saved_v, ck_v=ck_v, corrupt=corrupt)
 
-    it = 0
-    while it < max_iters:
-        if it % POLL == 0 and not tally.any(s["phase"] != B._PH_DONE):
-            break
-        step()
-        it += 1
-    tally.iters += it
-    return s
+    return s, step
 
 
 def _cell_sums(s: dict, W: torch.Tensor, cidx: torch.Tensor, n_seg: int) -> torch.Tensor:
@@ -1112,6 +1207,7 @@ def simulate_batch_torch(
     rng: Optional[np.random.Generator] = None,
     cell_index=None,
     device=None,
+    devices=None,
     chunk="auto",
     max_iters: int = 5_000_000,
     collect: str = "stats",
@@ -1134,19 +1230,29 @@ def simulate_batch_torch(
     another device (``device="cpu"`` runs the kernels' plain PyTorch
     versions).
 
-    chunk       lanes resident at once ("auto": :func:`default_chunk_lanes`;
-                None: all lanes).  Results do not depend on it, apart
-                from the rounding of the per-cell float sums.
+    devices     shard the lanes over a device set (:func:`resolve_devices`:
+                None, "all", an int, or a sequence of devices, repeats
+                allowed; ``device`` is the one-device spelling, and the
+                two together raise).  Each chunk's lanes split into
+                contiguous blocks, one a device, whose outer iterations
+                interleave; per-lane results are those of one device, and
+                the per-cell sums are summed once, in device order, at
+                the end.
+    chunk       lanes resident at once over all devices ("auto":
+                :func:`default_chunk_lanes` of each device; None: all
+                lanes).  Results do not depend on it, apart from the
+                rounding of the per-cell float sums.
     collect     "stats" (default): per-cell :class:`CellSums` reduced on
                 the device; "lanes": per-lane :class:`LaneResult`.
-    info        a dict the call fills with its device, trace mode, outer
+    info        a dict the call fills with its devices, trace mode, outer
                 iterations (summed over chunks), host syncs and chunk
                 count; in host trace mode also the host packing seconds,
                 the slabs' host-to-device copy seconds (CUDA events on the
                 card), the lane loops' wall seconds and the slab shapes
-                and bytes of each chunk.
+                and bytes of each shard.
     """
-    dev = resolve_device(device)
+    devs = resolve_devices(devices, device)
+    dev = devs[0]
     if collect not in ("lanes", "stats"):
         raise ValueError(f"unknown collect {collect!r} (expected 'lanes' or 'stats')")
     if not isinstance(traces, (TraceSpec, BatchTraces)):
@@ -1209,101 +1315,124 @@ def simulate_batch_torch(
         )
         lane_bytes = 0
     if chunk == "auto":
-        chunk = default_chunk_lanes(dev, meta["trace_mode"], lane_bytes)
+        chunk = default_chunk_lanes(dev, meta["trace_mode"], lane_bytes) * len(devs)
     chunk = max(L, 1) if chunk is None else min(int(chunk), max(L, 1))
     tally = _Tally()
-    acc = torch.zeros(n_tab, 13, dtype=torch.float64, device=dev)
+    # one accumulator a shard, summed once at the end in device order
+    accs = [torch.zeros(n_tab, 13, dtype=torch.float64, device=d) for d in devs]
     outs = []
     n_chunks = 0
-    cuda = dev.type == "cuda"
     copy_events = []
     for lo in range(0, L, chunk):
-        sl = slice(lo, min(lo + chunk, L))
-        n = sl.stop - sl.start
+        hi = min(lo + chunk, L)
         n_chunks += 1
-        # each chunk runs the state and ops of the families it holds
-        cells = cidx_g[sl]
+        # each chunk runs the state and ops of the families it holds, on
+        # every shard
+        cells = cidx_g[lo:hi]
         has_mig = bool((mode[cells] == B._M_MIGRATION).any())
         has_tl, has_sil = bool(tl_c[cells].any()), bool(sil_c[cells].any())
+        # contiguous blocks of lanes, one a device (the last ones may be
+        # short, or absent on a chunk of fewer lanes than devices)
+        per = -(-(hi - lo) // len(devs))
+        shards = [(di, slice(a, min(a + per, hi)))
+                  for di, a in enumerate(range(lo, hi, per))]
         if host:
-            t0 = time.monotonic()
             # slabs cut to the chunk's widest lane and its sentinel row
-            fw = int(traces.n_faults[sl].max(initial=0)) + 1
-            pw = int(traces.n_preds[sl].max(initial=0)) + 1
-            pinned = _PinnedSlabs() if cuda else None
-            consts, state = _pack_chunk(
-                has_mig, sl, n, fdt, idt,
-                *(lane[k] for k in ("W", "C", "D", "R", "M", "T_R", "T_P", "mode")),
-                F[:, :fw], P0[:, :pw], Pft[:, :pw], traces.horizon, traces.window,
-                cidx=cidx_g, pad_cell=n_cells,
-                tl=tuple(lane[k] for k in ("C2", "R2", "fmem", "rho")) if has_tl else None,
-                sil=(lane["V"], lane["kv"]) if has_sil else None,
-                Ftier=Ftier[:, :fw] if has_tl else None, alloc=pinned,
-            )
-            state.pop("Fcancel", None)  # zeros: made on the device
-            meta["pack_s"] += time.monotonic() - t0
-            slabs = {k: consts.pop(k) for k in _SLABS if k in consts}
-            c = _to_device(consts, dev)
-            t0 = time.monotonic()
-            if cuda:
-                ev = (torch.cuda.Event(enable_timing=True),
-                      torch.cuda.Event(enable_timing=True))
-                ev[0].record()
-                c.update({k: pinned.ship(v, dev) for k, v in slabs.items()})
-                ev[1].record()
-                copy_events.append(ev)
-            else:
-                c.update({k: torch.from_numpy(v) for k, v in slabs.items()})
-                meta["copy_s"] += time.monotonic() - t0
-            st = _to_device(state, dev)
-            if has_mig:
-                st["Fcancel"] = torch.zeros(c["F"].shape, dtype=torch.bool, device=dev)
-            nbytes = sum(v.nbytes for v in slabs.values()) + (
-                st["Fcancel"].numel() if has_mig else 0)
-            meta["slab_bytes"] += nbytes
-            meta["slabs"].append({**{k: list(v.shape) for k, v in slabs.items()},
-                                  "bytes": nbytes})
-            t0 = time.monotonic()
-            fin = _run_chunk(c, st, gen=None, has_mig=has_mig, has_tl=has_tl,
-                             has_sil=has_sil, max_iters=max_iters, eps=float(_EPS),
-                             tally=tally)
+            fw = int(traces.n_faults[lo:hi].max(initial=0)) + 1
+            pw = int(traces.n_preds[lo:hi].max(initial=0)) + 1
+        shard_c, shard_st = [], []
+        for di, sl in shards:
+            d = devs[di]
+            n = sl.stop - sl.start
+            with _on(d):
+                if host:
+                    t0 = time.monotonic()
+                    pinned = _PinnedSlabs() if d.type == "cuda" else None
+                    consts, state = _pack_chunk(
+                        has_mig, sl, n, fdt, idt,
+                        *(lane[k] for k in ("W", "C", "D", "R", "M", "T_R", "T_P", "mode")),
+                        F[:, :fw], P0[:, :pw], Pft[:, :pw], traces.horizon, traces.window,
+                        cidx=cidx_g, pad_cell=n_cells,
+                        tl=(tuple(lane[k] for k in ("C2", "R2", "fmem", "rho"))
+                            if has_tl else None),
+                        sil=(lane["V"], lane["kv"]) if has_sil else None,
+                        Ftier=Ftier[:, :fw] if has_tl else None, alloc=pinned,
+                    )
+                    state.pop("Fcancel", None)  # zeros: made on the device
+                    meta["pack_s"] += time.monotonic() - t0
+                    slabs = {k: consts.pop(k) for k in _SLABS if k in consts}
+                    c = _to_device(consts, d)
+                    t0 = time.monotonic()
+                    if pinned is not None:
+                        ev = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                        ev[0].record()
+                        c.update({k: pinned.ship(v, d) for k, v in slabs.items()})
+                        ev[1].record()
+                        copy_events.append(ev)
+                    else:
+                        c.update({k: torch.from_numpy(v) for k, v in slabs.items()})
+                        meta["copy_s"] += time.monotonic() - t0
+                    st = _to_device(state, d)
+                    if has_mig:
+                        st["Fcancel"] = torch.zeros(c["F"].shape, dtype=torch.bool,
+                                                    device=d)
+                    nbytes = sum(v.nbytes for v in slabs.values()) + (
+                        st["Fcancel"].numel() if has_mig else 0)
+                    meta["slab_bytes"] += nbytes
+                    meta["slabs"].append({**{k: list(v.shape) for k, v in slabs.items()},
+                                          "bytes": nbytes})
+                else:
+                    consts, state = _pack_chunk_spec_cells(tables, spec, cidx_g, n_cells,
+                                                           sl, n, fdt, idt)
+                    frac_q = bool(frac_c[cells].any())
+                    keys = _BASE_KEYS + ("tier_key",) * has_tl + ("tt_key", "ft_key") * frac_q
+                    c = tables_from_numpy(consts, d, keys)
+                    st = _to_device(state, d)
+            shard_c.append(c)
+            shard_st.append(st)
+        kw = dict(has_mig=has_mig, has_tl=has_tl, has_sil=has_sil, max_iters=max_iters,
+                  eps=float(_EPS), tally=tally)
+        if not host:
+            kw.update(gen=gen, frac_q=frac_q)
+        else:
+            kw.update(gen=None)
+        sdevs = [devs[di] for di, _ in shards]
+        t0 = time.monotonic()
+        if len(shards) == 1:
+            fins = [_run_chunk(shard_c[0], shard_st[0], devs=sdevs, **kw)]
+        else:
+            fins = _run_chunk(shard_c, shard_st, devs=sdevs, **kw)
+        if host:
             meta["loop_s"] += time.monotonic() - t0
+        for (di, _), c, fin in zip(shards, shard_c, fins):
             cidx_dev = c["cidx"]
-            Wl = c["W"]
-        else:
-            consts, state = _pack_chunk_spec_cells(tables, spec, cidx_g, n_cells, sl, n,
-                                                   fdt, idt)
-            frac_q = bool(frac_c[cells].any())
-            keys = _BASE_KEYS + ("tier_key",) * has_tl + ("tt_key", "ft_key") * frac_q
-            c = tables_from_numpy(consts, dev, keys)
-            fin = _run_chunk(
-                c, _to_device(state, dev), gen=gen, has_mig=has_mig, has_tl=has_tl,
-                has_sil=has_sil, frac_q=frac_q, max_iters=max_iters, eps=float(_EPS),
-                tally=tally,
-            )
-            cidx_dev = c["cidx"]
-            Wl = c["W"].index_select(0, cidx_dev)
-        if collect == "stats":
-            acc += _cell_sums(fin, Wl, cidx_dev, n_tab)
-        else:
-            out = {
-                k: fin[k].cpu().numpy()
-                for k in ("t", "n_faults", "n_pro", "n_reg", "n_mig",
-                          "exhausted", "n_disk", "n_det", "phase")
-            }
-            if not (out.pop("phase") == B._PH_DONE).all():
-                raise RuntimeError("torch lane machine did not converge")
-            outs.append(out)
+            Wl = c["W"] if host else c["W"].index_select(0, cidx_dev)
+            if collect == "stats":
+                with _on(devs[di]):
+                    accs[di] += _cell_sums(fin, Wl, cidx_dev, n_tab)
+            else:
+                out = {
+                    k: fin[k].cpu().numpy()
+                    for k in ("t", "n_faults", "n_pro", "n_reg", "n_mig",
+                              "exhausted", "n_disk", "n_det", "phase")
+                }
+                if not (out.pop("phase") == B._PH_DONE).all():
+                    raise RuntimeError("torch lane machine did not converge")
+                outs.append(out)
     if copy_events:
-        torch.cuda.synchronize(dev)
+        for d in set(d for d in devs if d.type == "cuda"):
+            torch.cuda.synchronize(d)
         meta["copy_s"] = sum(a.elapsed_time(b) for a, b in copy_events) / 1e3
     if info is not None:
         info.update(
-            device=str(dev), outer_iters=tally.iters, host_syncs=tally.syncs,
-            n_chunks=n_chunks, **meta,
+            device=str(dev), devices=[str(d) for d in devs], outer_iters=tally.iters,
+            host_syncs=tally.syncs, n_chunks=n_chunks, **meta,
         )
     if collect == "stats":
-        cs = acc.cpu().numpy()
+        cs = accs[0].cpu().numpy()
+        for a in accs[1:]:
+            cs = cs + a.cpu().numpy()
         if cs[:n_cells, _CS_NOTDONE].sum() != 0.0:
             raise RuntimeError("torch lane machine did not converge")
         return CellSums.from_matrix(cs[:n_cells])

@@ -1,6 +1,9 @@
-"""Experiment grids, their fused execution on the device lane machine,
-and the statistical validation of the simulated grid against the
-analytic models."""
+"""Experiment grids, their fused execution on the device lane machine
+(or on the host engines that check it, through
+:class:`~repro_torch.core.engine.EngineConfig`), and the statistical
+validation of the simulated grid against the analytic models."""
+
+from ..core.engine import EngineConfig
 
 from .grid import CellResult, ExperimentCell, GridSpec, SweepResult
 from .paper_grid import (
@@ -22,6 +25,7 @@ from .validation import (
 )
 
 __all__ = [
+    "EngineConfig",
     "CellResult",
     "ExperimentCell",
     "GridSpec",

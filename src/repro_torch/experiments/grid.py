@@ -54,6 +54,15 @@ class ExperimentCell:
     def dist(self) -> Distribution:
         return self.fault_dist or exponential()
 
+    @property
+    def gen_recall(self) -> float:
+        """The recall the legacy per-run pipeline draws its traces with:
+        strategies that ignore predictions get a prediction-free trace (as
+        :func:`~repro_torch.core.simulator.simulate_many` does).  The
+        batched runner draws full traces keyed on the predictor alone, and
+        the engines' trust filter drops the predictions."""
+        return self.predictor.recall if self.strategy.mode != "none" else 0.0
+
     def group_key(self) -> Tuple:
         """Cells sharing a key sample their traces from one law family
         with one superposition setting."""

@@ -1154,13 +1154,20 @@ def segment_cell_sums(values, cidx: torch.Tensor, num_cells: int) -> torch.Tenso
     """Per-cell sums of per-lane columns: a ``(num_cells, len(values))``
     f64 matrix whose row ``c`` sums the lanes with ``cidx == c``.
 
-    On CUDA ``index_add_`` adds in no fixed order: columns holding integer
-    values (lane counts, event counters) stay exact in f64, while the
-    makespan and waste moments agree with a sequential sum only to
-    rounding."""
+    Deterministic on either device: the lanes are put in cell order by a
+    stable sort and each cell's lanes summed in one fixed order
+    (``segment_reduce``), so a sweep's stats are the same bits run after
+    run (CUDA's ``index_add_`` adds by atomics in no fixed order, which
+    moved the moments by ~1e-12 from one run to the next).  On the CPU the
+    order is lane order, the sequential sum's."""
     x = torch.stack([v.to(torch.float64) for v in values], dim=-1)
-    out = torch.zeros(num_cells, x.shape[1], dtype=torch.float64, device=x.device)
-    return out.index_add_(0, cidx, x)
+    idx = cidx.to(torch.int64)
+    order = torch.argsort(idx, stable=True)
+    lengths = torch.bincount(idx, minlength=num_cells)
+    if lengths.shape[0] != num_cells:
+        raise ValueError(f"cidx entries must be in [0, {num_cells})")
+    return torch.segment_reduce(x.index_select(0, order), "sum", lengths=lengths,
+                                axis=0, unsafe=True)
 
 
 # --------------------------------------------------------------------------- #

@@ -391,10 +391,13 @@ def test_optimize_errors():
         optimize("exact", PLAT, PREDS[0], method="sgd")
     with pytest.raises(ValueError, match="sequence length"):
         optimize(["exact", "young"], [PLAT], PREDS[0])
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        optimize("exact", PLAT, PREDS[0], method="search")
-    with pytest.raises(NotImplementedError, match="best_period_search"):
-        optimize(["young", "exact"], PLAT, PREDS[0], method="search", device="cpu")
+    # BestPeriod runs the lane machine: on CUDA or a named device, never a
+    # silent fallback; "best" has no simulated search
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            optimize("exact", PLAT, PREDS[0], method="search")
+    with pytest.raises(ValueError, match="'best' is not supported"):
+        optimize(["best", "young"], PLAT, PREDS[0], method="search", device="cpu")
 
 
 def test_policy_table_indexing():
