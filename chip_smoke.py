@@ -110,6 +110,23 @@ the card against the NumPy engine, with each call's iterations, host
 syncs and launches; the paper's drivers (``repro_torch.paper``) on the
 card against the NumPy engine.
 
+Then resumable campaigns (phases 34-37, no kernel of their own: the
+campaign path launches the sim_step kernels of both trace modes): the full
+paper grid through ``repro_torch.ft.run_campaign`` in 4 chunks of 27,000
+lanes, with a snapshot every chunk (sync) and with the Young period of
+the measured snapshot cost (async), bit-equal to each other and within
+1e-12 of phase 4's one-chunk ``run_grid``, one primitive launch an outer
+iteration; the campaign CLI (``python -m repro_torch.experiments.
+campaign``) killed by SIGKILL at chunk 2 and resumed in a new process,
+equal to the in-process campaign; synthetic chaos on the 12-cell
+sub-grid (kills at chunks 1 and 3 resumed bit-equal, a device lost from
+two shards on the card, a persistent engine failure degraded to the
+NumPy engine); and, in two subprocesses (``chip_smoke.py
+--campaign-fault oom|assert OUT``), a real ``torch.OutOfMemoryError``
+under ``set_per_process_memory_fraction`` that halves the chunk, and a
+real device-side assert that poisons the CUDA context, after which the
+campaign retries, degrades and finishes on the host.
+
 Every phase prints one JSON line; any failure exits non-zero before the
 last line, which is ``{"ok": true, "device": {...}}``.  Needs one CUDA
 card; imports nothing of JAX.
@@ -3331,11 +3348,392 @@ def engine_phases(dev) -> None:
                   "emitted field equal at its printed rounding")
 
 
+#: phases 34-35: the full grid's campaign chunk (4 chunks) and the MTBF of
+#: the machine running the campaign (the mu of its snapshot period)
+CAMPAIGN_CHUNK = 27000
+CAMPAIGN_MTBF = 3600.0
+#: phases 36-37: the 12-cell sub-grid's chunk (4 chunks of its 2,400
+#: lanes) and the chunk at whose boundary the real sticky error is raised
+CHAOS_CHUNK = 600
+ASSERT_AT_CHUNK = 2
+#: the 12-column campaign accumulator: moment columns and count columns
+def campaign_spy():
+    """Route the campaign's engine calls through a spy that keeps each
+    call's ``info`` (outer iterations, host syncs, slab bytes).  Returns
+    the list of records and the function that restores the module."""
+    from repro_torch.ft import campaign as CM
+
+    real = CM.simulate_batch_torch
+    calls = []
+
+    def spy(*args, **kw):
+        info = {}
+        out = real(*args, info=info, **kw)
+        calls.append(info)
+        return out
+
+    CM.simulate_batch_torch = spy
+    return calls, lambda: setattr(CM, "simulate_batch_torch", real)
+
+
+def timed_snapshots(runner) -> list:
+    """Time each snapshot of ``runner``'s store: the host copy
+    (``snapshot``) and the disk write (``write``, on the drain thread when
+    snapshots are asynchronous).  Returns the list of records."""
+    store = runner.store
+    snap_fn, write_fn = store.snapshot, store.write
+    snaps = []
+
+    def snapshot(tree, prev_tree=None):
+        t = time.monotonic()
+        s = snap_fn(tree, prev_tree)
+        snaps.append({"snapshot_s": time.monotonic() - t})
+        return s
+
+    def write(step, snap):
+        # the next snapshot waits for this drain, so snaps[-1] is this one
+        t = time.monotonic()
+        m = write_fn(step, snap)
+        snaps[-1].update(step=step, write_s=time.monotonic() - t)
+        return m
+
+    store.snapshot, store.write = snapshot, write
+    return snaps
+
+
+def device_assert_chaos(at: int):
+    """A ``ChaosInjector`` that, at the first torch attempt of chunk
+    ``at``, indexes a card tensor out of bounds and synchronizes: a real
+    device-side assert, which leaves the process's CUDA context unusable."""
+    from dataclasses import dataclass
+
+    import torch
+    from repro_torch.ft import ChaosInjector
+
+    @dataclass
+    class DeviceAssertChaos(ChaosInjector):
+        assert_at: int = 0
+
+        def at_chunk_boundary(self, chunk, *, incarnation=0, attempt=0, engine="torch"):
+            if chunk == self.assert_at and attempt == 0 and engine == "torch":
+                x = torch.zeros(4, device="cuda")
+                x[torch.tensor([1 << 20], device="cuda")] += 1.0
+                torch.cuda.synchronize()
+            super().at_chunk_boundary(chunk, incarnation=incarnation, attempt=attempt,
+                                      engine=engine)
+
+    return DeviceAssertChaos(assert_at=at)
+
+
+def campaign_fault_child(kind: str, out: str) -> int:
+    """Phase 37's subprocesses (``chip_smoke.py --campaign-fault KIND
+    OUT``): a campaign on the card that meets a real fault, its record
+    written to ``OUT`` as JSON with its comparison made here.  ``oom``: the
+    validation preset in host mode, once uncapped and once under a memory
+    cap between the halved chunk's need and the whole chunk's, set from
+    the chunk's slab bytes and the uncapped run's peak of live bytes; the
+    capped run against the uncapped one.  ``assert``: the 12-cell sub-grid
+    in host mode, undisturbed and then with a device-side assert at chunk
+    ``ASSERT_AT_CHUNK``; the second against the first."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    from repro_torch.core import EngineConfig
+    from repro_torch.experiments import GridSpec, paper_grid_cells
+    from repro_torch.ft import CampaignConfig, CampaignRunner
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    torch.zeros(1, device=dev)  # the context and its allocator
+    rec = {"kind": kind}
+    with tempfile.TemporaryDirectory() as tmp:
+        if kind == "oom":
+            grid = GridSpec(tuple(paper_grid_cells("validation")), n_runs=VALIDATION_RUNS,
+                            seed=VALIDATION_SEED)
+            cfg = EngineConfig(engine="torch", trace_mode="host", collect="stats",
+                               chunk_lanes=grid.n_lanes)
+            calls, restore = campaign_spy()
+            try:
+                torch.cuda.reset_peak_memory_stats(dev)
+                t0 = time.monotonic()
+                free = CampaignRunner(grid, CampaignConfig(
+                    ckpt_dir=os.path.join(tmp, "free"), ckpt_period=0.0,
+                    async_snapshots=False), cfg, device=dev)
+                want = free.run()
+                free_s = time.monotonic() - t0
+                peak = torch.cuda.max_memory_allocated(dev)
+                slab = calls[0]["slab_bytes"]
+                torch.cuda.empty_cache()
+                total = torch.cuda.get_device_properties(dev).total_memory
+                # the whole chunk's live bytes reach `peak`, its slabs
+                # `slab` of them; a half's slabs are at most slab / 2 (its
+                # widest lane is no wider), so a cap an eighth of the slabs
+                # below the peak fails the whole chunk and fits either half
+                cap = peak - slab // 8
+                torch.cuda.set_per_process_memory_fraction(cap / total, dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                t0 = time.monotonic()
+                capped = CampaignRunner(grid, CampaignConfig(
+                    ckpt_dir=os.path.join(tmp, "capped"), ckpt_period=0.0,
+                    async_snapshots=False), cfg, device=dev)
+                res = capped.run()
+                rec.update(lanes=grid.n_lanes, cells=len(grid.cells), slab_bytes=slab,
+                           peak_allocated_bytes=peak, cap_bytes=cap, total_bytes=total,
+                           capped_peak_allocated_bytes=torch.cuda.max_memory_allocated(dev),
+                           free_s=free_s, capped_s=time.monotonic() - t0,
+                           chunks=[c["n_chunks"] for c in calls],
+                           slab_bytes_per_call=[c["slab_bytes"] for c in calls],
+                           max_rel_vs_uncapped=stats_agree(res, want, "real OOM vs uncapped",
+                                                           1e-9))
+            finally:
+                restore()
+        else:
+            sub = host_sub_grid()
+            cfg = EngineConfig(engine="torch", trace_mode="host", collect="stats",
+                               chunk_lanes=CHAOS_CHUNK)
+            want = CampaignRunner(sub, CampaignConfig(
+                ckpt_dir=os.path.join(tmp, "host"), ckpt_period=0.0,
+                async_snapshots=False), cfg, device=dev).run()
+            t0 = time.monotonic()
+            res = CampaignRunner(sub, CampaignConfig(
+                ckpt_dir=os.path.join(tmp, "assert"), ckpt_period=0.0, async_snapshots=False,
+                chaos=device_assert_chaos(ASSERT_AT_CHUNK)), cfg, device=dev).run()
+            rec.update(seconds=time.monotonic() - t0,
+                       max_rel_vs_host=stats_agree(res, want, "device-side assert vs host",
+                                                   1e-12))
+        rec.update(engine=res.engine, campaign=res.meta["campaign"])
+    with open(out, "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def campaign_phases(dev, main_res, main_wall: float) -> None:
+    """Phases 34-37: resumable campaigns (no kernel of their own: the
+    campaign path launches the sim_step kernels of both trace modes).  The
+    full grid through ``run_campaign`` in 4 chunks, twice, against phase
+    4's one-chunk ``run_grid`` (``main_res``, ``main_wall`` seconds); the
+    CLI killed by SIGKILL and resumed; synthetic chaos on the 12-cell
+    sub-grid (kills, a device loss on two shards, a persistent engine
+    failure that degrades torch to the NumPy engine); and two real faults
+    in subprocesses, a CUDA out-of-memory and a device-side assert."""
+    import torch
+    from repro_torch.core import EngineConfig
+    from repro_torch.experiments import GridSpec, paper_grid_cells
+    from repro_torch.ft import (CampaignConfig, CampaignKilled, CampaignRunner,
+                                ChaosInjector, RetryPolicy)
+    from repro_torch.kernels import sim_step as K
+
+    nosleep = RetryPolicy(sleep=lambda s: None)
+
+    def campaign(grid, cfg, tmp, name, device=dev, **camp):
+        return CampaignRunner(grid, CampaignConfig(ckpt_dir=os.path.join(tmp, name), **camp),
+                              cfg, device=device).run()
+
+    def kinds(res):
+        return [e["kind"] for e in res.meta["campaign"]["events"]]
+
+    # ---- 34. the full grid as a campaign on the card ------------------- #
+    t0 = time.monotonic()
+    full = GridSpec(tuple(paper_grid_cells("full")), n_runs=RUNS_PER_CELL, seed=0)
+    cfg = EngineConfig(engine="torch", trace_mode="device", collect="stats",
+                       chunk_lanes=CAMPAIGN_CHUNK)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, camp in (("period_0_sync", dict(ckpt_period=0.0, async_snapshots=False)),
+                           ("young_async", dict(ckpt_period=None, mtbf=CAMPAIGN_MTBF,
+                                                async_snapshots=True))):
+            runner = CampaignRunner(full, CampaignConfig(ckpt_dir=os.path.join(tmp, name),
+                                                         **camp), cfg, device=dev)
+            snaps = timed_snapshots(runner)
+            calls, restore = campaign_spy()
+            reset_counts(K)
+            try:
+                torch.cuda.synchronize()
+                tc = time.monotonic()
+                res = runner.run()
+                torch.cuda.synchronize()
+                wall = time.monotonic() - tc
+            finally:
+                restore()
+            launches = counts(K)
+            info = res.meta["campaign"]
+            iters = [c["outer_iters"] for c in calls]
+            check(not info["engine_degraded"] and res.engine == "torch",
+                  f"campaign {name}: degraded")
+            check(len(calls) == -(-full.n_lanes // CAMPAIGN_CHUNK),
+                  f"campaign {name}: {len(calls)} engine calls")
+            check(launches["masked_primitive_update"] == sum(iters),
+                  f"campaign {name}: {launches['masked_primitive_update']} primitive "
+                  f"launches in {sum(iters)} outer iterations")
+            for k, n in launches.items():
+                if k.endswith("[indexed]") or k.endswith("[host]") or "slab" in k:
+                    check(n == 0, f"campaign {name}: {k} launched {n} times")
+            async_ = camp["async_snapshots"]
+            runs[name] = (res, {
+                "seconds": wall, "over_run_grid": wall / main_wall,
+                "chunks": len(calls), "outer_iters_per_chunk": iters,
+                "outer_iters": sum(iters), "host_syncs": sum(c["host_syncs"] for c in calls),
+                "launches": {k: v for k, v in launches.items() if v},
+                "cursor_launches_per_iter": sum(launches[n] for n in CURSOR_KERNELS)
+                / max(sum(iters), 1),
+                "n_snapshots": info["n_snapshots"],
+                "snapshot_cost_est_s": info["snapshot_cost_est_s"],
+                "snapshot_period_s": info["snapshot_period_s"],
+                "snapshots": [{"step": s.get("step"),
+                               "c_block": s["snapshot_s"] if async_
+                               else s["snapshot_s"] + s.get("write_s", 0.0),
+                               "c_full": s["snapshot_s"] + s.get("write_s", 0.0)}
+                              for s in snaps],
+            })
+    a, b = runs["period_0_sync"][0], runs["young_async"][0]
+    check(runs["period_0_sync"][1]["n_snapshots"] == 4, "period 0: a snapshot a chunk")
+    stats_agree(b, a, "campaign young vs period 0", 0.0)
+    rel = stats_agree(a, main_res, "campaign vs run_grid", 1e-12)
+    emit("campaign_path", seconds=time.monotonic() - t0, cells=len(full.cells),
+         lanes=full.n_lanes, chunk_lanes=CAMPAIGN_CHUNK, run_grid_s=main_wall,
+         runs={k: v[1] for k, v in runs.items()}, max_rel_vs_run_grid=rel,
+         compared="the two campaigns bit-equal; against phase 4's one-chunk run_grid "
+                  "integers exact, moments rtol 1e-12; one masked_primitive_update "
+                  "launch an outer iteration; c_block: the chunk loop's stall, c_full: "
+                  "until written (sync: both the whole save)")
+
+    # ---- 35. the CLI killed by SIGKILL, resumed ------------------------ #
+    t0 = time.monotonic()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    cli = [sys.executable, "-m", "repro_torch.experiments.campaign"]
+    args = ["--preset", "full", "--n-runs", str(RUNS_PER_CELL), "--seed", "0",
+            "--chunk-lanes", str(CAMPAIGN_CHUNK), "--ckpt-period", "0"]
+    with tempfile.TemporaryDirectory() as tmp:
+        d, out = os.path.join(tmp, "k"), os.path.join(tmp, "resumed.json")
+        tc = time.monotonic()
+        killed = subprocess.run(cli + args + ["--ckpt-dir", d, "--chaos-kill-at", "2",
+                                              "--chaos-kill-mode", "sigkill"],
+                                env=env, capture_output=True, text=True, timeout=600)
+        kill_s = time.monotonic() - tc
+        check(killed.returncode in (-9, 137),
+              f"campaign CLI kill: rc {killed.returncode}: {killed.stderr[-2000:]}")
+        left = sorted(p for p in os.listdir(d) if p.startswith("step_"))
+        tc = time.monotonic()
+        resumed = subprocess.run(cli + ["--resume", d, "--out", out], env=env,
+                                 capture_output=True, text=True, timeout=600)
+        resume_s = time.monotonic() - tc
+        check(resumed.returncode == 0,
+              f"campaign CLI resume: rc {resumed.returncode}: {resumed.stderr[-2000:]}")
+        with open(out) as f:
+            got = json.load(f)
+    keys = ("label", "mean_waste", "mean_makespan", "mean_faults")
+    check([[r[k] for k in keys] for r in got["cells"]]
+          == [[c.cell.label, c.mean_waste, c.mean_makespan, c.mean_faults] for c in a.cells],
+          "campaign CLI: the resumed cells differ from phase 34's period-0 run")
+    info = got["meta"]["campaign"]
+    check(info["incarnation"] >= 1, f"campaign CLI: incarnation {info['incarnation']}")
+    emit("campaign_sigkill", seconds=time.monotonic() - t0, kill_rc=killed.returncode,
+         kill_s=kill_s, snapshots_left=left, resume_s=resume_s,
+         incarnation=info["incarnation"], n_snapshots=info["n_snapshots"],
+         events=info["events"], stdout=resumed.stdout.strip().splitlines(),
+         compared="label, mean_waste, mean_makespan, mean_faults equal to phase 34's "
+                  "period-0 campaign")
+
+    # ---- 36. synthetic chaos on the 12-cell sub-grid ------------------- #
+    t0 = time.monotonic()
+    sub = host_sub_grid()
+    dcfg = EngineConfig(engine="torch", trace_mode="device", collect="stats",
+                        chunk_lanes=CHAOS_CHUNK)
+    hcfg = dcfg.replace(trace_mode="host")
+    cases = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        base = campaign(sub, dcfg, tmp, "base", ckpt_period=0.0, async_snapshots=False)
+        # (a) raise-mode kills, sync snapshots
+        for k in (1, 3):
+            try:
+                campaign(sub, dcfg, tmp, f"kill{k}", ckpt_period=0.0, async_snapshots=False,
+                         chaos=ChaosInjector(kill_at=(k,)))
+                check(False, f"campaign chaos: the kill at chunk {k} did not fire")
+            except CampaignKilled:
+                pass
+            res = campaign(sub, dcfg, tmp, f"kill{k}", ckpt_period=0.0,
+                           async_snapshots=False)
+            stats_agree(res, base, f"campaign chaos kill {k}", 0.0)
+            resumes = [e for e in res.meta["campaign"]["events"] if e["kind"] == "resume"]
+            check(len(resumes) == 1 and resumes[0]["chunk"] == k,
+                  f"campaign chaos kill {k}: resume events {resumes}")
+            cases[f"a_kill_{k}"] = {"events": res.meta["campaign"]["events"]}
+        # (b) two shards on the card, one lost at chunk 2
+        res = campaign(sub, dcfg.replace(devices=[dev, dev]), tmp, "devloss",
+                       device=None, ckpt_period=0.0, async_snapshots=False,
+                       retry=nosleep, chaos=ChaosInjector(device_loss_at=(2,)))
+        info = res.meta["campaign"]
+        check("devices_shrunk" in kinds(res) and info["n_devices_final"] == 1,
+              f"campaign chaos device loss: {kinds(res)}, {info['n_devices_final']} devices")
+        rel_b = stats_agree(res, base, "campaign chaos device loss", 1e-12)
+        cases["b_device_loss"] = {"events": info["events"], "max_rel_vs_a": rel_b,
+                                  "bit_equal": rel_b == 0.0}
+        # (c) host mode, a persistent torch failure from chunk 1
+        host = campaign(sub, hcfg, tmp, "host", ckpt_period=0.0, async_snapshots=False)
+        res = campaign(sub, hcfg, tmp, "degrade", ckpt_period=0.0, async_snapshots=False,
+                       retry=nosleep, chaos=ChaosInjector(torch_fail_at=1))
+        ks = kinds(res)
+        check(res.meta["campaign"]["engine_degraded"] and res.engine == "batch"
+              and ks.count("transient") >= 2, f"campaign chaos degrade: {ks}")
+        rel_c = stats_agree(res, host, "campaign chaos degraded vs host", 1e-12)
+        cases["c_degraded"] = {"events": ks, "max_rel_vs_host": rel_c}
+    emit("campaign_chaos", seconds=time.monotonic() - t0, cells=len(sub.cells),
+         lanes=sub.n_lanes, chunk_lanes=CHAOS_CHUNK, cases=cases,
+         compared="(a) kills at chunks 1 and 3 resumed bit-equal to the uninterrupted "
+                  "device-mode campaign; (b) two shards on the card, one lost: integers "
+                  "exact, moments rtol 1e-12 against (a)'s base; (c) host mode degraded "
+                  "to the NumPy engine after chunk 0: integers exact, moments rtol 1e-12 "
+                  "against the undisturbed host-mode campaign")
+
+    # ---- 37. real faults in subprocesses ------------------------------- #
+    t0 = time.monotonic()
+    faults = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for kind in ("oom", "assert"):
+            out = os.path.join(tmp, f"{kind}.json")
+            tc = time.monotonic()
+            p = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                                "--campaign-fault", kind, out],
+                               capture_output=True, text=True, timeout=600)
+            check(p.returncode == 0,
+                  f"campaign fault {kind}: rc {p.returncode}: {p.stderr[-3000:]}")
+            with open(out) as f:
+                rec = json.load(f)
+            rec["seconds"] = time.monotonic() - tc
+            faults[kind] = rec
+    oom = faults.pop("oom")
+    ks = [e["kind"] for e in oom["campaign"]["events"]]
+    check(ks == ["oom", "chunk_halved"] and not oom["campaign"]["engine_degraded"]
+          and oom["campaign"]["chunk_lanes_final"] == oom["lanes"] // 2,
+          f"real OOM: events {ks}, final chunk {oom['campaign']['chunk_lanes_final']}")
+    check(any("OutOfMemoryError" in e.get("error", "") for e in oom["campaign"]["events"]),
+          "real OOM: no torch.OutOfMemoryError among the events")
+    sticky = faults.pop("assert")
+    ks = [e["kind"] for e in sticky["campaign"]["events"]]
+    check(ks == ["device_loss"] * 4 + ["engine_degraded"] and sticky["engine"] == "batch",
+          f"device-side assert: events {ks}")
+    emit("campaign_real_faults", seconds=time.monotonic() - t0,
+         oom=oom, device_assert=sticky,
+         compared="(d) validation preset, host mode, under set_per_process_memory_fraction "
+                  "at the uncapped peak of live bytes less an eighth of the chunk's slab "
+                  "bytes: a real torch.OutOfMemoryError, the chunk halved once, integers "
+                  "exact and moments "
+                  "rtol 1e-9 against the uncapped run; (e) a device-side assert at chunk "
+                  "2 of the host-mode sub-grid: device_loss up to the retry budget, the "
+                  "NumPy engine to the end, exit 0, integers exact and moments rtol 1e-12 "
+                  "against an undisturbed host-mode campaign in the same process; each "
+                  "compared in its subprocess")
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: src/repro_torch not found beside this script",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--campaign-fault"]:
+        return campaign_fault_child(sys.argv[2], sys.argv[3])
     t_script = time.monotonic()
     sys.path.insert(0, str(SRC))
     import numpy as np
@@ -3545,6 +3943,9 @@ def main() -> int:
     t0 = time.monotonic()
     engine_phases(dev)
     emit("engine_phases", seconds=time.monotonic() - t0)
+    t0 = time.monotonic()
+    campaign_phases(dev, res, wall)
+    emit("campaign_phases", seconds=time.monotonic() - t0)
     emit("total", seconds=time.monotonic() - t_script)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -87,7 +87,7 @@ from __future__ import annotations
 
 import math
 import time
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, fields, replace
 from contextlib import nullcontext
 from typing import List, Optional, Union
 
@@ -562,6 +562,17 @@ class CellSums:
             n_exhausted=cs[:, _CS_EXH],
             n_disk_recoveries=cs[:, _CS_DISK],
             n_detections=cs[:, _CS_DET],
+        )
+
+    def as_matrix(self) -> np.ndarray:
+        """The ``(n_cells, 12)`` f64 column matrix (``_CS_*`` order, minus
+        the not-done flag): sums are plain f64 adds, so partial sweeps
+        accumulate by matrix addition, as the resumable campaign's
+        durable accumulator (:mod:`repro_torch.ft.campaign`) does chunk
+        by chunk."""
+        return np.stack(
+            [np.asarray(getattr(self, f.name), np.float64) for f in fields(self)],
+            axis=1,
         )
 
 

@@ -26,7 +26,10 @@ import threading
 from pathlib import Path
 from typing import Dict, List
 
-__all__ = ["NVCC_FLAGS", "BUILD_DIR", "build_all", "load"]
+__all__ = [
+    "NVCC_FLAGS", "BUILD_DIR", "KernelBuildError", "KernelLaunchError",
+    "build_all", "load",
+]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: build outputs, at the root of the checkout (listed in .gitignore)
@@ -41,6 +44,29 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+
+
+
+class KernelBuildError(RuntimeError):
+    """A kernel's library could not be built: ``nvcc`` is missing or
+    rejected a source.  A fault of the installation or of the code, never
+    of the device, so recovery loops must not retry it or fall back to
+    another engine (:func:`repro_torch.ft.retry.classify_failure` gives it
+    ``FailureKind.FATAL``)."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel wrapper's launch returned a CUDA error (``code``, a
+    ``cudaError_t``).  :func:`repro_torch.ft.retry.classify_failure` reads
+    the code: 2 (out of memory) is ``OOM``, the runtime's sticky codes are
+    ``DEVICE_LOSS``, and every other code is a fault of the kernel or of its
+    build (an image the card cannot run, a bad launch configuration), so
+    ``FATAL``."""
+
+    def __init__(self, name: str, code: int):
+        super().__init__(f"{name}: kernel launch failed (cudaError {code})")
+        self.code = int(code)
+
 
 _P, _I32, _I64, _F64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64, ctypes.c_double
 
@@ -117,7 +143,7 @@ def _nvcc() -> str:
     cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
     if cand.exists():
         return str(cand)
-    raise RuntimeError(
+    raise KernelBuildError(
         "nvcc not found: the port's CUDA kernels build on a machine with "
         "the CUDA toolkit (set CUDA_HOME or put nvcc on PATH)"
     )
@@ -165,7 +191,7 @@ def _build_missing(names: List[str]) -> Dict[str, str]:
             os.replace(tmp, _lib_path(n))
     if failed:
         detail = "\n".join(f"--- {n} ---\n{logs[n]}" for n in failed)
-        raise RuntimeError(f"nvcc failed for {failed}:\n{detail}")
+        raise KernelBuildError(f"nvcc failed for {failed}:\n{detail}")
     return logs
 
 
@@ -178,9 +204,14 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             _build_missing([name])
-            lib = ctypes.CDLL(str(_lib_path(name)))
-            for fn, argtypes in _SIGNATURES[name].items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
+            try:
+                lib = ctypes.CDLL(str(_lib_path(name)))
+                for fn, argtypes in _SIGNATURES[name].items():
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = ctypes.c_int
+            except (OSError, AttributeError) as exc:
+                raise KernelBuildError(
+                    f"cannot load the library of {name}: {exc}"
+                ) from exc
             _libs[name] = lib
     return lib

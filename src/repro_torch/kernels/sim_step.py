@@ -66,6 +66,7 @@ from ..core.events import (
     STREAM_FP_GAP, STREAM_FP_TRUST, STREAM_TP_COIN, STREAM_TP_TRUST, law_constants,
     stream_key64_np,
 )
+from .build import KernelLaunchError
 
 __all__ = [
     "PRIM_NOOP", "PRIM_WORK", "PRIM_IDLE", "PRIM_CKPT", "PRIM_WORK_NC",
@@ -605,7 +606,7 @@ def _stream_ptr(dev: torch.device) -> int:
 
 def _raise_on(name: str, rc: int) -> None:
     if rc != 0:
-        raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc})")
+        raise KernelLaunchError(name, rc)
 
 
 def _law_specs(kind: str, law, lp, prefix: str = "") -> list:
