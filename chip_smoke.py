@@ -127,6 +127,26 @@ under ``set_per_process_memory_fraction`` that halves the chunk, and a
 real device-side assert that poisons the CUDA context, after which the
 campaign retries, degrades and finishes on the host.
 
+Then training under the paper's policy (phases 38-40, no kernel of their
+own: the path launches the codec kernels on every save and disk
+restore): SmolLM-135M's ``loss_fn``, every gradient leaf and one
+``adamw_update`` on the card against the CPU (full width, 2 layers, f32,
+dense and chunked attention), no flash launch in a training step, and a
+backward through ``attn_impl="pallas"`` that raises; then
+``repro_torch.launch.train`` at full size (30 layers, bf16 compute, 8 x
+1024 tokens) under ``FaultTolerantExecutor`` on the wall clock, through
+``AsyncCheckpointer(CheckpointStore(codec="int8"))`` with a
+``BuddyMemoryCheckpoint`` as the first restore tier, once fault-free and
+once with faults from a seeded trace under the paper-accurate predictor,
+under ``torch.use_deterministic_algorithms``: the loss falls, every step
+before the first disk restore has the fault-free run's loss bit for bit
+and the last step's is within a stated tolerance, 30 quantize launches a
+save and 30 dequantize launches a disk restore (step ms, tokens/s, C,
+the period, the ledger against ``waste_exact``, peak memory; a step's
+forward / backward / update split and its device kernels); and the train
+CLI in a subprocess on the card.  ``python3 chip_smoke.py --only train``
+runs the environment, the build and these phases alone.
+
 Every phase prints one JSON line; any failure exits non-zero before the
 last line, which is ``{"ok": true, "device": {...}}``.  Needs one CUDA
 card; imports nothing of JAX.
@@ -3727,6 +3747,320 @@ def campaign_phases(dev, main_res, main_wall: float) -> None:
                   "compared in its subprocess")
 
 
+# --------------------------------------------------------------------------- #
+# Training under the paper's policy
+# --------------------------------------------------------------------------- #
+#: phase 38: SmolLM-135M at full width, 2 layers, f32, on a (batch, tokens)
+#: batch; the card against the CPU: the loss (rel), each gradient leaf and
+#: one AdamW update's params and moments (max abs diff over the leaf's
+#: max |x|)
+TRAIN_CHECK_SEED = 0
+TRAIN_CHECK_BATCH = (2, 128)
+TRAIN_CHECK_TOL = {"loss": 1e-5, "grad": 1e-4, "adamw": 1e-6}
+#: phase 39: repro_torch.launch.train at full size (30 layers, bf16
+#: compute, 8 x 1024 tokens, seed 0); the faulted run under the
+#: paper-accurate predictor, its faults from the seeded trace of this MTBF
+#: (wall seconds), which puts 2-4 of them inside the run
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEED = 60, 8, 1024, 0
+TRAIN_MTBF = 12.0
+TRAIN_LR = 3e-4
+#: every second fault loses the buddy's replica too, so the disk tier
+#: (int8, through dequantize_blocks) serves it
+TRAIN_CORRELATED_EVERY = 2
+#: the faulted run's last loss against the fault-free run's (relative),
+#: after a restore through the int8 disk tier: each parameter and moment
+#: comes back within half a code step of its block (1/254 of the block's
+#: absmax).  Steps whose last run followed only exact memory restores must
+#: be bit-equal (the phase runs under torch.use_deterministic_algorithms)
+TRAIN_LOSS_RTOL = 1e-2
+#: phase 40: the CLI on the card, reduced config
+TRAIN_CLI_ARGS = ("--steps", "30", "--inject-faults", "--predictor", "paper-accurate",
+                  "--fault-mtbf", "0.3", "--memory-tier", "--correlated-every", "2",
+                  "--codec", "int8")
+
+
+def loss_and_grads(model, params, batch):
+    """``(loss, {key: grad})`` of ``model.loss_fn`` by ``torch.autograd``."""
+    import torch
+    from repro_torch.checkpoint.store import flatten_with_keys, map_with_keys
+
+    live = map_with_keys(lambda _, p: p.detach().requires_grad_(True), params)
+    loss, _ = model.loss_fn(live, batch)
+    flat = flatten_with_keys(live)
+    return loss.detach(), dict(zip(flat, torch.autograd.grad(loss, list(flat.values()))))
+
+
+def leaf_rel(got: dict, want: dict) -> float:
+    """Largest ``max|got - want| / max|want|`` over the leaves (card vs
+    CPU); integer leaves must be equal."""
+    import torch
+
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k].detach().cpu()
+        if w.is_floating_point():
+            worst = max(worst, float((g - w).abs().max()) / (float(w.abs().max()) or 1.0))
+        else:
+            check(torch.equal(g, w), f"{k}: differs")
+    return worst
+
+
+def train_step_split(cfg, dev) -> None:
+    """Where a training step's time goes: forward, backward and the AdamW
+    update of the train path's step (full size, bf16 compute), each timed
+    with CUDA events (median of 3 after a warm-up step), and the device
+    kernels of one step by total time in a ``torch.profiler`` trace."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.checkpoint.store import flatten_with_keys, map_with_keys
+    from repro_torch.launch.steps import build_model
+    from repro_torch.launch.train import make_train_state
+    from repro_torch.models import RuntimeFlags
+    from repro_torch.optim import adamw_update, cosine_schedule
+
+    t0 = time.monotonic()
+    model = build_model(cfg, RuntimeFlags(dense_attn_max=512))
+    st = make_train_state(cfg, model, TRAIN_SEED, dev)
+    toks = torch.from_numpy(np.random.default_rng(TRAIN_SEED).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)).to(dev)
+
+    def step(times=None):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        live = map_with_keys(lambda _, p: p.detach().requires_grad_(True), st["params"])
+        loss, _ = model.loss_fn(live, {"tokens": toks})
+        ev[1].record()
+        flat = flatten_with_keys(live)
+        grads = dict(zip(flat, torch.autograd.grad(loss, list(flat.values()))))
+        ev[2].record()
+        lr = cosine_schedule(st["opt"].step, TRAIN_LR, warmup=100, total=TRAIN_STEPS)
+        out = adamw_update(map_with_keys(lambda k, _: grads[k], st["params"]), st["opt"],
+                           st["params"], lr)
+        ev[3].record()
+        torch.cuda.synchronize()
+        if times is not None:
+            for i, name in enumerate(("forward", "backward", "adamw")):
+                times[name].append(ev[i].elapsed_time(ev[i + 1]))
+        return out
+
+    step()
+    times = {"forward": [], "backward": [], "adamw": []}
+    for _ in range(3):
+        step(times)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+    rows = []
+    for e in prof.key_averages():
+        dt = getattr(e, "device_time_total", None)
+        if dt is None:
+            dt = getattr(e, "cuda_time_total", 0.0)
+        if dt:
+            rows.append((dt, e.key, e.count))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows) / 1e3
+    split = {k: statistics.median(v) for k, v in times.items()}
+    emit("train_split", seconds=time.monotonic() - t0, ms=split, step_ms=sum(split.values()),
+         profiled_device_ms=busy, device_kernels=sum(r[2] for r in rows),
+         top_kernels=[{"name": k[:80], "ms": dt / 1e3, "calls": n} for dt, k, n in rows[:12]],
+         note="CUDA events around forward (loss_fn), backward (autograd.grad) and "
+              "adamw_update of one step on a fixed batch; profiled_device_ms: the device "
+              "kernels' total time in one profiled step")
+    del st
+
+
+def train_phases(dev, kernels: list) -> None:
+    """Phases 38-40: the training step on the card against the CPU, the
+    training path (``repro_torch.launch.train`` at full size under the
+    executor, fault-free and faulted, through the int8 store and the buddy
+    memory tier) and the train CLI on the card.  Adds the training path's
+    codec launches to the codec entries of ``kernels``."""
+    import dataclasses
+    import statistics
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.store import flatten_with_keys, map_with_keys
+    from repro_torch.configs import get
+    from repro_torch.core.waste import waste_exact
+    from repro_torch.kernels import ckpt_codec as CK
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.train import train
+    from repro_torch.models import LanguageModel, RuntimeFlags
+    from repro_torch.optim import adamw_init, adamw_update
+
+    cfg = get("smollm-135m")
+
+    # ---- 38. the training step, card against CPU ----------------------- #
+    t0 = time.monotonic()
+    cpu_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    small = dataclasses.replace(cfg, num_layers=2)
+    B, S = TRAIN_CHECK_BATCH
+    toks = torch.from_numpy(np.random.default_rng(TRAIN_CHECK_SEED).integers(
+        0, small.vocab_size, (B, S)).astype(np.int32))
+    p_cpu = LanguageModel(small).init(torch.Generator().manual_seed(TRAIN_CHECK_SEED))
+    p_gpu = map_with_keys(lambda _, x: x.to(dev), p_cpu)
+    diffs, losses = {}, {}
+    for what, dmax in (("dense", 512), ("chunked", S // 2)):
+        flags = RuntimeFlags(compute_dtype=torch.float32, dense_attn_max=dmax)
+        m_cpu, m_gpu = LanguageModel(small, flags), LanguageModel(small, flags)
+        fl0 = FA.flash_attention_bhsd.launches
+        l_gpu, g_gpu = loss_and_grads(m_gpu, p_gpu, {"tokens": toks.to(dev)})
+        torch.cuda.synchronize()
+        check(FA.flash_attention_bhsd.launches == fl0,
+              f"train_check/{what}: the flash kernel ran in a training step")
+        l_cpu, g_cpu = loss_and_grads(m_cpu, p_cpu, {"tokens": toks})
+        d = {"loss": abs(float(l_gpu) - float(l_cpu)) / abs(float(l_cpu)),
+             "grad": leaf_rel(g_gpu, g_cpu)}
+        if what == "dense":  # one update on the CPU's gradients, both sides
+            lr = torch.tensor(1e-3)
+            n_cpu, s_cpu, _ = adamw_update(map_with_keys(lambda k, _: g_cpu[k], p_cpu),
+                                           adamw_init(p_cpu), p_cpu, lr)
+            n_gpu, s_gpu, _ = adamw_update(map_with_keys(lambda k, _: g_cpu[k].to(dev), p_cpu),
+                                           adamw_init(p_gpu), p_gpu, lr.to(dev))
+            d["adamw"] = max(leaf_rel(flatten_with_keys(n_gpu), flatten_with_keys(n_cpu)),
+                             leaf_rel(flatten_with_keys(s_gpu), flatten_with_keys(s_cpu)))
+        for k, v in d.items():
+            check(v <= TRAIN_CHECK_TOL[k],
+                  f"train_check/{what}: {k} off by {v} > {TRAIN_CHECK_TOL[k]}")
+        diffs[what], losses[what] = d, float(l_gpu)
+    torch.set_num_threads(cpu_threads)
+    # a backward through the flash kernel raises on the card
+    m_pal = LanguageModel(small, RuntimeFlags(compute_dtype=torch.float32, attn_impl="pallas"))
+    live = map_with_keys(lambda _, p: p.detach().requires_grad_(True), p_gpu)
+    fl0 = FA.flash_attention_bhsd.launches
+    loss, _ = m_pal.loss_fn(live, {"tokens": toks.to(dev)})
+    pallas_launches = FA.flash_attention_bhsd.launches - fl0
+    check(pallas_launches == small.num_layers,
+          f"train_check: attn_impl='pallas' launched the flash kernel {pallas_launches} times")
+    raised = None
+    try:
+        loss.backward()
+    except NotImplementedError as e:
+        raised = str(e)
+    check(raised is not None, "train_check: a backward through the flash kernel did not raise")
+    del live, loss, p_gpu, m_pal
+    emit("train_check", seconds=time.monotonic() - t0, layers=small.num_layers,
+         batch=[B, S], compute="float32", loss=losses, rel_diff=diffs, tol=TRAIN_CHECK_TOL,
+         flash_launches_in_step=0, pallas_forward_launches=pallas_launches,
+         pallas_backward_raised=raised[:100],
+         compared="card vs CPU (one thread): loss rel; every gradient leaf and one "
+                  "adamw_update's params and moments, max abs diff over the leaf's "
+                  "max |x|; dense (S <= dense_attn_max) and chunked attention")
+
+    # ---- 39. the training path, fault-free and faulted ------------------ #
+    t0 = time.monotonic()
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    kw = dict(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR,
+              seed=TRAIN_SEED, codec="int8", memory_tier=True,
+              correlated_every=TRAIN_CORRELATED_EVERY, fault_mtbf=TRAIN_MTBF,
+              predictor="paper-accurate", strategy="auto",
+              flags=RuntimeFlags(dense_attn_max=512), device=dev, log=lambda s: None)
+    runs, codec = {}, {}
+    try:
+        for name, inject in (("fault_free", False), ("faulted", True)):
+            CK.quantize_blocks.launches = CK.dequantize_blocks.launches = 0
+            FA.flash_attention_bhsd.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            runs[name] = train(cfg, inject_faults=inject, **kw)
+            torch.cuda.synchronize()
+            runs[name]["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+            codec[name] = {"quantize_blocks": CK.quantize_blocks.launches,
+                           "dequantize_blocks": CK.dequantize_blocks.launches}
+            check(FA.flash_attention_bhsd.launches == 0,
+                  f"train_path/{name}: the flash kernel ran in training")
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    clean, hit = runs["fault_free"], runs["faulted"]
+    rep = hit["report"]
+    last = TRAIN_STEPS - 1
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    disk = [e for e in hit["restores"] if e["tier"] == "disk"]
+    n_saves = len(hit["saves"])
+    q, dq = codec["faulted"]["quantize_blocks"], codec["faulted"]["dequantize_blocks"]
+    # bit-equal losses up to the first disk restore (memory restores are
+    # exact copies), the last within TRAIN_LOSS_RTOL
+    first_disk = min((e["step"] for e in disk), default=TRAIN_STEPS)
+    unequal = [k for k in range(first_disk) if hit["losses"].get(k) != clean["losses"].get(k)]
+    rel_last = abs(hit["losses"][last] - clean["losses"][last]) / abs(clean["losses"][last])
+    summary = {}
+    for name, r in runs.items():
+        rp = r["report"]
+        step_ms = statistics.median(s for _, s in r["step_s"]) * 1e3
+        r_meas = rp.ledger.recovery / rp.n_restores if rp.n_restores else 0.0
+        rec, prec = (0.85, 0.82) if name == "faulted" else (0.0, 1.0)
+        summary[name] = {
+            "wall_s": r["wall_s"], "step_ms_median": step_ms,
+            "step_ms_min": min(s for _, s in r["step_s"]) * 1e3,
+            "steps_run": len(r["step_s"]), "tokens_per_s_step": tokens / step_ms * 1e3,
+            "tokens_per_s_wall": TRAIN_STEPS * tokens / r["wall_s"],
+            "first_loss": r["losses"][0], "last_loss": r["losses"][last],
+            "saves": r["saves"], "c_estimate": rp.c_estimate, "period_T": rp.period_T,
+            "q": rp.q, "counts": {"periodic": rp.n_periodic, "proactive": rp.n_proactive,
+                                  "faults": rp.n_faults, "restores": rp.n_restores,
+                                  "migrations": rp.n_migrations},
+            "restores": r["restores"], "ledger": rp.ledger.as_dict(),
+            "analytic_waste": rp.analytic_waste, "measured_R": r_meas,
+            "waste_exact_own": float(waste_exact(rp.period_T, rp.q, rp.c_estimate, 0.2,
+                                                 r_meas, TRAIN_MTBF, rec, prec)),
+            "codec_launches": codec[name], "peak_bytes": r["peak_bytes"],
+        }
+    emit("train_path", seconds=time.monotonic() - t0, layers=cfg.num_layers,
+         batch=[TRAIN_BATCH, TRAIN_SEQ], compute="bfloat16", steps=TRAIN_STEPS,
+         lr=TRAIN_LR, mtbf=TRAIN_MTBF, deterministic=True, runs=summary,
+         fault_times=[t for t in hit["fault_times"] if t <= hit["wall_s"] + 1.0],
+         quantize_per_save=q / max(n_saves, 1),
+         dequantize_per_disk_restore=dq / max(len(disk), 1),
+         bit_equal_steps=first_disk - len(unequal), first_disk_restore_step=first_disk,
+         last_loss_rel_diff=rel_last, tol=TRAIN_LOSS_RTOL,
+         compared="losses of the steps before the first disk restore bit-equal to the "
+                  "fault-free run's (torch.use_deterministic_algorithms); the last "
+                  "step's within the stated rel tolerance (int8 restore)")
+    for name, r in runs.items():
+        ls = r["losses"]
+        check(sorted(ls) == list(range(TRAIN_STEPS)), f"train_path/{name}: steps {sorted(ls)}")
+        check(all(math.isfinite(v) for v in ls.values()), f"train_path/{name}: non-finite loss")
+        check(ls[last] < ls[0], f"train_path/{name}: the loss did not fall "
+              f"({ls[0]} -> {ls[last]})")
+    check(rep.n_faults >= 2 and rep.n_restores == rep.n_faults,
+          f"train_path: {rep.n_faults} faults, {rep.n_restores} restores (2 or more wanted)")
+    check(disk, f"train_path: no restore came from the disk tier: {hit['restores']}")
+    check(q > 0 and q % n_saves == 0, f"train_path: {q} quantize launches over {n_saves} saves")
+    check(dq > 0 and dq % len(disk) == 0,
+          f"train_path: {dq} dequantize launches over {len(disk)} disk restores")
+    check(not unequal, f"train_path: steps {unequal} differ from the fault-free run before "
+          "any disk restore")
+    check(rel_last <= TRAIN_LOSS_RTOL,
+          f"train_path: last loss {hit['losses'][last]} vs the fault-free run's "
+          f"{clean['losses'][last]} (rel {rel_last} > {TRAIN_LOSS_RTOL})")
+    for k in kernels:
+        if k["name"] in ("quantize_blocks", "dequantize_blocks"):
+            k["train_path_launches"] = codec["faulted"][k["name"]]
+    del runs, clean, hit
+    train_step_split(cfg, dev)
+
+    # ---- 40. the train CLI on the card ---------------------------------- #
+    t0 = time.monotonic()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    p = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *TRAIN_CLI_ARGS],
+                       env=env, capture_output=True, text=True, timeout=600)
+    check(p.returncode == 0, f"train CLI: rc {p.returncode}: {p.stderr[-2000:]}")
+    out = p.stdout
+    check("== run report ==" in out and "waste=" in out, f"train CLI output: {out[-2000:]}")
+    check(" on cuda" in out, f"train CLI did not run on the card: {out[-500:]}")
+    waste = float(out.split("waste=")[1].split()[0])
+    check(0.0 <= waste < 1.0, f"train CLI: waste {waste}")
+    emit("train_cli", seconds=time.monotonic() - t0, args=list(TRAIN_CLI_ARGS), waste=waste,
+         tail=out.strip().splitlines()[-5:])
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -3734,6 +4068,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--campaign-fault"]:
         return campaign_fault_child(sys.argv[2], sys.argv[3])
+    # "--only train": the environment, the build and phases 38-40 alone
+    only_train = sys.argv[1:3] == ["--only", "train"]
     t_script = time.monotonic()
     sys.path.insert(0, str(SRC))
     import numpy as np
@@ -3767,6 +4103,11 @@ def main() -> int:
          ptxas=ptxas, sim_step_registers=regs, wkv6_registers=wkv_regs)
 
     from repro_torch.kernels import sim_step as K
+
+    if only_train:
+        train_phases(dev, [])
+        emit("total", seconds=time.monotonic() - t_script)
+        return 0
 
     # ---- 3. kernels against their plain versions, main-path lanes ------ #
     from repro_torch.experiments import GridSpec, paper_grid_cells, run_grid
@@ -3946,6 +4287,10 @@ def main() -> int:
     t0 = time.monotonic()
     campaign_phases(dev, res, wall)
     emit("campaign_phases", seconds=time.monotonic() - t0)
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    train_phases(dev, kernels)
+    emit("train_phases", seconds=time.monotonic() - t0)
     emit("total", seconds=time.monotonic() - t_script)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

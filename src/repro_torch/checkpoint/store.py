@@ -29,9 +29,11 @@ side: files, fsync, commit); :class:`~.async_ckpt.AsyncCheckpointer` runs
 the second half on a thread.  Restores land on the devices of a target
 tree, or on ``device`` (CUDA unless the caller asks for the CPU).
 
-Trees are nested dicts, lists and tuples of tensors (numpy arrays are
-taken too).  Leaf keys follow ``jax.tree_util``: dict keys sorted,
-sequence entries by index, joined with ``/``; ``None`` holds no leaf.
+Trees are nested dicts, lists, tuples and NamedTuples of tensors (numpy
+arrays are taken too).  Leaf keys follow ``jax.tree_util``: dict keys
+sorted, sequence entries by index, a NamedTuple's fields as ``.<name>``
+(the AdamW state's ``opt/.step``, ``opt/.moments/...``), joined with
+``/``; ``None`` holds no leaf.
 bfloat16 leaves are refused: numpy, which writes the files, has no such
 type.
 """
@@ -67,12 +69,24 @@ _CODEC_MIN_SIZE = 1024
 # --------------------------------------------------------------------------- #
 # Trees
 # --------------------------------------------------------------------------- #
+def _is_namedtuple(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(type(tree), "_fields")
+
+
 def map_with_keys(fn: Callable[[str, Any], Any], tree, _prefix: Tuple[str, ...] = ()):
     """``tree`` with every leaf replaced by ``fn(key, leaf)``, leaves
     visited in ``jax.tree_util`` order (dict keys sorted, sequences by
-    index); the returned dicts hold their keys in that order."""
+    index, a NamedTuple's fields in declaration order); the returned
+    dicts hold their keys in that order.  A NamedTuple is rebuilt as its
+    own type, its fields keyed ``.<name>`` as ``jax.tree_util``'s
+    ``GetAttrKey`` prints them (``opt/.step``)."""
     if isinstance(tree, dict):
         return {k: map_with_keys(fn, tree[k], _prefix + (str(k),)) for k in sorted(tree)}
+    if _is_namedtuple(tree):
+        return type(tree)(*(
+            map_with_keys(fn, v, _prefix + ("." + name,))
+            for name, v in zip(type(tree)._fields, tree)
+        ))
     if isinstance(tree, (list, tuple)):
         return type(tree)(
             map_with_keys(fn, v, _prefix + (str(i),)) for i, v in enumerate(tree)

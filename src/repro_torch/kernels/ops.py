@@ -16,6 +16,11 @@ the reference's ``kernels/ops.py``.
   in, the codec's ``(n_blocks, 256)`` int8 codes and ``(n_blocks, 1)`` f32
   scales out.  The kernels read the leaf flat with its length, so no
   padded copy is made.
+
+``flash_attention``, ``decode_attention`` and ``wkv6`` have no backward,
+as the reference's Pallas kernels have no VJP: given an operand that
+requires a gradient they run behind :class:`.guard.NoBackward`, whose
+backward raises, on the card and on the CPU alike.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from . import decode_attention as _decode
 from . import flash_attention as _flash
 from . import rwkv6 as _rwkv6
 from .ckpt_codec import dequantize_blocks, quantize_blocks
+from .guard import no_backward
 
 __all__ = ["flash_attention", "decode_attention", "wkv6", "quantize_checkpoint",
            "dequantize_checkpoint"]
@@ -37,7 +43,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """q ``(B, S, H, hd)``; k, v ``(B, T, KV, hd)`` -> ``(B, S, H, hd)``
     (the kernel of ``flash_attention_bhsd``)."""
-    return _flash.attention(q, k, v, causal)
+    return no_backward("flash_attention_bhsd", _flash.attention, q, k, v, causal=causal)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -45,11 +51,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q ``(B, 1, H, hd)``; caches k, v ``(B, S_max, KV, hd)``; ``pos``
     the 0-d int32 index of the newest valid cache row -> ``(B, 1, H, hd)``
     (the kernel of ``decode_attention_bhd``)."""
-    return _decode.attention(q[:, 0], k, v, pos).unsqueeze(1)
+    return no_backward("decode_attention_bhd", _decode.attention, q[:, 0], k, v,
+                       pos).unsqueeze(1)
 
 
 #: the kernel of ``wkv6_bhsd`` in the model layout (its docstring holds the
 #: shapes); the wrapper is already this layout's, so it is the entry itself
+#: (guarded there)
 wkv6 = _rwkv6.wkv
 
 

@@ -32,7 +32,9 @@ whose state update (one rounded product ``k_i v_j``, one rounded product
 ``w_i S_ij``, one rounded sum) the kernel repeats bit for bit.  A wrapper
 given CPU tensors runs the plain version; given CUDA tensors it launches
 the kernel or raises.  ``wkv6_bhsd.launches`` counts the kernel's launches
-from either entry.
+from either entry.  :func:`wkv` has no backward (the reference's kernel
+has no VJP): given an operand that requires a gradient it runs behind
+:class:`.guard.NoBackward`, whose backward raises.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ import numpy as np
 import torch
 
 from .flash_attention import _check_device
+from .guard import NoBackward, needs_guard
 from .sim_step import _raise_on, _stream_ptr
 
 __all__ = ["HEAD_DIMS", "TILE_ROWS", "wkv_ref", "wkv6_ref", "wkv", "wkv6_bhsd", "sample_wkv_inputs"]
@@ -168,10 +171,16 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     given (which may be ``s0``).  ``tile_rows`` (one of ``TILE_ROWS[hd]``)
     runs another built tile than the default; the results are the same.
 
-    CUDA tensors launch the kernel; CPU tensors run :func:`wkv_ref`."""
+    CUDA tensors launch the kernel; CPU tensors run :func:`wkv_ref`.  With
+    an operand that requires a gradient the call has no backward (the
+    final state then goes to a fresh tensor, copied into ``state_out``)."""
     if not isinstance(u, torch.Tensor) or u.dim() != 2:
         raise TypeError("wkv: u must be a 2-D (H, hd) tensor")
-    return _run("wkv", r, k, v, w, u.unsqueeze(0), s0, state_out, tile_rows)
+    u3 = u.unsqueeze(0)
+    if not needs_guard(r, k, v, w, u, s0):
+        return _run("wkv", r, k, v, w, u3, s0, state_out, tile_rows)
+    y, s = NoBackward.apply("wkv6_bhsd", _run, {}, "wkv", r, k, v, w, u3, s0, None, tile_rows)
+    return y, (s if state_out is None else state_out.copy_(s))
 
 
 def wkv6_bhsd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,

@@ -1,10 +1,10 @@
 """Models of the port: the language model of the dense and RWKV6
 families (:class:`LanguageModel`), its layers (``layers``, ``ssm``), and
-the conversion of the reference's parameter trees
-(:func:`params_from_jax`)."""
+the conversion of the reference's parameter trees and training states
+(:func:`params_from_jax`, :func:`train_state_from_jax`)."""
 
-from .convert import params_from_jax
+from .convert import params_from_jax, train_state_from_jax
 from .layers import RuntimeFlags
 from .transformer import LanguageModel
 
-__all__ = ["LanguageModel", "RuntimeFlags", "params_from_jax"]
+__all__ = ["LanguageModel", "RuntimeFlags", "params_from_jax", "train_state_from_jax"]

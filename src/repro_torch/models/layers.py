@@ -1,4 +1,5 @@
-"""Transformer primitives: norms, RoPE, GQA attention, SwiGLU MLP.
+"""Transformer primitives: norms, RoPE, GQA attention, SwiGLU MLP, the
+token cross entropy.
 
 The port of the reference's ``models/layers.py`` for one device: the same
 functions over tensors, with no sharding annotations.  Projections and the
@@ -11,9 +12,13 @@ Attention implementations (``RuntimeFlags.attn_impl``):
   chunked  online softmax over KV chunks (the reference's ``_chunked_attn``)
   pallas   the hand-written attention kernels (:mod:`..kernels.ops`): the
            CUDA counterparts of the reference's Pallas kernels, reading the
-           unrepeated K/V; on CPU tensors their plain versions
-  auto     ``pallas``: the kernel takes any length, so the port runs it
-           wherever the reference computes attention
+           unrepeated K/V; on CPU tensors their plain versions.  They have
+           no backward (nor have the reference's), so a loss through them
+           raises on ``backward()``
+  auto     in training (``loss_fn``), the reference's rule: ``dense`` up to
+           ``dense_attn_max`` query tokens, ``chunked`` beyond; in prefill,
+           ``pallas`` (the kernel takes any length; the reference's rule
+           would take the plain paths there)
 Decode attends the new token over the KV cache with the decode kernel
 (``pallas`` / ``auto``) or its plain version, the reference's
 ``attention_decode`` math (``dense`` / ``chunked``).  The new K/V row is
@@ -44,6 +49,7 @@ __all__ = [
     "swiglu_mlp",
     "init_attention",
     "init_mlp",
+    "cross_entropy_loss",
 ]
 
 ATTN_IMPLS = ("auto", "dense", "chunked", "pallas")
@@ -52,10 +58,11 @@ ATTN_IMPLS = ("auto", "dense", "chunked", "pallas")
 @dataclass(frozen=True)
 class RuntimeFlags:
     """Execution options, the reference's fields and defaults.  In the
-    port, ``dense_attn_max``, ``moe_capacity_factor`` and
-    ``seq_shard_prefill`` have no effect (``auto`` always takes the
-    kernel; no MoE, one device), and ``LanguageModel`` refuses a
-    ``remat_policy`` other than ``"none"`` (no training path yet)."""
+    port, ``dense_attn_max`` acts in training only (``auto`` there is
+    dense up to it, chunked beyond; prefill takes the kernel),
+    ``moe_capacity_factor`` and ``seq_shard_prefill`` have no effect (no
+    MoE, one device), and ``LanguageModel`` refuses a ``remat_policy``
+    other than ``"none"`` (``ROADMAP.md`` §1, the remat item)."""
 
     attn_impl: str = "auto"  # auto | dense | chunked | pallas
     dense_attn_max: int = 8192
@@ -174,14 +181,19 @@ def _chunked_attn(q, k, v, causal: bool, kv_chunk: int):
 
 
 def attention(p: dict, x: torch.Tensor, cfg, sin: torch.Tensor, cos: torch.Tensor,
-              flags: RuntimeFlags, causal: bool = True):
-    """Full-sequence attention (prefill).  Returns ``(output, (k, v))``;
-    ``k`` / ``v`` hold the unrepeated KV heads, RoPE applied to ``k``, for
-    the decode cache."""
+              flags: RuntimeFlags, causal: bool = True, train: bool = False):
+    """Full-sequence attention (prefill, or training with ``train``).
+    Returns ``(output, (k, v))``; ``k`` / ``v`` hold the unrepeated KV
+    heads, RoPE applied to ``k``, for the decode cache."""
     k_raw = apply_rope(_project(x, p["wk"], p.get("bk")), sin, cos)
     v_raw = _project(x, p["wv"], p.get("bv"))
     q = apply_rope(_project(x, p["wq"], p.get("bq")), sin, cos)
-    impl = "pallas" if flags.attn_impl == "auto" else flags.attn_impl
+    impl = flags.attn_impl
+    if impl == "auto":
+        if train:
+            impl = "dense" if q.shape[1] <= flags.dense_attn_max else "chunked"
+        else:
+            impl = "pallas"
     if impl == "pallas":
         out = ops.flash_attention(q, k_raw, v_raw, causal)
     else:
@@ -234,3 +246,26 @@ def init_mlp(generator: torch.Generator, d_model: int, d_ff: int, dtype, lead=()
 
 def swiglu_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])) @ p["wo"]
+
+
+# --------------------------------------------------------------------------- #
+# Loss
+# --------------------------------------------------------------------------- #
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token-mean cross entropy in f32, the reference's arithmetic: the
+    row max held out of the gradient (``detach``, the reference's
+    ``stop_gradient``), the gold logit taken by a masked sum over the
+    vocabulary, and with ``mask`` the masked mean over at least one
+    token."""
+    l32 = logits.to(torch.float32)
+    m = l32.amax(dim=-1).detach()
+    z = torch.exp(l32 - m[..., None])
+    logz = torch.log(z.sum(dim=-1)) + m
+    vocab = torch.arange(l32.shape[-1], device=l32.device)
+    gold = torch.where(vocab == targets[..., None], l32, 0.0).sum(dim=-1)
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.to(torch.float32)
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

@@ -1,5 +1,6 @@
 """Language model for the dense and RWKV6 families: the port of the
-reference's ``models/transformer.py`` serving entry points.
+reference's ``models/transformer.py`` entry points, ``loss_fn`` (training),
+``prefill`` and ``decode_step`` (serving).
 
 * Parameters are a plain tree with the reference's layout and key paths:
   ``embed``, ``final_norm`` (and ``lm_head`` when untied) and
@@ -9,10 +10,12 @@ reference's ``models/transformer.py`` serving entry points.
   Python ``for`` over the stacked slices.
 * Weights are cast to the compute dtype by :meth:`LanguageModel.cast_params`
   except the ``_KEEP_F32`` leaves, as the reference's ``_cast_tree`` does;
-  the entry points cast what they are given, which costs nothing for a
-  tree already cast, so a server casts once when it builds the model
-  (:mod:`..launch.serve`) where the reference casts on every call.  The
-  numbers are the same.
+  the serving entry points cast what they are given, which costs nothing
+  for a tree already cast, so a server casts once when it builds the
+  model (:mod:`..launch.serve`) where the reference casts on every call.
+  The numbers are the same.  :meth:`LanguageModel.loss_fn` casts each
+  layer's slice inside the autograd graph instead, as the reference's
+  ``_run_stack`` does, so the gradients reach the f32 masters.
 * The serving cache is the reference's: ``pos`` (0-d int32) and per
   pattern position, for an ``attn`` block ``k`` / ``v`` of shape ``(L, B,
   max_seq, KV, hd)`` in bf16; for an ``rwkv`` block the WKV ``state``
@@ -43,6 +46,7 @@ from .layers import (
     RuntimeFlags,
     attention,
     attention_decode,
+    cross_entropy_loss,
     init_attention,
     init_mlp,
     rms_norm,
@@ -69,6 +73,8 @@ _KEEP_F32 = {
 }
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+#: weight of the (MoE) auxiliary loss in ``loss_fn``, the reference's
+_AUX_LOSS_WEIGHT = 0.01
 CACHE_DTYPE = torch.bfloat16
 #: the block kinds the port builds
 BLOCKS = (LayerSpec("attn", "dense"), LayerSpec("rwkv", "rwkv_cm"))
@@ -108,7 +114,9 @@ class LanguageModel(nn.Module):
         self.cfg = cfg
         self.flags = flags if flags is not None else RuntimeFlags()
         if self.flags.remat_policy != "none":
-            raise NotImplementedError("remat_policy: the port has no training path yet")
+            raise NotImplementedError(
+                f"remat_policy={self.flags.remat_policy!r} is not ported yet (ROADMAP.md "
+                "§1, the remat item); the training path runs remat_policy='none'")
         self.param_dtype = _DTYPES[cfg.param_dtype]
 
     # ------------------------------------------------------------------ #
@@ -199,38 +207,50 @@ class LanguageModel(nn.Module):
         for ``attn``, the ``{"k", "v"}`` ``(B, max_seq, KV, hd)`` buffers,
         filled at ``[:, :S]`` in prefill; for ``rwkv``, ``state``,
         ``last`` and ``cm_last``, read in decode and overwritten in both
-        modes."""
+        modes.  In ``"train"`` mode there is no cache (``None``)."""
         cfg, flags = self.cfg, self.flags
-        decode = mode == "decode"
+        decode, train = mode == "decode", mode == "train"
         h = rms_norm(x, bp["mixer_norm"], cfg.norm_eps)
         if spec.mixer == "attn":
             if decode:
                 y, _ = attention_decode(bp["mixer"], h, cfg, pos, (cache["k"], cache["v"]),
                                         flags)
             else:
-                y, (k_raw, v_raw) = attention(bp["mixer"], h, cfg, sin, cos, flags)
-                S = x.shape[1]
-                cache["k"][:, :S] = k_raw.to(CACHE_DTYPE)
-                cache["v"][:, :S] = v_raw.to(CACHE_DTYPE)
+                y, (k_raw, v_raw) = attention(bp["mixer"], h, cfg, sin, cos, flags,
+                                              train=train)
+                if not train:
+                    S = x.shape[1]
+                    cache["k"][:, :S] = k_raw.to(CACHE_DTYPE)
+                    cache["v"][:, :S] = v_raw.to(CACHE_DTYPE)
         else:  # rwkv: the final state goes straight into the cache
             y, st = ssm.rwkv_apply(bp["mixer"], h, cache if decode else None,
-                                   state_out=cache["state"])
-            cache["last"].copy_(st["last"])
+                                   state_out=None if train else cache["state"])
+            if not train:
+                cache["last"].copy_(st["last"])
         x = x + y
         h2 = rms_norm(x, bp["mlp_norm"], cfg.norm_eps)
         if spec.mlp == "dense":
             return x + swiglu_mlp(bp["mlp"], h2)
         last = cache["cm_last"].to(h2.dtype) if decode else None
         y2, cm_last = ssm.rwkv_channel_mix(bp["mlp"], h2, last)
-        cache["cm_last"].copy_(cm_last)
+        if not train:
+            cache["cm_last"].copy_(cm_last)
         return x + y2
 
-    def _run_layers(self, params: dict, x, sin, cos, mode: str, cache: dict, pos):
-        """The repeated pattern, layer by layer, over the stacked slices."""
+    def _run_layers(self, params: dict, x, sin, cos, mode: str, cache: Optional[dict], pos):
+        """The repeated pattern, layer by layer, over the stacked slices.
+        In ``"train"`` mode (no cache) each layer's slice is cast to the
+        compute dtype here, inside the autograd graph."""
+        train = mode == "train"
+        cd = self.flags.compute_dtype
         for r in range(self.cfg.n_repeats):
             for pi, spec in enumerate(self.cfg.pattern):
-                x = self._apply_block(spec, _layer(params["blocks"][pi], r), x, sin, cos,
-                                      mode, _layer(cache["blocks"][pi], r), pos)
+                bp = _layer(params["blocks"][pi], r)
+                if train:
+                    bp, layer_cache = _cast_tree(bp, cd), None
+                else:
+                    layer_cache = _layer(cache["blocks"][pi], r)
+                x = self._apply_block(spec, bp, x, sin, cos, mode, layer_cache, pos)
         return x
 
     # ------------------------------------------------------------------ #
@@ -253,6 +273,28 @@ class LanguageModel(nn.Module):
         if w is None:
             w = params["embed"].T
         return torch.einsum("bsd,dv->bsv", x, w.to(x.dtype))
+
+    def loss_fn(self, params: dict, batch: dict):
+        """``batch`` ``{"tokens": (B, S) int}`` -> ``(loss, {"ce", "aux"})``,
+        the reference's ``loss_fn``: next-token cross entropy over
+        positions ``0 .. S-2`` in f32, plus the auxiliary loss (0 for the
+        families the port builds: no MoE).  ``params`` is the f32 master
+        tree: the embedding row gather ``embed[tokens]``, each layer's
+        slice and the tied head are cast to the compute dtype inside the
+        graph, so ``torch.autograd`` reaches the masters.  Attention
+        ``auto`` is dense up to ``dense_attn_max`` tokens and chunked
+        beyond, as in the reference."""
+        tokens = batch["tokens"]
+        if "frontend" in batch:
+            raise NotImplementedError("loss_fn: modality frontends are not ported")
+        x = params["embed"][tokens.long()].to(self.flags.compute_dtype)
+        S = x.shape[1]
+        sin, cos = self._rope(S, x.device)
+        x = self._run_layers(params, x, sin, cos, "train", None, None)
+        logits = self._head(params, x)
+        ce = cross_entropy_loss(logits[:, : S - 1], tokens[:, 1:])
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return ce + _AUX_LOSS_WEIGHT * aux, {"ce": ce, "aux": aux}
 
     def prefill(self, params: dict, tokens: torch.Tensor, max_seq: int):
         """tokens ``(B, S)`` int32 -> (last-token logits ``(B, 1, V)``, the

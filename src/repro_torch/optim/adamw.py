@@ -1,0 +1,197 @@
+"""AdamW with optional 8-bit (blockwise-quantized) moments: the port of
+the reference's ``optim/adamw.py``.
+
+The 8-bit variant stores m / v as int8 with per-block f32 absmax scales,
+blocks of 256 along each tensor's **last** dim (the parameter's own
+layout; the scales have shape ``shape[:-1] + (ceil(L / 256),)``).
+
+State layout (a tree mirroring params, under :class:`AdamWState`, a
+NamedTuple with the reference's field names, so the checkpoint store keys
+it ``opt/.step`` and ``opt/.moments/...`` as the reference's does):
+    f32:   {"m": f32[shape], "v": f32[shape]}
+    int8:  {"m_q": i8[shape], "m_s": f32[..., nblocks], "v_q": ..., "v_s": ...}
+
+:func:`adamw_update` is functional: it returns new tensors and never
+writes into ``params``, ``grads`` or ``state``, so a state kept by a
+checkpointer (or by the executor's memory tier) cannot change behind its
+back.  The reference maps its update over the leading dim of giant
+stacked leaves (``jax.lax.map``) to bound the transient f32 copies; the
+port does the same with a plain loop over that dim.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..checkpoint.store import flatten_with_keys, map_with_keys
+
+__all__ = [
+    "AdamWState",
+    "adamw_init",
+    "adamw_update",
+    "cosine_schedule",
+    "global_norm",
+]
+
+_BLOCK = 256
+#: leaves of at least this many elements (and 2+ dims) update one
+#: leading-dim slice at a time, as the reference's ``jax.lax.map`` does
+_SLICED_MIN = 1 << 29
+
+
+class AdamWState(NamedTuple):
+    step: torch.Tensor  # 0-d int32
+    moments: Any  # tree of per-param moment dicts
+
+
+# --------------------------------------------------------------------------- #
+# Blockwise int8 quantization along the last dim
+# --------------------------------------------------------------------------- #
+def _n_blocks(last: int) -> int:
+    return (last + _BLOCK - 1) // _BLOCK
+
+
+def _expand(scale: torch.Tensor, L: int) -> torch.Tensor:
+    return scale.repeat_interleave(_BLOCK, dim=-1)[..., :L]
+
+
+def _quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: f32[..., L] -> (int8[..., L], f32[..., ceil(L / 256)])."""
+    if x.dim() == 0:
+        x = x[None]
+    L = x.shape[-1]
+    nb = _n_blocks(L)
+    a = F.pad(x.abs(), (0, nb * _BLOCK - L))  # |x| >= 0: zero pads leave the max
+    scale = a.reshape(x.shape[:-1] + (nb, _BLOCK)).amax(dim=-1) / 127.0
+    scale = torch.clamp(scale, min=1e-12)
+    q = torch.clamp(torch.round(x / _expand(scale, L)), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _dequantize(q: torch.Tensor, scale: torch.Tensor, shape=None) -> torch.Tensor:
+    out = q.to(torch.float32) * _expand(scale, q.shape[-1])
+    return out if shape is None else out.reshape(shape)
+
+
+# --------------------------------------------------------------------------- #
+# init / update
+# --------------------------------------------------------------------------- #
+def _init_leaf(p: torch.Tensor, quantize: bool) -> Dict[str, torch.Tensor]:
+    dev = p.device
+    if quantize:
+        shape = tuple(p.shape) if p.dim() else (1,)
+        s_shape = shape[:-1] + (_n_blocks(shape[-1]),)
+        return {
+            "m_q": torch.zeros(shape, dtype=torch.int8, device=dev),
+            "m_s": torch.zeros(s_shape, dtype=torch.float32, device=dev),
+            "v_q": torch.zeros(shape, dtype=torch.int8, device=dev),
+            "v_s": torch.zeros(s_shape, dtype=torch.float32, device=dev),
+        }
+    return {"m": torch.zeros(p.shape, dtype=torch.float32, device=dev),
+            "v": torch.zeros(p.shape, dtype=torch.float32, device=dev)}
+
+
+def adamw_init(params, quantize: bool = False) -> AdamWState:
+    """Zero moments (f32, or int8 with f32 scales) on each leaf's device
+    and ``step`` 0 (int32)."""
+    moments = map_with_keys(lambda _, p: _init_leaf(p, quantize), params)
+    dev = next(iter(flatten_with_keys(params).values())).device
+    return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev), moments=moments)
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of every leaf's f32 sum of squares, the leaves in
+    tree order."""
+    total = 0
+    for x in flatten_with_keys(tree).values():
+        total = total + x.to(torch.float32).square().sum()
+    return torch.sqrt(total)
+
+
+def _update(p, g, mom: dict, lr, c1, c2, b1, b2, eps, weight_decay):
+    """One leaf's update; returns (new param, new moment dict)."""
+    g = g.to(torch.float32)
+    if "m" in mom:
+        m = b1 * mom["m"] + (1 - b1) * g
+        v = b2 * mom["v"] + (1 - b2) * g.square()
+        new_mom = {"m": m, "v": v}
+    else:
+        gq = g if g.dim() else g[None]
+        m_prev = _dequantize(mom["m_q"], mom["m_s"])
+        v_prev = _dequantize(mom["v_q"], mom["v_s"])
+        m = b1 * m_prev + (1 - b1) * gq
+        v = b2 * v_prev + (1 - b2) * gq.square()
+        mq, ms = _quantize(m)
+        vq, vs = _quantize(v)
+        new_mom = {"m_q": mq, "m_s": ms, "v_q": vq, "v_s": vs}
+        m = m.reshape(p.shape)
+        v = v.reshape(p.shape)
+    delta = (m / c1) / (torch.sqrt(v / c2) + eps)
+    p32 = p.to(torch.float32)
+    new_p = p32 - lr * (delta + weight_decay * p32)
+    return new_p.to(p.dtype), new_mom
+
+
+def adamw_update(
+    grads,
+    state: AdamWState,
+    params,
+    lr,
+    *,
+    b1: float = 0.9,
+    b2: float = 0.95,
+    eps: float = 1e-8,
+    weight_decay: float = 0.1,
+    clip_norm: Optional[float] = 1.0,
+):
+    """Returns ``(new_params, new_state, {"grad_norm": pre-clip norm})``:
+    global-norm clipping, bias correction, decoupled weight decay on every
+    leaf.  Functional: no input is written."""
+    with torch.no_grad():
+        step = state.step + 1
+        gnorm = global_norm(grads)
+        scale = None
+        if clip_norm is not None:
+            scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
+        stepf = step.to(torch.float32)
+        c1 = 1.0 - b1 ** stepf
+        c2 = 1.0 - b2 ** stepf
+        flat_g = flatten_with_keys(grads)
+        flat_m = flatten_with_keys(state.moments)
+        moment_keys = {}
+        for key in flat_m:
+            leaf, _, name = key.rpartition("/")
+            moment_keys.setdefault(leaf, {})[name] = flat_m[key]
+        new_p, new_m = {}, {}
+        for key, p in flatten_with_keys(params).items():
+            g = flat_g[key] if scale is None else flat_g[key] * scale
+            mom = moment_keys[key]
+            if p.dim() >= 2 and p.numel() >= _SLICED_MIN:
+                # one leading-dim slice at a time: the transient f32
+                # copies are one slice, not the whole stack
+                outs = [_update(p[i], g[i], {k: v[i] for k, v in mom.items()}, lr, c1, c2,
+                                b1, b2, eps, weight_decay) for i in range(p.shape[0])]
+                new_p[key] = torch.stack([o[0] for o in outs])
+                new_m[key] = {k: torch.stack([o[1][k] for o in outs]) for k in mom}
+            else:
+                new_p[key], new_m[key] = _update(p, g, mom, lr, c1, c2, b1, b2, eps,
+                                                 weight_decay)
+        params_out = map_with_keys(lambda k, _: new_p[k], params)
+        moments_out = map_with_keys(
+            lambda k, _: new_m[k.rpartition("/")[0]][k.rpartition("/")[2]], state.moments)
+    return params_out, AdamWState(step, moments_out), {"grad_norm": gnorm}
+
+
+def cosine_schedule(step, base_lr: float, warmup: int = 100, total: int = 10000,
+                    floor: float = 0.1):
+    """Linear warmup to ``base_lr``, then cosine decay to ``floor *
+    base_lr`` at ``total``; f32, a tensor on ``step``'s device."""
+    step = torch.as_tensor(step).to(torch.float32)
+    warm = base_lr * step / max(warmup, 1)
+    prog = torch.clamp((step - warmup) / max(total - warmup, 1), 0.0, 1.0)
+    cos = floor * base_lr + (1 - floor) * base_lr * 0.5 * (1 + torch.cos(math.pi * prog))
+    return torch.where(step < warmup, warm, cos)

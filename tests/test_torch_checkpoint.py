@@ -4,6 +4,7 @@ two stores against each other: the same files, byte for byte, and each
 restoring the other's steps."""
 
 import os
+from typing import Any, NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -398,3 +399,87 @@ def test_smollm_param_shapes_match_reference_model():
     assert all(str(v.dtype) == "float32" for v in flatten_with_keys(ref).values())
     assert sum(int(np.prod(s)) for s in got.values()) == 134_515_008
     assert sum(1 for s in got.values() if np.prod(s) >= 1024) == 10
+
+
+# --------------------------------------------------------------------------- #
+# The training state: an AdamWState NamedTuple under "opt"
+# --------------------------------------------------------------------------- #
+def _ref_train_state(quantize=False):
+    """The reference's SmolLM-135M reduced training state past step 0, with
+    numpy leaves."""
+    from repro import configs as RC
+    from repro.models.transformer import LanguageModel as RModel
+    from repro.optim import adamw as RA
+
+    params = RModel(RC.get("smollm-135m").reduced()).init(jax.random.PRNGKey(0))
+    opt = RA.adamw_init(params, quantize=quantize)
+    g = jax.tree.map(lambda p: jnp.full_like(p, 0.01), params)
+    params, opt, _ = RA.adamw_update(g, opt, params, 1e-3)
+    return jax.tree.map(np.array, {"params": params, "opt": opt})
+
+
+class _OptState(NamedTuple):  # the layout of the AdamW state
+    step: Any
+    moments: Any
+
+
+def test_namedtuple_round_trips(tmp_path):
+    """A NamedTuple is rebuilt as its own type (``type(t)(generator)``
+    raised a TypeError) and its fields keyed ``.<name>``."""
+    AdamWState = _OptState
+    st = {"opt": AdamWState(step=torch.tensor(3, dtype=torch.int32),
+                            moments={"w": {"m": torch.ones(2048), "v": torch.zeros(2048)}}),
+          "params": {"w": torch.arange(2048.0)}}
+    assert list(flatten_with_keys(st)) == ["opt/.step", "opt/.moments/w/m",
+                                           "opt/.moments/w/v", "params/w"]
+    doubled = map_with_keys(lambda _, x: x * 2, st)
+    assert type(doubled["opt"]) is AdamWState and int(doubled["opt"].step) == 6
+    for codec in ("raw", "int8"):
+        store = CheckpointStore(str(tmp_path / codec), codec)
+        store.save(1, st)
+        back = store.restore(1, target=st)
+        assert type(back["opt"]) is AdamWState
+        assert back["opt"].step.dtype == torch.int32 and int(back["opt"].step) == 3
+        assert torch.equal(back["params"]["w"], st["params"]["w"]) or codec == "int8"
+        assert torch.equal(back["opt"].moments["w"]["m"], st["opt"].moments["w"]["m"])
+    bm = BuddyMemoryCheckpoint()
+    bm.save(4, st)
+    assert type(bm.restore(0, lost=True)[1]["opt"]) is AdamWState
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_train_state_key_paths_are_the_reference(quantize):
+    from repro.checkpoint.store import _flatten_with_keys as ref_flatten
+    from repro_torch.models import train_state_from_jax
+
+    ref = _ref_train_state(quantize)
+    want = list(ref_flatten(ref))
+    got = list(flatten_with_keys(train_state_from_jax(ref, device="cpu")))
+    assert got == want
+    assert "opt/.step" in got
+    assert any(k.startswith("opt/.moments/blocks/0/mixer/wq/") for k in got)
+
+
+@pytest.mark.parametrize("codec", ["raw", "int8"])
+def test_train_state_files_and_restores_across_stores(tmp_path, codec):
+    from repro_torch.models import train_state_from_jax
+    from repro_torch.optim import AdamWState
+
+    ref_np = _ref_train_state()
+    port = train_state_from_jax(ref_np, device="cpu")
+    jx = jax.tree.map(jnp.asarray, ref_np)
+    RefStore(str(tmp_path / "ref"), codec).save(5, jx)
+    CheckpointStore(str(tmp_path / "port"), codec).save(5, port)
+    want, got = _step_files(str(tmp_path / "ref"), 5), _step_files(str(tmp_path / "port"), 5)
+    assert sorted(got) == sorted(want) and "opt__.step.npy" in got
+    for f in want:
+        assert got[f] == want[f], f
+    # each store restores the other's step
+    back = CheckpointStore(str(tmp_path / "ref"), codec).restore(5, target=port)
+    assert isinstance(back["opt"], AdamWState)
+    rback = RefStore(str(tmp_path / "port"), codec).restore(
+        5, target=jax.eval_shape(lambda: jx))
+    mine = CheckpointStore(str(tmp_path / "port"), codec).restore(5, target=port)
+    for k, w in flatten_with_keys(jax.tree.map(np.asarray, rback)).items():
+        assert np.array_equal(flatten_with_keys(back)[k].numpy(), w), k
+        assert np.array_equal(flatten_with_keys(mine)[k].numpy(), w), k
