@@ -147,6 +147,24 @@ forward / backward / update split and its device kernels); and the train
 CLI in a subprocess on the card.  ``python3 chip_smoke.py --only train``
 runs the environment, the build and these phases alone.
 
+Then the dense and MoE families (phases 41-44, no kernel of their own:
+their serving paths launch the two attention kernels): both attention
+kernels against their plain versions at every new shape (head dim 128
+with query groups 8, 4 and 7, head dim 64 with group 7; Qwen3-30B-A3B,
+qwen2-0.5b, granite-8b, qwen2-72b, Arctic-480B), timed beside their
+bounds, plain versions and ``scaled_dot_product_attention``;
+Qwen3-30B-A3B at full width and 2 layers on the card against the port on
+the CPU, in f32 (routing equal) and bf16 (routing differences counted,
+the card then routed as the CPU), and a repeated prefill bit-equal;
+Qwen3-30B-A3B at full size (48 layers, 61 GB of bf16 weights) through
+``serve()`` (8 x 1024 prompt tokens, 128 generated, a snapshot every 16),
+fault-free and faulted with equal tokens, 48 flash launches a prefill and
+48 decode calls a step; then qwen2-0.5b and granite-8b at full size,
+qwen2-72b at 8 of its 80 layers and Arctic-480B at 2 of its 35 (32
+generated tokens, fault-free), served the same way.  ``python3
+chip_smoke.py --only families`` runs the environment, the build and these
+phases alone.
+
 Every phase prints one JSON line; any failure exits non-zero before the
 last line, which is ``{"ok": true, "device": {...}}``.  Needs one CUDA
 card; imports nothing of JAX.
@@ -1203,14 +1221,28 @@ def flash_inputs(B, S, T, H, KV, hd, dt, seed, dev):
 
 def device_kernels(fn, names) -> dict:
     """How many times each device kernel named in ``names`` ran in one
-    call of ``fn``, counted in a ``torch.profiler`` trace of the card."""
+    call of ``fn``, counted in a ``torch.profiler`` trace of the card.
+
+    ``fn`` runs twice: once in a warm-up cycle whose events are discarded,
+    then once in the active cycle that is counted, with a host pause on
+    each side of the call.  The profiler drops device records that fall
+    outside its capture window by its own clock, and a trace that starts
+    cold can lose the first record of its session: an H100 run counted a
+    decode call's combine kernel but not the split kernel launched just
+    before it.  The warm-up cycle and the pauses keep the call's kernels
+    inside the window."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            time.sleep(0.02)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+            prof.step()
     return {n: sum(n in e.name for e in prof.events()) for n in names}
 
 
@@ -4061,6 +4093,422 @@ def train_phases(dev, kernels: list) -> None:
          tail=out.strip().splitlines()[-5:])
 
 
+# --------------------------------------------------------------------------- #
+# The dense and MoE families
+# --------------------------------------------------------------------------- #
+#: the families served on the card in phases 43-44, phase 41's attention
+#: shapes taken from their configs
+FAMILIES = ("qwen3-moe-30b-a3b", "qwen2-0.5b", "granite-8b", "qwen2-72b", "arctic-480b")
+#: Qwen3-30B-A3B's serving depth (full: its 61 GB of bf16 weights fit the
+#: card); the depth cuts of the two configs that do not fit, and Arctic's
+#: shorter generation
+QWEN3_LAYERS = 48
+DEPTH_CUTS = {"qwen2-72b": 8, "arctic-480b": 2}
+ARCTIC_GEN = 32
+#: Qwen3 at full width, 2 layers, on the card against the port on the CPU.
+#: f32: the routing must be equal (expert ids and keep mask of every MoE
+#: call); the logits tolerances are those of tests/test_torch_families.py
+#: (measured there against the reference: decode steps move where a K/V
+#: entry within rounding noise of a bf16 boundary rounds the other way),
+#: the prefill's widened 10x for two layers of 128 experts over the full
+#: vocabulary.  Measured on the H100: 6.2e-6, 4.7e-5 and 4.2e-4.  bf16: at
+#: most 3% of the (token, choice) pairs may route elsewhere (near ties of
+#: two router probabilities; measured 12 of 2,176), and the logits, with
+#: the card routed as the CPU, within 3e-2 of max|logit| (measured 9.9e-3).
+QWEN3_CARD_CPU_TOL = {"prefill": 1e-4, "decode_same_cache": 2e-3, "decode_own_cache": 5e-3}
+QWEN3_BF16_TOL, QWEN3_BF16_MAX_DIFFERING = 3e-2, 0.03
+
+
+class RoutingTap:
+    """Inside ``with``: records every MoE call's routing (expert ids and
+    keep mask, on the CPU) and, when ``follow`` holds another run's expert
+    ids in call order, makes the port's top-k take them, counting the
+    (token, choice) pairs where its own choice is not among them."""
+
+    def __init__(self, follow=None):
+        from repro_torch.models import moe
+
+        self.moe, self.route, self.top_k = moe, moe.route, moe._top_k
+        self.calls, self.follow = [], None if follow is None else list(follow)
+        self.pairs = self.differing = 0
+
+    def __enter__(self):
+        self.moe.route, self.moe._top_k = self._route, self._top_k
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route, self.moe._top_k = self.route, self.top_k
+
+    def _route(self, *args, **kw):
+        r = self.route(*args, **kw)
+        self.calls.append((r.expert_ids.cpu(), r.keep.cpu()))
+        return r
+
+    def _top_k(self, probs, k):
+        vals, ids = self.top_k(probs, k)
+        if self.follow is None:
+            return vals, ids
+        want = self.follow.pop(0).to(ids.device)
+        self.pairs += ids.numel()
+        self.differing += int((ids[..., :, None] != want[..., None, :]).all(-1).sum())
+        return probs.gather(-1, want), want
+
+
+def routing_mismatches(a: list, b: list) -> int:
+    """MoE calls of two runs whose expert ids or keep mask differ."""
+    import torch
+
+    check(len(a) == len(b), f"{len(a)} MoE calls against {len(b)}")
+    return sum(not (torch.equal(x[0], y[0]) and torch.equal(x[1], y[1])) for x, y in zip(a, b))
+
+
+def smi_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def serve_family(cfg, gen: int, faulted: bool, dev) -> dict:
+    """``serve()`` on ``cfg`` (8 x 1024 prompt tokens, ``gen`` generated,
+    a snapshot every 16), fault-free and, with ``faulted``, again under
+    wall-clock faults whose tokens must equal the fault-free ones.  Checks
+    one flash launch a layer in the prefill (all on the tensor-core
+    kernel) and one decode call a layer a decode step; returns the
+    record."""
+    import torch
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.serve import fault_trace, serve
+
+    L = cfg.num_layers
+    kw = dict(requests=REQUESTS, prompt_len=PROMPT_LEN, gen=gen, snapshot_every=SNAPSHOT_EVERY,
+              seed=SERVE_SEED, device=dev)
+
+    def run(times):
+        FA.flash_attention_bhsd.launches = 0
+        FA.flash_attention_bhsd.tc_launches = 0
+        DA.decode_attention_bhd.launches = 0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        res = serve(cfg, fault_times=times, **kw)
+        res["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        res["launches"] = {"flash_attention_bhsd": FA.flash_attention_bhsd.launches,
+                           "decode_attention_bhd": DA.decode_attention_bhd.launches}
+        check(FA.flash_attention_bhsd.tc_launches == L,
+              f"{cfg.name}: {FA.flash_attention_bhsd.tc_launches} of the prefill's {L} flash "
+              "launches took the tensor-core kernel")
+        check(res["launches"]["flash_attention_bhsd"] == L,
+              f"{cfg.name}: flash launched {res['launches']['flash_attention_bhsd']} times in "
+              f"one {L}-layer prefill")
+        check(res["launches"]["decode_attention_bhd"] == L * res["decode_steps"],
+              f"{cfg.name}: decode launched {res['launches']['decode_attention_bhd']} times in "
+              f"{res['decode_steps']} steps of {L} layers")
+        return res
+
+    clean = run(())
+    toks = clean["tokens"]
+    check(tuple(toks.shape) == (REQUESTS, gen), f"{cfg.name}: tokens {tuple(toks.shape)}")
+    check(clean["decode_steps"] == gen - 1, f"{cfg.name}: {clean['decode_steps']} decode steps")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), f"{cfg.name}: token out of range")
+    out = {
+        "model": cfg.name, "layers": L, "of_layers": None, "d_model": cfg.d_model,
+        "heads": [cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim],
+        "params": cfg.param_count(), "active_params": cfg.active_param_count(),
+        "weight_bytes": 2 * cfg.param_count(), "requests": REQUESTS, "prompt_len": PROMPT_LEN,
+        "gen": gen, "prefill_s": clean["prefill_s"], "decode_s": clean["decode_s"],
+        "decode_ms_per_token": clean["decode_s"] * 1e3 / clean["decode_steps"],
+        "tokens_per_s": REQUESTS * gen / clean["wall_s"], "wall_s": clean["wall_s"],
+        "peak_bytes": clean["peak_bytes"], "launches": clean["launches"],
+    }
+    if faulted:
+        mtbf = clean["decode_s"] / 4
+        times = fault_trace(SERVE_SEED, mtbf)[:MAX_FAULTS]
+        f = run(times)
+        check(f["faults"] >= 1, f"{cfg.name}: no fault landed in the faulted run")
+        check(torch.equal(f["tokens"], toks),
+              f"{cfg.name}: the faulted run's tokens differ from the fault-free run's in "
+              f"{int((f['tokens'] != toks).sum())} places")
+        check(f["decode_steps"] == gen - 1 + f["redecoded"], f"{cfg.name}: replays miscounted")
+        out["faulted"] = {"mtbf_s": mtbf, "fault_times_s": times, "faults": f["faults"],
+                          "redecoded": f["redecoded"], "decode_steps": f["decode_steps"],
+                          "wall_s": f["wall_s"], "peak_bytes": f["peak_bytes"],
+                          "launches": f["launches"], "tokens_equal_fault_free": True}
+    return out
+
+
+def decode_step_split(model, params, cache, tok) -> dict:
+    """Where one decode step's time goes: the step issued eagerly (CUDA
+    events, the host's rate), its host syncs (``set_sync_debug_mode``
+    warnings), the step replayed as a CUDA graph (device time; only
+    without syncs) and its device kernels by name in a profiler trace.
+    Each call writes the cache in place one row further."""
+    import warnings
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def step():
+        return model.decode_step(params, cache, tok)
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    out = {"eager_ms": eager_ms(step, 5), "host_syncs": syncs, "graph_ms": None}
+    if syncs == 0:
+        out["graph_ms"] = device_ms([step], samples=5)[0]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    rows = [(e.key, getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0)) / 1e3,
+             e.count) for e in prof.key_averages()]
+    rows = [r for r in rows if r[1] > 0]
+    rows.sort(key=lambda r: -r[1])
+    out["device_kernels"] = sum(r[2] for r in rows)
+    out["device_busy_ms"] = sum(r[1] for r in rows)
+    out["top_kernels"] = [{"name": n[:90], "ms": t, "count": c} for n, t, c in rows[:12]]
+    return out
+
+
+def family_phases(dev, kernels: list) -> None:
+    """Phases 41-44: the attention kernels at the dense and MoE families'
+    shapes, Qwen3-30B-A3B card against CPU, Qwen3-30B-A3B served at full
+    size, and the other four families served (two of them at a depth
+    cut).  Adds each shape's times and each path's launches to the
+    attention entries of ``kernels``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.checkpoint.store import map_with_keys
+    from repro_torch.configs import get
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    from repro_torch.models import LanguageModel, RuntimeFlags
+
+    B, S = REQUESTS, PROMPT_LEN
+    max_seq = PROMPT_LEN + GEN + 8
+    pos = PROMPT_LEN + GEN // 2 - 1
+
+    # ---- 41. the attention kernels at the families' shapes ------------- #
+    t0 = time.monotonic()
+    shapes = {"flash_attention_bhsd": [], "decode_attention_bhd": []}
+    err = {"flash_attention_bhsd": 0.0, "decode_attention_bhd": 0.0}
+    for si, name in enumerate(FAMILIES):
+        cfg = get(name)
+        H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        bf = torch.bfloat16
+        # flash, causal prefill: the path's shape, checked, then timed over
+        # input sets that together read three times the L2
+        set_bytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
+        sets = [flash_inputs(B, S, S, H, KV, hd, bf, 400 + 10 * si + i, dev)
+                for i in range(math.ceil(3 * L2_BYTES / set_bytes))]
+        tc0 = FA.flash_attention_bhsd.tc_launches
+        got = ops.flash_attention(*sets[0], True)
+        torch.cuda.synchronize()
+        variant = "tc" if FA.flash_attention_bhsd.tc_launches > tc0 else "simt"
+        check(variant == "tc", f"flash_attention_bhsd/{name}: took the {variant} kernel")
+        e = attn_close(got, FA.attention_ref(*sets[0], True), f"flash_attention_bhsd/{name}")
+        err["flash_attention_bhsd"] = max(err["flash_attention_bhsd"], e)
+        ms, out = device_ms([lambda x=x: ops.flash_attention(*x, True) for x in sets])
+        pms, pout = device_ms([lambda x=x: FA.attention_ref(*x, True) for x in sets])
+        lms, lout = device_ms([lambda x=x: F.scaled_dot_product_attention(
+            x[0].transpose(1, 2), x[1].transpose(1, 2), x[2].transpose(1, 2),
+            is_causal=True, enable_gqa=True) for x in sets])
+        attn_close(out, pout, f"flash_attention_bhsd/{name} (timed) against its plain version")
+        attn_close(out, lout.transpose(1, 2), f"flash_attention_bhsd/{name} (timed) against sdpa")
+        ops_f = 4 * hd * B * H * S * (S + 1) // 2
+        t_ops, t_bytes = ops_f / PEAK_BF16_S * 1e3, set_bytes / PEAK_BYTES_S * 1e3
+        shapes["flash_attention_bhsd"].append({
+            "model": name, "shape": f"q ({B}, {S}, {H}, {hd}), k/v ({B}, {S}, {KV}, {hd}) bf16, "
+            f"causal, group {H // KV}", "variant": variant, "max_abs_err": e, "ms": ms,
+            "plain_ms": pms, "library_ms": lms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "ops": ops_f,
+            "bytes": set_bytes, "input_sets": len(sets)})
+        del sets, got, out, pout, lout
+        # decode over the bf16 cache: every split edge, then timed at the
+        # middle position of the path's decode over caches three times the L2
+        g = torch.Generator(device=dev)
+        g.manual_seed(500 + si)
+        cache_bytes = 2 * B * max_seq * KV * hd * 2
+        layers = [tuple(torch.randn(shape, generator=g, device=dev).to(bf)
+                        for shape in ((B, 1, H, hd), (B, max_seq, KV, hd), (B, max_seq, KV, hd)))
+                  for _ in range(math.ceil(3 * L2_BYTES / cache_bytes))]
+        qd, kc, vc = layers[0]
+        R = DA.SPLIT_ROWS
+        e = 0.0
+        for p_ in (-1, 0, R - 1, R, pos, max_seq - 1):
+            p = torch.tensor(p_, dtype=torch.int32, device=dev)
+            got = ops.decode_attention(qd, kc, vc, p)
+            want = DA.attention_ref(qd[:, 0], kc, vc, p).unsqueeze(1)
+            torch.cuda.synchronize()
+            e = max(e, attn_close(got, want, f"decode_attention_bhd/{name}/pos{p_}"))
+        err["decode_attention_bhd"] = max(err["decode_attention_bhd"], e)
+        p = torch.tensor(pos, dtype=torch.int32, device=dev)
+        ms, out = device_ms([lambda x=x: ops.decode_attention(*x, p) for x in layers])
+        pms, pout = device_ms([lambda x=x: DA.attention_ref(x[0][:, 0], x[1], x[2], p)
+                               for x in layers])
+        lms, lout = device_ms([lambda x=x: F.scaled_dot_product_attention(
+            x[0].transpose(1, 2), x[1][:, :pos + 1].transpose(1, 2),
+            x[2][:, :pos + 1].transpose(1, 2), enable_gqa=True) for x in layers])
+        attn_close(out, pout.unsqueeze(1), f"decode_attention_bhd/{name} (timed) against its "
+                   "plain version")
+        attn_close(out, lout.transpose(1, 2), f"decode_attention_bhd/{name} (timed) against sdpa")
+        d_bytes = 2 * B * (pos + 1) * KV * hd * 2 + 2 * B * H * hd * 2 + 4
+        d_ops = 4 * hd * B * H * (pos + 1)
+        t_ops, t_bytes = d_ops / PEAK_BF16_S * 1e3, d_bytes / PEAK_BYTES_S * 1e3
+        shapes["decode_attention_bhd"].append({
+            "model": name, "shape": f"q ({B}, 1, {H}, {hd}), cache ({B}, {max_seq}, {KV}, {hd}) "
+            f"bf16, pos {pos}, group {H // KV}", "max_abs_err": e, "ms": ms, "plain_ms": pms,
+            "library_ms": lms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes", "ops": d_ops,
+            "bytes": d_bytes, "caches": len(layers), "splits": DA.split_count(max_seq)})
+        del layers, out, pout, lout
+    emit("family_attn_check", seconds=time.monotonic() - t0, shapes=shapes, tol=ATTN_TOL,
+         nvidia_smi=smi_line())
+
+    # ---- 42. Qwen3 at full width, 2 layers: card against CPU ----------- #
+    t0 = time.monotonic()
+    cpu_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    small = dataclasses.replace(get("qwen3-moe-30b-a3b"), num_layers=2)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SERVE_SEED)
+    p_gpu = LanguageModel(small).init(g)  # f32 masters, made on the card
+    p_cpu = map_with_keys(lambda _, x: x.cpu(), p_gpu)
+    toks = torch.from_numpy(np.random.default_rng(SERVE_SEED).integers(
+        0, small.vocab_size, (2, 64)).astype(np.int32))
+    steps, ms_ = 4, 64 + 16
+    res42 = {}
+    for cname, cd in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        flags = RuntimeFlags(compute_dtype=cd)
+        m_cpu, m_gpu = LanguageModel(small, flags), LanguageModel(small, flags)
+        w_cpu, w_gpu = m_cpu.cast_params(p_cpu), m_gpu.cast_params(p_gpu)  # cast once
+        f32 = cd == torch.float32
+        with RoutingTap() as tc:
+            lc, cc = m_cpu.prefill(w_cpu, toks, ms_)
+        with RoutingTap(None if f32 else [i for i, _ in tc.calls]) as tg:
+            lg, cg = m_gpu.prefill(w_gpu, toks.to(dev), ms_)
+        # largest difference, absolute and as a share of the CPU's max|logit|
+        d = {"prefill": float((lg.float().cpu() - lc.float()).abs().max())}
+        rel = {"prefill": d["prefill"] / float(lc.float().abs().max())}
+        mism = routing_mismatches(tc.calls, tg.calls) if f32 else None
+        tok = lc[:, -1].argmax(-1).to(torch.int32)[:, None]
+        same_tokens = True
+        for _ in range(steps):
+            n0 = len(tc.calls)
+            synced = {"pos": cc["pos"].to(dev, copy=True),
+                      "blocks": tuple({k: v.to(dev, copy=True) for k, v in b.items()}
+                                      for b in cc["blocks"])}
+            with tc:
+                lc, cc = m_cpu.decode_step(w_cpu, cc, tok)
+            if f32:
+                with RoutingTap() as ts:
+                    ls, _ = m_gpu.decode_step(w_gpu, synced, tok.to(dev))
+                d["decode_same_cache"] = max(d.get("decode_same_cache", 0.0),
+                                             float((ls.cpu() - lc).abs().max()))
+                mism += routing_mismatches(tc.calls[n0:], ts.calls)
+                lg, cg = m_gpu.decode_step(w_gpu, cg, tok.to(dev))
+            else:  # the card routed as the CPU
+                tg.follow = [i for i, _ in tc.calls[n0:]]
+                with tg:
+                    lg, cg = m_gpu.decode_step(w_gpu, cg, tok.to(dev))
+            del synced
+            diff = float((lg.float().cpu() - lc.float()).abs().max())
+            d["decode_own_cache"] = max(d.get("decode_own_cache", 0.0), diff)
+            rel["decode_own_cache"] = max(rel.get("decode_own_cache", 0.0),
+                                          diff / float(lc.float().abs().max()))
+            same_tokens &= bool(torch.equal(lg.float().cpu().argmax(-1), lc.float().argmax(-1)))
+            tok = lc[:, -1].argmax(-1).to(torch.int32)[:, None]
+        if f32:
+            check(mism == 0, f"Qwen3 card vs CPU, f32: {mism} MoE calls routed otherwise")
+            for k, tol in QWEN3_CARD_CPU_TOL.items():
+                check(d[k] <= tol, f"Qwen3 card vs CPU, f32: {k} logits differ by {d[k]} > {tol}")
+            res42[cname] = {"max_abs_diff": d, "max_over_max_logit": rel,
+                            "tol": QWEN3_CARD_CPU_TOL, "moe_calls": len(tc.calls),
+                            "routing_mismatched_calls": mism, "greedy_tokens_equal": same_tokens}
+        else:
+            check(tg.differing <= QWEN3_BF16_MAX_DIFFERING * tg.pairs,
+                  f"Qwen3 card vs CPU, bf16: {tg.differing} of {tg.pairs} pairs routed otherwise")
+            worst = max(rel.values())
+            check(worst <= QWEN3_BF16_TOL,
+                  f"Qwen3 card vs CPU, bf16: logits differ by {worst} of max|logit|")
+            # the card against itself: a repeated prefill gives the same bits
+            la, ca = m_gpu.prefill(w_gpu, toks.to(dev), ms_)
+            lb, cb = m_gpu.prefill(w_gpu, toks.to(dev), ms_)
+            bit_equal = bool(torch.equal(la, lb)) and all(
+                torch.equal(x[k], y[k]) for x, y in zip(ca["blocks"], cb["blocks"]) for k in x)
+            check(bit_equal, "Qwen3 bf16: a repeated prefill on the card changed the bits")
+            res42[cname] = {"max_abs_diff": d, "max_over_max_logit": worst, "tol": QWEN3_BF16_TOL,
+                            "routed_pairs": tg.pairs, "pairs_routed_otherwise": tg.differing,
+                            "max_share_routed_otherwise": QWEN3_BF16_MAX_DIFFERING,
+                            "greedy_tokens_equal": same_tokens,
+                            "repeated_prefill_bit_equal": bit_equal}
+            del la, ca, lb, cb
+        del m_cpu, m_gpu, w_cpu, w_gpu, lc, cc, lg, cg
+    torch.set_num_threads(cpu_threads)
+    del p_gpu, p_cpu
+    torch.cuda.empty_cache()
+    emit("qwen3_card_vs_cpu", seconds=time.monotonic() - t0, layers=2, batch=2, prompt=64,
+         decode_steps=steps, cpu_threads=1, results=res42)
+
+    # ---- 43. Qwen3-30B-A3B at full size through serve() ---------------- #
+    t0 = time.monotonic()
+    cfg = dataclasses.replace(get("qwen3-moe-30b-a3b"), param_dtype="bfloat16",
+                              num_layers=QWEN3_LAYERS)
+    rec = serve_family(cfg, GEN, True, dev)
+    rec["of_layers"] = get("qwen3-moe-30b-a3b").num_layers
+    # a decode step reads every weight but the embedding table (8 rows of
+    # it) and, at the middle of the decode, the K/V rows up to pos
+    step_bytes = (2 * (cfg.param_count() - cfg.vocab_size * cfg.d_model)
+                  + 2 * cfg.num_layers * B * (pos + 1) * cfg.num_kv_heads
+                  * cfg.resolved_head_dim * 2)
+    rec["decode_step_bytes"] = step_bytes
+    rec["decode_step_bound_ms"] = step_bytes / PEAK_BYTES_S * 1e3
+    check(rec["peak_bytes"] <= 76 * 2**30, f"Qwen3 serving peaked at {rec['peak_bytes']} bytes")
+    paths = {cfg.name: rec["launches"]}
+    torch.cuda.empty_cache()
+    m = LanguageModel(cfg)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SERVE_SEED)
+    params = m.cast_params(m.init(g))
+    prompts = torch.from_numpy(np.random.default_rng(SERVE_SEED).integers(
+        0, cfg.vocab_size, (REQUESTS, PROMPT_LEN)).astype(np.int32)).to(dev)
+    _, cache = m.prefill(params, prompts, max_seq)
+    rec["decode_step"] = decode_step_split(
+        m, params, cache, torch.zeros((REQUESTS, 1), dtype=torch.int32, device=dev))
+    del m, params, cache
+    torch.cuda.empty_cache()
+    emit("qwen3_serve", seconds=time.monotonic() - t0, **rec, nvidia_smi=smi_line())
+
+    # ---- 44. the other families served --------------------------------- #
+    for name in FAMILIES[1:]:
+        t0 = time.monotonic()
+        full = get(name)
+        cfg = dataclasses.replace(full, param_dtype="bfloat16",
+                                  num_layers=DEPTH_CUTS.get(name, full.num_layers))
+        arctic = name == "arctic-480b"
+        rec = serve_family(cfg, ARCTIC_GEN if arctic else GEN, not arctic, dev)
+        rec["of_layers"] = full.num_layers
+        paths[name] = rec["launches"]
+        emit("family_serve", seconds=time.monotonic() - t0, **rec, nvidia_smi=smi_line())
+
+    for k in kernels:
+        if k["name"] in shapes:
+            k["family_shapes"] = shapes[k["name"]]
+            k["family_max_abs_err"] = err[k["name"]]
+            k["family_path_launches"] = {m: v[k["name"]] for m, v in paths.items()}
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -4068,8 +4516,12 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--campaign-fault"]:
         return campaign_fault_child(sys.argv[2], sys.argv[3])
-    # "--only train": the environment, the build and phases 38-40 alone
-    only_train = sys.argv[1:3] == ["--only", "train"]
+    # "--only train" / "--only families": the environment, the build and
+    # phases 38-40 / 41-44 alone
+    only = sys.argv[2] if sys.argv[1:2] == ["--only"] and len(sys.argv) > 2 else None
+    if only not in (None, "train", "families"):
+        print(f"chip_smoke: --only takes train or families, not {only!r}", file=sys.stderr)
+        return 2
     t_script = time.monotonic()
     sys.path.insert(0, str(SRC))
     import numpy as np
@@ -4104,8 +4556,12 @@ def main() -> int:
 
     from repro_torch.kernels import sim_step as K
 
-    if only_train:
+    if only == "train":
         train_phases(dev, [])
+        emit("total", seconds=time.monotonic() - t_script)
+        return 0
+    if only == "families":
+        family_phases(dev, [])
         emit("total", seconds=time.monotonic() - t_script)
         return 0
 
@@ -4291,6 +4747,10 @@ def main() -> int:
     t0 = time.monotonic()
     train_phases(dev, kernels)
     emit("train_phases", seconds=time.monotonic() - t0)
+    torch.cuda.empty_cache()  # Qwen3-30B-A3B's 61 GB of weights need the card
+    t0 = time.monotonic()
+    family_phases(dev, kernels)
+    emit("family_phases", seconds=time.monotonic() - t0)
     emit("total", seconds=time.monotonic() - t_script)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,10 +3,11 @@
 
 ``ArchConfig`` describes one model (layer pattern, widths, vocabulary);
 ``reduced()`` gives the same family at a tiny size for CPU runs.  The
-port builds the ``dense`` family (``attn`` mixer, ``dense`` MLP) and the
-RWKV6 family (``rwkv`` mixer, ``rwkv_cm`` channel mix); the other
-families' fields are kept so that a config and its ``reduced()`` read
-field for field like the reference's.
+port builds the ``dense`` family (``attn`` mixer, ``dense`` MLP), the
+``moe`` family (``attn`` mixer, ``moe`` MLP) and the RWKV6 family
+(``rwkv`` mixer, ``rwkv_cm`` channel mix); the other families' fields
+are kept so that a config and its ``reduced()`` read field for field
+like the reference's.
 """
 
 from __future__ import annotations
@@ -148,6 +149,18 @@ class ArchConfig:
                 if self.moe.dense_residual:
                     total += n * 3 * D * F
         return total
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top-k experts only)."""
+        if self.moe is None:
+            return self.param_count()
+        full = self.param_count()
+        e, k = self.moe.num_experts, self.moe.top_k
+        expert_params = 0
+        for spec in self.pattern:
+            if spec.mlp == "moe":
+                expert_params += self.n_repeats * e * 3 * self.d_model * self.d_ff
+        return full - expert_params + int(expert_params * (k / e))
 
     def reduced(self) -> "ArchConfig":
         """Same-family tiny config for CPU runs."""

@@ -16,7 +16,9 @@ would let a replay decode from a cache that has already moved on.
 Usage (on the card; ``--device cpu`` runs the kernels' plain versions):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
         --requests 4 --prompt-len 32 --gen 48 --inject-faults
-(``--arch rwkv6-7b`` serves the RWKV6 family.)
+(``--arch`` takes any registered architecture: smollm-135m, rwkv6-7b, the
+dense qwen2-0.5b, granite-8b, qwen2-72b and the MoE qwen3-moe-30b-a3b,
+arctic-480b; the CLI serves its ``reduced()`` config.)
 """
 
 from __future__ import annotations
@@ -125,7 +127,7 @@ def serve(cfg: ArchConfig, *, requests: int, prompt_len: int, gen: int,
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--arch", default="smollm-135m", choices=configs.ARCH_NAMES)
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=48)

@@ -4,7 +4,10 @@ The reference's ``LanguageModel.init`` gives a pytree of dicts and a
 tuple (``blocks``); converted leaf by leaf with ``np.asarray`` it is a
 tree of numpy arrays, which :func:`params_from_jax` turns into the port's
 tree of tensors with the same structure, so the same key paths under
-:func:`repro_torch.checkpoint.store.flatten_with_keys`.  The port never
+:func:`repro_torch.checkpoint.store.flatten_with_keys` (an MoE block's
+``blocks/0/mlp/router`` in f32, ``.../wi_gate``, ``.../wi_up``,
+``.../wo`` and Arctic's ``.../dense/...`` in the parameter dtype), leaf
+dtypes kept (bf16 leaves moved bit for bit).  The port never
 imports JAX: the caller converts the arrays.  :func:`train_state_from_jax`
 does the same for the reference's training state ``{"params", "opt"}``,
 whose ``opt`` (the reference's ``AdamWState``) becomes the port's

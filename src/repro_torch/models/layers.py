@@ -60,9 +60,10 @@ class RuntimeFlags:
     """Execution options, the reference's fields and defaults.  In the
     port, ``dense_attn_max`` acts in training only (``auto`` there is
     dense up to it, chunked beyond; prefill takes the kernel),
-    ``moe_capacity_factor`` and ``seq_shard_prefill`` have no effect (no
-    MoE, one device), and ``LanguageModel`` refuses a ``remat_policy``
-    other than ``"none"`` (``ROADMAP.md`` §1, the remat item)."""
+    ``moe_capacity_factor`` overrides the config's capacity factor in the
+    MoE blocks when set, ``seq_shard_prefill`` has no effect (one device),
+    and ``LanguageModel`` refuses a ``remat_policy`` other than
+    ``"none"`` (``ROADMAP.md`` §1, the remat item)."""
 
     attn_impl: str = "auto"  # auto | dense | chunked | pallas
     dense_attn_max: int = 8192

@@ -1,4 +1,4 @@
-"""Language model for the dense and RWKV6 families: the port of the
+"""Language model for the dense, MoE and RWKV6 families: the port of the
 reference's ``models/transformer.py`` entry points, ``loss_fn`` (training),
 ``prefill`` and ``decode_step`` (serving).
 
@@ -25,9 +25,11 @@ reference's ``models/transformer.py`` entry points, ``loss_fn`` (training),
   rows, the states and last tokens, ``pos``), where the reference returns
   a new tree; a caller that keeps an old state must clone it.
 
-Two block kinds are built: ``attn`` mixer with ``dense`` MLP, and
-``rwkv`` mixer with ``rwkv_cm`` channel mix (no frontend); the other
-families are queue 1 of ``ROADMAP.md``.
+Three block kinds are built: ``attn`` mixer with ``dense`` MLP, ``attn``
+mixer with ``moe`` MLP (:mod:`.moe`; its load-balance loss is summed over
+the layers into ``loss_fn``'s ``aux``), and ``rwkv`` mixer with
+``rwkv_cm`` channel mix.  Mamba blocks and the modality frontends are
+queue 1 of ``ROADMAP.md``.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ from torch import nn
 
 from ..configs.base import ArchConfig, LayerSpec
 from ..core.torch_sim import resolve_device
-from . import ssm
+from . import moe, ssm
 from .layers import (
     RuntimeFlags,
     attention,
@@ -77,7 +79,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _AUX_LOSS_WEIGHT = 0.01
 CACHE_DTYPE = torch.bfloat16
 #: the block kinds the port builds
-BLOCKS = (LayerSpec("attn", "dense"), LayerSpec("rwkv", "rwkv_cm"))
+BLOCKS = (LayerSpec("attn", "dense"), LayerSpec("attn", "moe"), LayerSpec("rwkv", "rwkv_cm"))
 
 
 def _cast_tree(d: dict, dtype: torch.dtype) -> dict:
@@ -98,7 +100,7 @@ def _layer(tree: dict, r: int) -> dict:
 
 
 class LanguageModel(nn.Module):
-    """The LM of the dense and RWKV6 families.  Parameters and caches are
+    """The LM of the dense, MoE and RWKV6 families.  Parameters and caches are
     plain trees passed to the entry points, as in the reference."""
 
     def __init__(self, cfg: ArchConfig, flags: Optional[RuntimeFlags] = None):
@@ -107,10 +109,11 @@ class LanguageModel(nn.Module):
             if spec not in BLOCKS:
                 raise NotImplementedError(
                     f"{cfg.name}: {spec} blocks are not ported yet "
-                    "(ROADMAP.md, queue 1.1); the port builds attn + dense MLP "
-                    "and rwkv + rwkv_cm")
+                    "(ROADMAP.md, queue 1.1); the port builds attn + dense MLP, "
+                    "attn + moe and rwkv + rwkv_cm")
         if cfg.frontend:
-            raise NotImplementedError(f"{cfg.name}: modality frontends are not ported")
+            raise NotImplementedError(
+                f"{cfg.name}: modality frontends are not ported yet (ROADMAP.md, queue 1.1)")
         self.cfg = cfg
         self.flags = flags if flags is not None else RuntimeFlags()
         if self.flags.remat_policy != "none":
@@ -141,7 +144,10 @@ class LanguageModel(nn.Module):
         for spec in cfg.pattern:
             if spec.mixer == "attn":
                 mixer = init_attention(generator, cfg, dt, lead=(R,))
-                mlp = init_mlp(generator, D, cfg.d_ff, dt, lead=(R,))
+                if spec.mlp == "moe":
+                    mlp = moe.init_moe(generator, cfg, dt, lead=(R,))
+                else:
+                    mlp = init_mlp(generator, D, cfg.d_ff, dt, lead=(R,))
             else:
                 mixer = ssm.init_rwkv(generator, cfg, dt, lead=(R,))
                 mlp = ssm.init_rwkv_channel_mix(generator, cfg, dt, lead=(R,))
@@ -203,11 +209,12 @@ class LanguageModel(nn.Module):
     # Blocks
     # ------------------------------------------------------------------ #
     def _apply_block(self, spec: LayerSpec, bp: dict, x, sin, cos, mode: str, cache, pos):
-        """One block.  ``cache`` is the layer's slice of the serving cache:
-        for ``attn``, the ``{"k", "v"}`` ``(B, max_seq, KV, hd)`` buffers,
-        filled at ``[:, :S]`` in prefill; for ``rwkv``, ``state``,
-        ``last`` and ``cm_last``, read in decode and overwritten in both
-        modes.  In ``"train"`` mode there is no cache (``None``)."""
+        """One block -> (``x``, its auxiliary loss: the MoE load-balance
+        loss, else ``None``).  ``cache`` is the layer's slice of the
+        serving cache: for ``attn``, the ``{"k", "v"}`` ``(B, max_seq, KV,
+        hd)`` buffers, filled at ``[:, :S]`` in prefill; for ``rwkv``,
+        ``state``, ``last`` and ``cm_last``, read in decode and overwritten
+        in both modes.  In ``"train"`` mode there is no cache (``None``)."""
         cfg, flags = self.cfg, self.flags
         decode, train = mode == "decode", mode == "train"
         h = rms_norm(x, bp["mixer_norm"], cfg.norm_eps)
@@ -230,19 +237,25 @@ class LanguageModel(nn.Module):
         x = x + y
         h2 = rms_norm(x, bp["mlp_norm"], cfg.norm_eps)
         if spec.mlp == "dense":
-            return x + swiglu_mlp(bp["mlp"], h2)
+            return x + swiglu_mlp(bp["mlp"], h2), None
+        if spec.mlp == "moe":
+            y2, aux = moe.moe_apply(bp["mlp"], h2, cfg, flags.moe_capacity_factor)
+            return x + y2, aux
         last = cache["cm_last"].to(h2.dtype) if decode else None
         y2, cm_last = ssm.rwkv_channel_mix(bp["mlp"], h2, last)
         if not train:
             cache["cm_last"].copy_(cm_last)
-        return x + y2
+        return x + y2, None
 
     def _run_layers(self, params: dict, x, sin, cos, mode: str, cache: Optional[dict], pos):
-        """The repeated pattern, layer by layer, over the stacked slices.
-        In ``"train"`` mode (no cache) each layer's slice is cast to the
-        compute dtype here, inside the autograd graph."""
+        """The repeated pattern, layer by layer, over the stacked slices ->
+        (``x``, the blocks' auxiliary losses summed in layer order, f32, as
+        the reference's scan carries them).  In ``"train"`` mode (no cache)
+        each layer's slice is cast to the compute dtype here, inside the
+        autograd graph."""
         train = mode == "train"
         cd = self.flags.compute_dtype
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for r in range(self.cfg.n_repeats):
             for pi, spec in enumerate(self.cfg.pattern):
                 bp = _layer(params["blocks"][pi], r)
@@ -250,8 +263,10 @@ class LanguageModel(nn.Module):
                     bp, layer_cache = _cast_tree(bp, cd), None
                 else:
                     layer_cache = _layer(cache["blocks"][pi], r)
-                x = self._apply_block(spec, bp, x, sin, cos, mode, layer_cache, pos)
-        return x
+                x, a = self._apply_block(spec, bp, x, sin, cos, mode, layer_cache, pos)
+                if a is not None:
+                    aux = aux + a
+        return x, aux
 
     # ------------------------------------------------------------------ #
     # Entry points
@@ -277,8 +292,9 @@ class LanguageModel(nn.Module):
     def loss_fn(self, params: dict, batch: dict):
         """``batch`` ``{"tokens": (B, S) int}`` -> ``(loss, {"ce", "aux"})``,
         the reference's ``loss_fn``: next-token cross entropy over
-        positions ``0 .. S-2`` in f32, plus the auxiliary loss (0 for the
-        families the port builds: no MoE).  ``params`` is the f32 master
+        positions ``0 .. S-2`` in f32, plus 0.01 times the auxiliary loss
+        (the MoE blocks' load-balance losses summed over the layers; 0
+        without MoE).  ``params`` is the f32 master
         tree: the embedding row gather ``embed[tokens]``, each layer's
         slice and the tied head are cast to the compute dtype inside the
         graph, so ``torch.autograd`` reaches the masters.  Attention
@@ -290,10 +306,9 @@ class LanguageModel(nn.Module):
         x = params["embed"][tokens.long()].to(self.flags.compute_dtype)
         S = x.shape[1]
         sin, cos = self._rope(S, x.device)
-        x = self._run_layers(params, x, sin, cos, "train", None, None)
+        x, aux = self._run_layers(params, x, sin, cos, "train", None, None)
         logits = self._head(params, x)
         ce = cross_entropy_loss(logits[:, : S - 1], tokens[:, 1:])
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return ce + _AUX_LOSS_WEIGHT * aux, {"ce": ce, "aux": aux}
 
     def prefill(self, params: dict, tokens: torch.Tensor, max_seq: int):
@@ -305,7 +320,7 @@ class LanguageModel(nn.Module):
         B, S = x.shape[0], x.shape[1]
         sin, cos = self._rope(S, x.device)
         cache = self.init_cache(B, max_seq, x.device)
-        x = self._run_layers(p, x, sin, cos, "prefill", cache, None)
+        x, _ = self._run_layers(p, x, sin, cos, "prefill", cache, None)
         logits = self._head(p, x[:, -1:, :])
         cache["pos"].fill_(S)
         return logits, cache
@@ -316,7 +331,7 @@ class LanguageModel(nn.Module):
         p = self.cast_params(params)
         pos = cache["pos"]
         x = self._embed(p, tokens)
-        x = self._run_layers(p, x, None, None, "decode", cache, pos)
+        x, _ = self._run_layers(p, x, None, None, "decode", cache, pos)
         logits = self._head(p, x)
         pos.add_(1)
         return logits, cache

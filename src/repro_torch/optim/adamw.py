@@ -168,7 +168,9 @@ def adamw_update(
             moment_keys.setdefault(leaf, {})[name] = flat_m[key]
         new_p, new_m = {}, {}
         for key, p in flatten_with_keys(params).items():
-            g = flat_g[key] if scale is None else flat_g[key] * scale
+            # the reference's g * scale promotes a bf16 gradient to f32 before the
+            # clip; a bf16 product would drop its low bits first
+            g = flat_g[key] if scale is None else flat_g[key].to(torch.float32) * scale
             mom = moment_keys[key]
             if p.dim() >= 2 and p.numel() >= _SLICED_MIN:
                 # one leading-dim slice at a time: the transient f32

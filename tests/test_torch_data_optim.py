@@ -226,3 +226,46 @@ class TestAdamW:
 
     def test_global_norm(self):
         assert float(global_norm({"a": torch.ones(3) * 2.0})) == pytest.approx(np.sqrt(12.0))
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_adamw_bf16_leaf_clips_in_f32_as_the_reference(quantize):
+    """A bf16 leaf whose gradient norm (~300) is far above ``clip_norm``:
+    the reference's ``g * scale`` promotes the bf16 gradient to f32 before
+    the clip, so the port must too.  Two steps; moments at the f32
+    tolerance of ``tests/test_torch_train.py`` (rtol 1e-6, atol 1e-6 of
+    the leaf's max; int8 codes within one level), the bf16 params equal.
+    A bf16 clip puts the first ``m`` up to ~1.7e-3 (rel) off.
+
+    The gradients are multiples of 1/8 in [-4, 4], so every square and
+    every partial sum of the norm is exact in f32 and the clip scale is
+    the same bits on both sides.  With standard-normal gradients the two
+    norms differ by summation order alone (XLA's f32 reduce against
+    torch's, 1.0e-6 rel on this leaf), which moves ``v`` by twice that."""
+    rng = np.random.default_rng(26)
+    p_bits = (rng.standard_normal((64, 256)) * 0.05).astype(np.float32)
+    rp = {"w": jnp.asarray(p_bits, jnp.bfloat16)}
+    pp = {"w": torch.from_numpy(p_bits).to(torch.bfloat16)}
+    rs, ps = RA.adamw_init(rp, quantize=quantize), adamw_init(pp, quantize=quantize)
+    for step in range(2):
+        g32 = (rng.integers(-32, 33, (64, 256)) / 8.0).astype(np.float32)
+        rg = {"w": jnp.asarray(g32, jnp.bfloat16)}
+        pg = {"w": torch.from_numpy(g32).to(torch.bfloat16)}
+        assert float(global_norm(pg)) > 250.0
+        rp, rs, _ = RA.adamw_update(rg, rs, rp, jnp.float32(1e-3))
+        pp, ps, _ = adamw_update(pg, ps, pp, torch.tensor(1e-3, dtype=torch.float32))
+        assert pp["w"].dtype == torch.bfloat16
+        np.testing.assert_array_equal(pp["w"].float().numpy(),
+                                      np.asarray(rp["w"], np.float32))
+        want = {k: np.asarray(v) for k, v in flatten_with_keys(
+            jax.tree.map(np.array, rs.moments)).items()}
+        got = flatten_with_keys(ps.moments)
+        assert list(got) == list(want)
+        for k, w in want.items():
+            g = got[k].numpy()
+            assert g.dtype == w.dtype, k
+            if g.dtype == np.int8:
+                assert np.abs(g.astype(np.int32) - w.astype(np.int32)).max() <= 1, k
+            else:
+                np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-6 * np.abs(w).max(),
+                                           err_msg=k)
