@@ -165,6 +165,26 @@ generated tokens, fault-free), served the same way.  ``python3
 chip_smoke.py --only families`` runs the environment, the build and these
 phases alone.
 
+Then Mamba and the frontend families (phases 45-48): the selective-scan
+kernel (``csrc/mamba_scan.cu``, Mamba's ``lax.scan`` in the reference)
+against its plain version at Jamba-1.5-Large's prefill and decode shapes
+and on edge cases (one token, a nonzero initial state, state size 8, the
+state written in place: final state bit-equal, y within a stated
+tolerance), libdevice's ``expf`` against ``torch.exp`` bit for bit, the
+kernel timed beside its bound, its f32 issue floor, its launch floor and
+its plain version, and both attention kernels at llava-next's S = 1600
+(group 4, head dim 128) and musicgen's S = 1088 (group 1, head dim 64);
+one Mamba block at full width and Jamba at a width cut (its 8 pattern
+layers, 16 experts, routing compared first) on the card against the port
+on the CPU, in f32; Jamba at full width through ``serve()`` (1 of its 9
+repeats, 8 of its 16 experts; 8 x 1024 prompt tokens, 128 generated),
+fault-free and faulted with equal tokens, 7 scan launches and 1 flash
+launch a prefill, 7 scan launches and 1 decode call a step; then
+llava-next and musicgen at full size with their 576- and 64-row frontend
+prefixes (32 generated tokens, fault-free and faulted, equal tokens; 32
+and 48 tensor-core flash launches a prefill).  ``python3 chip_smoke.py
+--only hybrid`` runs the environment, the build and these phases alone.
+
 Every phase prints one JSON line; any failure exits non-zero before the
 last line, which is ``{"ok": true, "device": {...}}``.  Needs one CUDA
 card; imports nothing of JAX.
@@ -4118,6 +4138,42 @@ ARCTIC_GEN = 32
 QWEN3_CARD_CPU_TOL = {"prefill": 1e-4, "decode_same_cache": 2e-3, "decode_own_cache": 5e-3}
 QWEN3_BF16_TOL, QWEN3_BF16_MAX_DIFFERING = 3e-2, 0.03
 
+# --------------------------------------------------------------------------- #
+# The Mamba hybrid and the frontend families
+# --------------------------------------------------------------------------- #
+JAMBA = "jamba-1.5-large-398b"
+FRONTEND_FAMILIES = ("llava-next-mistral-7b", "musicgen-large")
+#: Jamba on one card: 1 of its 9 repeats of the 8-layer pattern (7 Mamba, 1
+#: attention) and 8 of its 16 experts, top-2 kept: 25.9 B parameters, 51.8
+#: GB of bf16 weights (one repeat with every expert is 90.5 GB)
+JAMBA_LAYERS, JAMBA_EXPERTS = 8, 8
+#: generated tokens of the frontend families' serving runs
+FRONTEND_GEN = 32
+SCAN_SOURCE = "src/repro_torch/kernels/csrc/mamba_scan.cu"
+#: the lax.scan the kernel takes the place of (no TPU kernel: the
+#: reference has no Pallas kernel for it)
+SCAN_REPLACES = "src/repro/models/ssm.py:98"
+#: the scan kernel's y against its plain version's, as a fraction of
+#: max|y| (its torch emulation on the CPU: 2e-7); the final state must be
+#: bit-equal
+SCAN_Y_TOL = 1e-5
+#: f32 operations a state entry and token: dt A, its exp, da h, u B, their
+#: sum, h C, the y sum (and u = dt x once a channel and token); f32
+#: instructions an entry issues at least (the exp's range reduction and ex2
+#: among them)
+SCAN_OPS_PER_ENTRY, SCAN_ISSUE_PER_ENTRY = 7, 8
+#: one Mamba block at full width, f32, and Jamba at a width cut (its 8
+#: pattern layers, 16 experts, d_model 1024, hd 128 at group 8), card
+#: against the port on the CPU: the block's output and state within 1e-5
+#: of their max (f32 products summed in other orders; the CPU holds the
+#: reference's to 1e-6, tests/test_torch_mamba.py), decode from each side's
+#: own bf16 conv window within 1e-3 of max (a window entry within noise of
+#: a bf16 boundary rounds the other way); Jamba's logits within
+#: QWEN3_CARD_CPU_TOL, its prefill's widened 3x as in
+#: tests/test_torch_families.py.  Routing must be equal in f32.
+MAMBA_CARD_CPU_TOL = {"prefill": 1e-5, "state": 1e-5, "decode_own_cache": 1e-3}
+JAMBA_CARD_CPU_TOL = {"prefill": 3e-4, "decode_same_cache": 2e-3, "decode_own_cache": 5e-3}
+
 
 class RoutingTap:
     """Inside ``with``: records every MoE call's routing (expert ids and
@@ -4169,18 +4225,22 @@ def smi_line() -> str:
 
 
 def serve_family(cfg, gen: int, faulted: bool, dev) -> dict:
-    """``serve()`` on ``cfg`` (8 x 1024 prompt tokens, ``gen`` generated,
-    a snapshot every 16), fault-free and, with ``faulted``, again under
-    wall-clock faults whose tokens must equal the fault-free ones.  Checks
-    one flash launch a layer in the prefill (all on the tensor-core
-    kernel) and one decode call a layer a decode step; returns the
+    """``serve()`` on ``cfg`` (8 x 1024 prompt tokens after the config's
+    frontend prefix, ``gen`` generated, a snapshot every 16), fault-free
+    and, with ``faulted``, again under wall-clock faults whose tokens must
+    equal the fault-free ones.  Checks one flash launch an attention layer
+    in the prefill (all on the tensor-core kernel), one decode call an
+    attention layer a decode step, and one ``selective_scan`` launch a
+    Mamba layer in the prefill and in each decode step; returns the
     record."""
     import torch
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import mamba as MB
     from repro_torch.launch.serve import fault_trace, serve
 
-    L = cfg.num_layers
+    L = cfg.n_repeats * sum(s.mixer == "attn" for s in cfg.pattern)
+    M = cfg.n_repeats * sum(s.mixer == "mamba" for s in cfg.pattern)
     kw = dict(requests=REQUESTS, prompt_len=PROMPT_LEN, gen=gen, snapshot_every=SNAPSHOT_EVERY,
               seed=SERVE_SEED, device=dev)
 
@@ -4188,21 +4248,26 @@ def serve_family(cfg, gen: int, faulted: bool, dev) -> dict:
         FA.flash_attention_bhsd.launches = 0
         FA.flash_attention_bhsd.tc_launches = 0
         DA.decode_attention_bhd.launches = 0
+        MB.selective_scan.launches = 0
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         res = serve(cfg, fault_times=times, **kw)
         res["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
         res["launches"] = {"flash_attention_bhsd": FA.flash_attention_bhsd.launches,
-                           "decode_attention_bhd": DA.decode_attention_bhd.launches}
+                           "decode_attention_bhd": DA.decode_attention_bhd.launches,
+                           "selective_scan": MB.selective_scan.launches}
         check(FA.flash_attention_bhsd.tc_launches == L,
               f"{cfg.name}: {FA.flash_attention_bhsd.tc_launches} of the prefill's {L} flash "
               "launches took the tensor-core kernel")
         check(res["launches"]["flash_attention_bhsd"] == L,
               f"{cfg.name}: flash launched {res['launches']['flash_attention_bhsd']} times in "
-              f"one {L}-layer prefill")
+              f"one prefill of {L} attention layers")
         check(res["launches"]["decode_attention_bhd"] == L * res["decode_steps"],
               f"{cfg.name}: decode launched {res['launches']['decode_attention_bhd']} times in "
-              f"{res['decode_steps']} steps of {L} layers")
+              f"{res['decode_steps']} steps of {L} attention layers")
+        check(res["launches"]["selective_scan"] == M * (1 + res["decode_steps"]),
+              f"{cfg.name}: selective_scan launched {res['launches']['selective_scan']} times in "
+              f"a prefill and {res['decode_steps']} steps of {M} Mamba layers")
         return res
 
     clean = run(())
@@ -4211,7 +4276,8 @@ def serve_family(cfg, gen: int, faulted: bool, dev) -> dict:
     check(clean["decode_steps"] == gen - 1, f"{cfg.name}: {clean['decode_steps']} decode steps")
     check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), f"{cfg.name}: token out of range")
     out = {
-        "model": cfg.name, "layers": L, "of_layers": None, "d_model": cfg.d_model,
+        "model": cfg.name, "layers": cfg.num_layers, "attention_layers": L, "mamba_layers": M,
+        "of_layers": None, "d_model": cfg.d_model, "frontend_prefix": cfg.frontend_prefix,
         "heads": [cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim],
         "params": cfg.param_count(), "active_params": cfg.active_param_count(),
         "weight_bytes": 2 * cfg.param_count(), "requests": REQUESTS, "prompt_len": PROMPT_LEN,
@@ -4277,6 +4343,90 @@ def decode_step_split(model, params, cache, tok) -> dict:
     return out
 
 
+def attn_shape_rows(name: str, B: int, S: int, H: int, KV: int, hd: int, max_seq: int,
+                    pos: int, flash_seed: int, decode_seed: int, dev) -> dict:
+    """Both attention kernels at one model's serving shapes, bf16.  Flash
+    (causal prefill of ``B x S`` over ``H / KV`` heads of ``hd``): checked
+    against its plain version (the tensor-core kernel required), then timed
+    over input sets that together read three times the L2, beside its plain
+    version and SDPA.  Decode over a ``(B, max_seq, KV, hd)`` cache: checked
+    at pos -1, 0, a split's edges, ``pos`` and the last row, then timed at
+    ``pos`` over caches three times the L2.  Returns each kernel's row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+
+    rows = {}
+    bf = torch.bfloat16
+    # flash, causal prefill: the path's shape, checked, then timed over
+    # input sets that together read three times the L2
+    set_bytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
+    sets = [flash_inputs(B, S, S, H, KV, hd, bf, flash_seed + i, dev)
+            for i in range(math.ceil(3 * L2_BYTES / set_bytes))]
+    tc0 = FA.flash_attention_bhsd.tc_launches
+    got = ops.flash_attention(*sets[0], True)
+    torch.cuda.synchronize()
+    variant = "tc" if FA.flash_attention_bhsd.tc_launches > tc0 else "simt"
+    check(variant == "tc", f"flash_attention_bhsd/{name}: took the {variant} kernel")
+    e = attn_close(got, FA.attention_ref(*sets[0], True), f"flash_attention_bhsd/{name}")
+    ms, out = device_ms([lambda x=x: ops.flash_attention(*x, True) for x in sets])
+    pms, pout = device_ms([lambda x=x: FA.attention_ref(*x, True) for x in sets])
+    lms, lout = device_ms([lambda x=x: F.scaled_dot_product_attention(
+        x[0].transpose(1, 2), x[1].transpose(1, 2), x[2].transpose(1, 2),
+        is_causal=True, enable_gqa=True) for x in sets])
+    attn_close(out, pout, f"flash_attention_bhsd/{name} (timed) against its plain version")
+    attn_close(out, lout.transpose(1, 2), f"flash_attention_bhsd/{name} (timed) against sdpa")
+    ops_f = 4 * hd * B * H * S * (S + 1) // 2
+    t_ops, t_bytes = ops_f / PEAK_BF16_S * 1e3, set_bytes / PEAK_BYTES_S * 1e3
+    rows["flash_attention_bhsd"] = {
+        "model": name, "shape": f"q ({B}, {S}, {H}, {hd}), k/v ({B}, {S}, {KV}, {hd}) bf16, "
+        f"causal, group {H // KV}", "variant": variant, "max_abs_err": e, "ms": ms,
+        "plain_ms": pms, "library_ms": lms, "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes", "ops": ops_f,
+        "bytes": set_bytes, "input_sets": len(sets)}
+    del sets, got, out, pout, lout
+    # decode over the bf16 cache: every split edge, then timed at the
+    # middle position of the path's decode over caches three times the L2
+    g = torch.Generator(device=dev)
+    g.manual_seed(decode_seed)
+    cache_bytes = 2 * B * max_seq * KV * hd * 2
+    layers = [tuple(torch.randn(shape, generator=g, device=dev).to(bf)
+                    for shape in ((B, 1, H, hd), (B, max_seq, KV, hd), (B, max_seq, KV, hd)))
+              for _ in range(math.ceil(3 * L2_BYTES / cache_bytes))]
+    qd, kc, vc = layers[0]
+    R = DA.SPLIT_ROWS
+    e = 0.0
+    for p_ in (-1, 0, R - 1, R, pos, max_seq - 1):
+        p = torch.tensor(p_, dtype=torch.int32, device=dev)
+        got = ops.decode_attention(qd, kc, vc, p)
+        want = DA.attention_ref(qd[:, 0], kc, vc, p).unsqueeze(1)
+        torch.cuda.synchronize()
+        e = max(e, attn_close(got, want, f"decode_attention_bhd/{name}/pos{p_}"))
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    ms, out = device_ms([lambda x=x: ops.decode_attention(*x, p) for x in layers])
+    pms, pout = device_ms([lambda x=x: DA.attention_ref(x[0][:, 0], x[1], x[2], p)
+                           for x in layers])
+    lms, lout = device_ms([lambda x=x: F.scaled_dot_product_attention(
+        x[0].transpose(1, 2), x[1][:, :pos + 1].transpose(1, 2),
+        x[2][:, :pos + 1].transpose(1, 2), enable_gqa=True) for x in layers])
+    attn_close(out, pout.unsqueeze(1), f"decode_attention_bhd/{name} (timed) against its "
+               "plain version")
+    attn_close(out, lout.transpose(1, 2), f"decode_attention_bhd/{name} (timed) against sdpa")
+    d_bytes = 2 * B * (pos + 1) * KV * hd * 2 + 2 * B * H * hd * 2 + 4
+    d_ops = 4 * hd * B * H * (pos + 1)
+    t_ops, t_bytes = d_ops / PEAK_BF16_S * 1e3, d_bytes / PEAK_BYTES_S * 1e3
+    rows["decode_attention_bhd"] = {
+        "model": name, "shape": f"q ({B}, 1, {H}, {hd}), cache ({B}, {max_seq}, {KV}, {hd}) "
+        f"bf16, pos {pos}, group {H // KV}", "max_abs_err": e, "ms": ms, "plain_ms": pms,
+        "library_ms": lms, "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops > t_bytes else "bytes", "ops": d_ops,
+        "bytes": d_bytes, "caches": len(layers), "splits": DA.split_count(max_seq)}
+    del layers, out, pout, lout
+    return rows
+
+
 def family_phases(dev, kernels: list) -> None:
     """Phases 41-44: the attention kernels at the dense and MoE families'
     shapes, Qwen3-30B-A3B card against CPU, Qwen3-30B-A3B served at full
@@ -4287,12 +4437,8 @@ def family_phases(dev, kernels: list) -> None:
 
     import numpy as np
     import torch
-    import torch.nn.functional as F
     from repro_torch.checkpoint.store import map_with_keys
     from repro_torch.configs import get
-    from repro_torch.kernels import decode_attention as DA
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import ops
     from repro_torch.models import LanguageModel, RuntimeFlags
 
     B, S = REQUESTS, PROMPT_LEN
@@ -4305,74 +4451,11 @@ def family_phases(dev, kernels: list) -> None:
     err = {"flash_attention_bhsd": 0.0, "decode_attention_bhd": 0.0}
     for si, name in enumerate(FAMILIES):
         cfg = get(name)
-        H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-        bf = torch.bfloat16
-        # flash, causal prefill: the path's shape, checked, then timed over
-        # input sets that together read three times the L2
-        set_bytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
-        sets = [flash_inputs(B, S, S, H, KV, hd, bf, 400 + 10 * si + i, dev)
-                for i in range(math.ceil(3 * L2_BYTES / set_bytes))]
-        tc0 = FA.flash_attention_bhsd.tc_launches
-        got = ops.flash_attention(*sets[0], True)
-        torch.cuda.synchronize()
-        variant = "tc" if FA.flash_attention_bhsd.tc_launches > tc0 else "simt"
-        check(variant == "tc", f"flash_attention_bhsd/{name}: took the {variant} kernel")
-        e = attn_close(got, FA.attention_ref(*sets[0], True), f"flash_attention_bhsd/{name}")
-        err["flash_attention_bhsd"] = max(err["flash_attention_bhsd"], e)
-        ms, out = device_ms([lambda x=x: ops.flash_attention(*x, True) for x in sets])
-        pms, pout = device_ms([lambda x=x: FA.attention_ref(*x, True) for x in sets])
-        lms, lout = device_ms([lambda x=x: F.scaled_dot_product_attention(
-            x[0].transpose(1, 2), x[1].transpose(1, 2), x[2].transpose(1, 2),
-            is_causal=True, enable_gqa=True) for x in sets])
-        attn_close(out, pout, f"flash_attention_bhsd/{name} (timed) against its plain version")
-        attn_close(out, lout.transpose(1, 2), f"flash_attention_bhsd/{name} (timed) against sdpa")
-        ops_f = 4 * hd * B * H * S * (S + 1) // 2
-        t_ops, t_bytes = ops_f / PEAK_BF16_S * 1e3, set_bytes / PEAK_BYTES_S * 1e3
-        shapes["flash_attention_bhsd"].append({
-            "model": name, "shape": f"q ({B}, {S}, {H}, {hd}), k/v ({B}, {S}, {KV}, {hd}) bf16, "
-            f"causal, group {H // KV}", "variant": variant, "max_abs_err": e, "ms": ms,
-            "plain_ms": pms, "library_ms": lms, "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "ops": ops_f,
-            "bytes": set_bytes, "input_sets": len(sets)})
-        del sets, got, out, pout, lout
-        # decode over the bf16 cache: every split edge, then timed at the
-        # middle position of the path's decode over caches three times the L2
-        g = torch.Generator(device=dev)
-        g.manual_seed(500 + si)
-        cache_bytes = 2 * B * max_seq * KV * hd * 2
-        layers = [tuple(torch.randn(shape, generator=g, device=dev).to(bf)
-                        for shape in ((B, 1, H, hd), (B, max_seq, KV, hd), (B, max_seq, KV, hd)))
-                  for _ in range(math.ceil(3 * L2_BYTES / cache_bytes))]
-        qd, kc, vc = layers[0]
-        R = DA.SPLIT_ROWS
-        e = 0.0
-        for p_ in (-1, 0, R - 1, R, pos, max_seq - 1):
-            p = torch.tensor(p_, dtype=torch.int32, device=dev)
-            got = ops.decode_attention(qd, kc, vc, p)
-            want = DA.attention_ref(qd[:, 0], kc, vc, p).unsqueeze(1)
-            torch.cuda.synchronize()
-            e = max(e, attn_close(got, want, f"decode_attention_bhd/{name}/pos{p_}"))
-        err["decode_attention_bhd"] = max(err["decode_attention_bhd"], e)
-        p = torch.tensor(pos, dtype=torch.int32, device=dev)
-        ms, out = device_ms([lambda x=x: ops.decode_attention(*x, p) for x in layers])
-        pms, pout = device_ms([lambda x=x: DA.attention_ref(x[0][:, 0], x[1], x[2], p)
-                               for x in layers])
-        lms, lout = device_ms([lambda x=x: F.scaled_dot_product_attention(
-            x[0].transpose(1, 2), x[1][:, :pos + 1].transpose(1, 2),
-            x[2][:, :pos + 1].transpose(1, 2), enable_gqa=True) for x in layers])
-        attn_close(out, pout.unsqueeze(1), f"decode_attention_bhd/{name} (timed) against its "
-                   "plain version")
-        attn_close(out, lout.transpose(1, 2), f"decode_attention_bhd/{name} (timed) against sdpa")
-        d_bytes = 2 * B * (pos + 1) * KV * hd * 2 + 2 * B * H * hd * 2 + 4
-        d_ops = 4 * hd * B * H * (pos + 1)
-        t_ops, t_bytes = d_ops / PEAK_BF16_S * 1e3, d_bytes / PEAK_BYTES_S * 1e3
-        shapes["decode_attention_bhd"].append({
-            "model": name, "shape": f"q ({B}, 1, {H}, {hd}), cache ({B}, {max_seq}, {KV}, {hd}) "
-            f"bf16, pos {pos}, group {H // KV}", "max_abs_err": e, "ms": ms, "plain_ms": pms,
-            "library_ms": lms, "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops > t_bytes else "bytes", "ops": d_ops,
-            "bytes": d_bytes, "caches": len(layers), "splits": DA.split_count(max_seq)})
-        del layers, out, pout, lout
+        rows = attn_shape_rows(name, B, S, cfg.num_heads, cfg.num_kv_heads,
+                               cfg.resolved_head_dim, max_seq, pos, 400 + 10 * si, 500 + si, dev)
+        for k, row in rows.items():
+            shapes[k].append(row)
+            err[k] = max(err[k], row["max_abs_err"])
     emit("family_attn_check", seconds=time.monotonic() - t0, shapes=shapes, tol=ATTN_TOL,
          nvidia_smi=smi_line())
 
@@ -4509,6 +4592,356 @@ def family_phases(dev, kernels: list) -> None:
             k["family_path_launches"] = {m: v[k["name"]] for m, v in paths.items()}
 
 
+def scan_close(got, want, what: str) -> float:
+    """Hold the scan kernel's ``(y, h)`` to its plain version's: the final
+    state bit for bit, y within SCAN_Y_TOL of max|y|.  Returns y's largest
+    absolute error."""
+    import torch
+
+    (y, h), (yw, hw) = got, want
+    torch.cuda.synchronize()
+    check(y.shape == yw.shape and h.shape == hw.shape and y.dtype == yw.dtype == torch.float32,
+          f"{what}: y {tuple(y.shape)} / state {tuple(h.shape)} against {tuple(yw.shape)} / "
+          f"{tuple(hw.shape)}")
+    check(bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all()),
+          f"{what}: non-finite output")
+    differ = int((h.view(torch.int32) != hw.view(torch.int32)).sum())
+    check(differ == 0, f"{what}: {differ} state entries differ from the plain version's "
+          f"(max {float((h - hw).abs().max())})")
+    err, scale = float((y - yw).abs().max()), float(yw.abs().max())
+    check(err <= SCAN_Y_TOL * scale, f"{what}: y off by {err} (max|y| {scale})")
+    return err
+
+
+def scan_bound(B: int, S: int, din: int, ds: int, with_h0: bool) -> dict:
+    """Least time of one launch: dt and x read and y written (f32), B and C
+    rows and A read, the final state written and, given one, the initial
+    state read; against the f32 operations of the recurrence."""
+    entries = B * S * din * ds
+    nbytes = 4 * (3 * B * S * din + 2 * B * S * ds + din * ds
+                  + (2 if with_h0 else 1) * B * din * ds)
+    nops = SCAN_OPS_PER_ENTRY * entries + B * S * din
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, nops / PEAK_F32_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else
+            "operations", "bytes": nbytes, "ops": nops, "entry_updates": entries}
+
+
+def rel_diff(got, want) -> float:
+    """Largest difference of two tensors (any devices) over max|want|."""
+    g, w = got.float().cpu(), want.float().cpu()
+    return float((g - w).abs().max()) / float(w.abs().max())
+
+
+def mamba_block_card_vs_cpu(cfg, dev) -> dict:
+    """One Mamba block at ``cfg``'s full width, f32: a 2 x 64 prefill and
+    4 decode steps on the card and on the CPU (the port's plain versions),
+    each side from its own cache.  The init's constant leaves (``conv_b``,
+    ``dt_b``, ``D_skip``) are drawn, so that they take part."""
+    import torch
+    from repro_torch.models import ssm
+
+    din, B, S, steps = cfg.d_inner, 2, 64, 4
+    g = torch.Generator(device=dev)
+    g.manual_seed(SERVE_SEED)
+    p_gpu = ssm.init_mamba(g, cfg, torch.float32)
+    p_gpu["conv_b"] = 0.1 * torch.randn(din, generator=g, device=dev)
+    p_gpu["dt_b"] = p_gpu["dt_b"] + torch.randn(din, generator=g, device=dev)
+    p_gpu["D_skip"] = p_gpu["D_skip"] + 0.3 * torch.randn(din, generator=g, device=dev)
+    xs = torch.randn((B, S + steps, cfg.d_model), generator=g, device=dev)
+
+    def run(p, x, device):
+        cache = {k: torch.zeros(s, dtype=d, device=device)
+                 for k, (s, d) in ssm.mamba_cache_spec(cfg, B).items()}
+        y, st = ssm.mamba_apply(p, x[:, :S], cfg, state_out=cache["ssm"])
+        cache["conv"].copy_(st["conv"])
+        out = {"prefill": y, "state": cache["ssm"].clone(), "conv": cache["conv"].clone()}
+        for t in range(S, S + steps):
+            y, st = ssm.mamba_apply(p, x[:, t:t + 1], cfg, cache, state_out=cache["ssm"])
+            cache["conv"].copy_(st["conv"])
+            out[f"decode{t - S}"] = y
+        out["final_state"] = cache["ssm"]
+        return out
+
+    card = run(p_gpu, xs, dev)
+    cpu = run({k: v.cpu() for k, v in p_gpu.items()}, xs.cpu(), torch.device("cpu"))
+    d = {k: rel_diff(card[k], cpu[k]) for k in card if k != "conv"}
+    # the windows: bf16 roundings of f32 values that differ by noise, so an
+    # entry may sit one bf16 step (at most 2^-7 of its magnitude) from the
+    # CPU's, or within the f32 tolerance of max|window| where the noise
+    # flips a sign
+    a, b = card["conv"].cpu().float(), cpu["conv"].float()
+    slack = torch.maximum(a.abs(), b.abs()) * 2.0**-7 + MAMBA_CARD_CPU_TOL["state"] * float(
+        b.abs().max())
+    conv_far = int(((a - b).abs() > slack).sum())
+    conv_differ = int((a != b).sum())
+    check(d["prefill"] <= MAMBA_CARD_CPU_TOL["prefill"],
+          f"Mamba block card vs CPU: prefill off by {d['prefill']} of max")
+    check(d["state"] <= MAMBA_CARD_CPU_TOL["state"],
+          f"Mamba block card vs CPU: state off by {d['state']} of max")
+    check(conv_far == 0, f"Mamba block card vs CPU: {conv_far} conv window entries more than "
+          f"a bf16 step apart ({d})")
+    worst = max(v for k, v in d.items() if k.startswith("decode") or k == "final_state")
+    check(worst <= MAMBA_CARD_CPU_TOL["decode_own_cache"],
+          f"Mamba block card vs CPU: decode off by {worst} of max")
+    return {"d_model": cfg.d_model, "d_inner": din, "d_state": cfg.ssm.d_state, "batch": B,
+            "prompt": S, "decode_steps": steps, "max_over_max": d,
+            "conv_entries_differing": conv_differ, "conv_entries": a.numel(),
+            "tol": MAMBA_CARD_CPU_TOL}
+
+
+def jamba_width_card_vs_cpu(cfg, dev) -> dict:
+    """Jamba at a width cut (``cfg``), f32: a 2 x 64 prefill and 4 decode
+    steps on the card and on the CPU, every MoE call's routing compared
+    first (equal), then the logits: after the prefill, one step from the
+    CPU's cache, and each side's own cache."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.store import map_with_keys
+    from repro_torch.models import LanguageModel, RuntimeFlags
+
+    flags = RuntimeFlags(compute_dtype=torch.float32)
+    m_cpu, m_gpu = LanguageModel(cfg, flags), LanguageModel(cfg, flags)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SERVE_SEED)
+    p_gpu = m_gpu.init(g)
+    p_cpu = map_with_keys(lambda _, x: x.cpu(), p_gpu)
+    toks = torch.from_numpy(np.random.default_rng(SERVE_SEED).integers(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32))
+    steps, max_seq = 4, 64 + 16
+    with RoutingTap() as tc:
+        lc, cc = m_cpu.prefill(p_cpu, toks, max_seq)
+    with RoutingTap() as tg:
+        lg, cg = m_gpu.prefill(p_gpu, toks.to(dev), max_seq)
+    mism = routing_mismatches(tc.calls, tg.calls)
+    d = {"prefill": float((lg.cpu() - lc).abs().max())}
+    tok = lc[:, -1].argmax(-1).to(torch.int32)[:, None]
+    same_tokens = True
+    for _ in range(steps):
+        n0 = len(tc.calls)
+        synced = {"pos": cc["pos"].to(dev, copy=True),
+                  "blocks": tuple({k: v.to(dev, copy=True) for k, v in b.items()}
+                                  for b in cc["blocks"])}
+        with tc:
+            lc, cc = m_cpu.decode_step(p_cpu, cc, tok)
+        with RoutingTap() as ts:
+            ls, _ = m_gpu.decode_step(p_gpu, synced, tok.to(dev))
+        mism += routing_mismatches(tc.calls[n0:], ts.calls)
+        d["decode_same_cache"] = max(d.get("decode_same_cache", 0.0),
+                                     float((ls.cpu() - lc).abs().max()))
+        lg, cg = m_gpu.decode_step(p_gpu, cg, tok.to(dev))
+        d["decode_own_cache"] = max(d.get("decode_own_cache", 0.0),
+                                    float((lg.cpu() - lc).abs().max()))
+        same_tokens &= bool(torch.equal(lg.cpu().argmax(-1), lc.argmax(-1)))
+        tok = lc[:, -1].argmax(-1).to(torch.int32)[:, None]
+    check(mism == 0, f"Jamba card vs CPU, f32: {mism} MoE calls routed otherwise")
+    for k, tol in JAMBA_CARD_CPU_TOL.items():
+        check(d[k] <= tol, f"Jamba card vs CPU, f32: {k} logits differ by {d[k]} > {tol}")
+    return {"layers": cfg.num_layers, "d_model": cfg.d_model, "experts": cfg.moe.num_experts,
+            "heads": [cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim],
+            "vocab": cfg.vocab_size, "batch": 2, "prompt": 64, "decode_steps": steps,
+            "max_abs_diff": d, "max_abs_logit": float(lc.abs().max()), "tol": JAMBA_CARD_CPU_TOL,
+            "moe_calls": len(tc.calls), "routing_mismatched_calls": mism,
+            "greedy_tokens_equal": same_tokens}
+
+
+def hybrid_phases(dev, kernels: list, scan_regs: dict) -> None:
+    """Phases 45-48: the selective-scan kernel against its plain version
+    and timed, the attention kernels at the frontend families' shapes;
+    one Mamba block at full width and Jamba at a width cut, card against
+    CPU; Jamba served at full width (1 of 9 repeats, 8 of 16 experts);
+    llava-next and musicgen served at full size with their prefixes.
+    Appends the scan kernel's entry to ``kernels`` and adds the new shapes
+    and paths to the attention entries."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.kernels import mamba as MB
+    from repro_torch.kernels import ops
+    from repro_torch.models import LanguageModel
+
+    jamba = get(JAMBA)
+    din, ds = jamba.d_inner, jamba.ssm.d_state
+    n_mamba = sum(s.mixer == "mamba" for s in jamba.pattern)
+    B, S = REQUESTS, PROMPT_LEN
+
+    # ---- 45. the scan kernel; attention at the frontend shapes --------- #
+    t0 = time.monotonic()
+    cases, y_err = [], 0.0
+    for name, b, s_, d_, ds_, with_h0, in_place in (
+        ("prefill", B, S, din, ds, False, False),
+        ("decode_in_place", B, 1, din, ds, True, True),
+        ("s1_h0", 2, 1, 4096, ds, True, False),
+        ("h0_s333", 2, 333, 4096, ds, True, False),
+        ("chunk_edge_s17", 3, 17, 640, ds, True, False),
+        ("ds8", 2, 100, 2048, 8, True, False),
+        ("ds8_s1_in_place", 3, 1, 1000, 8, True, True),
+    ):
+        x = MB.sample_scan_inputs(b, s_, d_, ds_, seed=len(cases), device=dev, with_h0=with_h0)
+        want = MB.selective_scan_ref(*x)
+        if in_place:
+            cache = x[5].clone()
+            got = ops.selective_scan(*x[:5], cache, state_out=cache)
+            check(got[1].data_ptr() == cache.data_ptr(), f"selective_scan/{name}: not in place")
+        else:
+            got = ops.selective_scan(*x)
+        e = scan_close(got, want, f"selective_scan/{name}")
+        y_err = max(y_err, e)
+        cases.append({"case": name, "shape": [b, s_, d_, ds_], "h0": with_h0,
+                      "in_place": in_place, "y_max_abs_err": e,
+                      "y_max_abs": float(want[0].abs().max()), "state_bit_equal": True})
+        del x, want, got
+    # libdevice's expf in the kernel against torch.exp on the card: with h0
+    # ones and B zero the final state is exp(dt A) itself
+    n = 1 << 20
+    g = torch.Generator(device=dev)
+    g.manual_seed(70)
+    dt = torch.rand((1, 1, n), generator=g, device=dev) * 20
+    A = -torch.rand((n, ds), generator=g, device=dev) * 5
+    zero = torch.zeros((1, 1, ds), device=dev)
+    _, h = ops.selective_scan(dt, torch.zeros_like(dt), A, zero, zero,
+                              torch.ones((1, n, ds), device=dev))
+    want = torch.exp(dt[0, 0, :, None] * A)
+    exp_differ = int((h[0].view(torch.int32) != want.view(torch.int32)).sum())
+    check(exp_differ == 0, f"selective_scan: expf differs from torch.exp in {exp_differ} of "
+          f"{n * ds} values")
+    del dt, A, h, want
+    # times at the path's shapes: a prefill layer's launch (zero initial
+    # state; 1.6 GB moved, 32x the L2), the SM clock sampled meanwhile;
+    # one decode step's 7 launches, each on its own layer's state
+    x = MB.sample_scan_inputs(B, S, din, ds, seed=80, device=dev, with_h0=False)
+    clocks = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits", "-lms", "20"],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        clocks.stdout.readline()
+        ms, out = device_ms([lambda: ops.selective_scan(*x)], samples=200)
+    finally:
+        clocks.terminate()
+        mhz = [int(v) for v in clocks.communicate()[0].split() if v.isdigit()]
+    pms, pout = device_ms([lambda: MB.selective_scan_ref(*x)], samples=5)
+    scan_close(out, pout, "selective_scan (timed prefill) against its plain version")
+    check(len(mhz) > 0, "nvidia-smi read no SM clock during the timed prefill")
+    mhz_med = sorted(mhz)[len(mhz) // 2]
+    bound = scan_bound(B, S, din, ds, with_h0=False)
+    prefill_t = {"ms": ms, "plain_ms": pms, **bound,
+                 "issue_floor_ms": SCAN_ISSUE_PER_ENTRY * bound["entry_updates"]
+                 / (SMS * F32_LANES * mhz_med * 1e6) * 1e3,
+                 "sm_clock_mhz": {"median": mhz_med, "min": min(mhz), "max": max(mhz),
+                                  "samples": len(mhz)}}
+    del x, out, pout
+    layers = [MB.sample_scan_inputs(B, 1, din, ds, seed=90 + i, device=dev)
+              for i in range(n_mamba)]
+    outs = [torch.empty_like(v[5]) for v in layers]
+    ms, out = device_ms([lambda v=v, o=o: ops.selective_scan(*v, state_out=o)
+                         for v, o in zip(layers, outs)])
+    pms, pout = device_ms([lambda v=v: MB.selective_scan_ref(*v) for v in layers])
+    scan_close(out, pout, "selective_scan (timed decode) against its plain version")
+    decode_t = {"ms": ms, "plain_ms": pms, **scan_bound(B, 1, din, ds, with_h0=True),
+                "host_call_ms": eager_ms(lambda: ops.selective_scan(*layers[0],
+                                                                    state_out=outs[0]), 200)}
+    del layers, outs, out, pout
+    tiny = MB.sample_scan_inputs(1, 1, 128, ds, seed=95, device=dev)
+    tiny_out = torch.empty_like(tiny[5])
+    launch_floor, _ = device_ms([lambda: ops.selective_scan(*tiny, state_out=tiny_out)] * n_mamba)
+    # the attention kernels at the frontend families' prefill lengths
+    attn = {"flash_attention_bhsd": [], "decode_attention_bhd": []}
+    for i, name in enumerate(FRONTEND_FAMILIES):
+        cfg = get(name)
+        s_ = PROMPT_LEN + cfg.frontend_prefix
+        rows = attn_shape_rows(name, B, s_, cfg.num_heads, cfg.num_kv_heads,
+                               cfg.resolved_head_dim, s_ + FRONTEND_GEN + 8,
+                               s_ + FRONTEND_GEN // 2 - 1, 600 + 10 * i, 700 + i, dev)
+        for k, row in rows.items():
+            attn[k].append(row)
+    emit("hybrid_check", seconds=time.monotonic() - t0, cases=cases,
+         exp_bits={"values": n * ds, "differing": exp_differ,
+                   "note": "the kernel's libdevice expf against torch.exp on the card, "
+                           "arguments dt A in [-100, 0]"},
+         prefill=prefill_t, decode=decode_t, launch_floor_ms=launch_floor,
+         registers=scan_regs, y_tol=SCAN_Y_TOL, attention_shapes=attn, attention_tol=ATTN_TOL,
+         note="device_ms: CUDA graph of the calls, median of replays; issue_floor_ms: "
+              f"{SCAN_ISSUE_PER_ENTRY} f32 instructions an entry update over {SMS} x "
+              f"{F32_LANES} lanes at the median SM clock read during the timed prefill; "
+              "launch_floor_ms: a 128-channel, one-token launch, 7 to a graph; no single "
+              "PyTorch call computes the selective scan",
+         nvidia_smi=smi_line())
+
+    # ---- 46. a Mamba block and Jamba at a width cut: card against CPU -- #
+    t0 = time.monotonic()
+    block = mamba_block_card_vs_cpu(jamba, dev)
+    width = dataclasses.replace(jamba, num_layers=JAMBA_LAYERS, d_model=1024, num_heads=8,
+                                num_kv_heads=1, d_ff=2048, param_dtype="float32")
+    cut = jamba_width_card_vs_cpu(width, dev)
+    torch.cuda.empty_cache()
+    emit("hybrid_card_vs_cpu", seconds=time.monotonic() - t0, mamba_block=block,
+         jamba_width=cut)
+
+    # ---- 47. Jamba at full width through serve() ----------------------- #
+    t0 = time.monotonic()
+    cfg = dataclasses.replace(jamba, num_layers=JAMBA_LAYERS, moe=dataclasses.replace(
+        jamba.moe, num_experts=JAMBA_EXPERTS))
+    rec = serve_family(cfg, GEN, True, dev)
+    rec.update(of_layers=jamba.num_layers, experts=JAMBA_EXPERTS,
+               of_experts=jamba.moe.num_experts)
+    pos = PROMPT_LEN + GEN // 2 - 1
+    # a decode step reads every weight but the embedding table, the K/V
+    # rows up to pos of its attention layer, and reads and writes the Mamba
+    # layers' states
+    step_bytes = (2 * (cfg.param_count() - cfg.vocab_size * cfg.d_model)
+                  + 2 * B * (pos + 1) * cfg.num_kv_heads * cfg.resolved_head_dim * 2
+                  + n_mamba * 2 * 4 * B * din * ds)
+    rec["decode_step_bytes"] = step_bytes
+    rec["decode_step_bound_ms"] = step_bytes / PEAK_BYTES_S * 1e3
+    check(rec["peak_bytes"] <= 76 * 2**30, f"Jamba serving peaked at {rec['peak_bytes']} bytes")
+    torch.cuda.empty_cache()
+    m = LanguageModel(cfg)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SERVE_SEED)
+    params = m.cast_params(m.init(g))
+    prompts = torch.from_numpy(np.random.default_rng(SERVE_SEED).integers(
+        0, cfg.vocab_size, (REQUESTS, PROMPT_LEN)).astype(np.int32)).to(dev)
+    _, cache = m.prefill(params, prompts, PROMPT_LEN + GEN + 8)
+    rec["decode_step"] = decode_step_split(
+        m, params, cache, torch.zeros((REQUESTS, 1), dtype=torch.int32, device=dev))
+    del m, params, cache
+    torch.cuda.empty_cache()
+    paths = {cfg.name: rec["launches"]}
+    emit("jamba_serve", seconds=time.monotonic() - t0, **rec, nvidia_smi=smi_line())
+
+    # ---- 48. llava-next and musicgen with their prefixes ---------------- #
+    for name in FRONTEND_FAMILIES:
+        t0 = time.monotonic()
+        fcfg = dataclasses.replace(get(name), param_dtype="bfloat16")
+        frec = serve_family(fcfg, FRONTEND_GEN, True, dev)
+        frec["of_layers"] = fcfg.num_layers
+        paths[name] = frec["launches"]
+        torch.cuda.empty_cache()
+        emit("frontend_serve", seconds=time.monotonic() - t0, **frec, nvidia_smi=smi_line())
+
+    for k in kernels:
+        if k["name"] in attn:
+            k["hybrid_shapes"] = attn[k["name"]]
+            k["hybrid_max_abs_err"] = max(r["max_abs_err"] for r in attn[k["name"]])
+            k["hybrid_path_launches"] = {m_: v[k["name"]] for m_, v in paths.items()}
+    kernels.append({
+        "name": "selective_scan", "route": "cuda", "source": SCAN_SOURCE,
+        "replaces": SCAN_REPLACES, "launches": rec["launches"]["selective_scan"],
+        "max_abs_err": y_err,
+        **{k_: prefill_t[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                        "issue_floor_ms")},
+        "library_ms": None,
+        "decode_ms": decode_t["ms"], "decode_plain_ms": decode_t["plain_ms"],
+        "decode_bound_ms": decode_t["bound_ms"], "decode_bound_by": decode_t["bound_by"],
+        "host_call_ms": decode_t["host_call_ms"], "launch_floor_ms": launch_floor,
+        "registers": {name: v.get("registers") for name, v in scan_regs.items()},
+        "shape": f"dt/x ({B}, {S}, {din}) f32, ds {ds}, zero initial state; decode "
+                 f"({B}, 1, {din}) over a ({B}, {din}, {ds}) state",
+        "note": "no TPU kernel: the reference's lax.scan, one CUDA kernel in the port",
+    })
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -4516,11 +4949,12 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--campaign-fault"]:
         return campaign_fault_child(sys.argv[2], sys.argv[3])
-    # "--only train" / "--only families": the environment, the build and
-    # phases 38-40 / 41-44 alone
+    # "--only train" / "--only families" / "--only hybrid": the environment,
+    # the build and phases 38-40 / 41-44 / 45-48 alone
     only = sys.argv[2] if sys.argv[1:2] == ["--only"] and len(sys.argv) > 2 else None
-    if only not in (None, "train", "families"):
-        print(f"chip_smoke: --only takes train or families, not {only!r}", file=sys.stderr)
+    if only not in (None, "train", "families", "hybrid"):
+        print(f"chip_smoke: --only takes train, families or hybrid, not {only!r}",
+              file=sys.stderr)
         return 2
     t_script = time.monotonic()
     sys.path.insert(0, str(SRC))
@@ -4551,8 +4985,10 @@ def main() -> int:
              if "registers" in ln or "spill" in ln]
     regs = ptxas_report(logs.get("sim_step", ""))
     wkv_regs = ptxas_kernels(logs.get("rwkv6", ""), r"(wkv6_(?:chunk|token)_kernel)")
+    scan_regs = ptxas_kernels(logs.get("mamba_scan", ""), r"(selective_scan_kernel)")
     emit("build", seconds=time.monotonic() - t0, built=sorted(logs),
-         ptxas=ptxas, sim_step_registers=regs, wkv6_registers=wkv_regs)
+         ptxas=ptxas, sim_step_registers=regs, wkv6_registers=wkv_regs,
+         selective_scan_registers=scan_regs)
 
     from repro_torch.kernels import sim_step as K
 
@@ -4562,6 +4998,10 @@ def main() -> int:
         return 0
     if only == "families":
         family_phases(dev, [])
+        emit("total", seconds=time.monotonic() - t_script)
+        return 0
+    if only == "hybrid":
+        hybrid_phases(dev, [], scan_regs)
         emit("total", seconds=time.monotonic() - t_script)
         return 0
 
@@ -4751,6 +5191,10 @@ def main() -> int:
     t0 = time.monotonic()
     family_phases(dev, kernels)
     emit("family_phases", seconds=time.monotonic() - t0)
+    torch.cuda.empty_cache()  # Jamba's 51.8 GB of weights need the card
+    t0 = time.monotonic()
+    hybrid_phases(dev, kernels, scan_regs)
+    emit("hybrid_phases", seconds=time.monotonic() - t0)
     emit("total", seconds=time.monotonic() - t_script)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """Configurations: the paper's platforms (:mod:`.paper`) and the model
-architectures the port builds, resolved by name with :func:`get`."""
+architectures, resolved by name with :func:`get`: every architecture of the
+reference's ``configs``, under the same names in the same order."""
 
 from __future__ import annotations
 
@@ -11,16 +12,18 @@ from .base import ArchConfig, FTSpec, LayerSpec, MoESpec, SSMSpec
 __all__ = ["ArchConfig", "FTSpec", "LayerSpec", "MoESpec", "SSMSpec",
            "ARCH_NAMES", "get"]
 
-#: architectures ported so far (the reference's ``configs`` also has
-#: jamba-1.5-large-398b, musicgen-large and llava-next-mistral-7b)
+#: the architectures, in the reference's order
 _MODULES = {
-    "smollm-135m": "smollm_135m",
-    "rwkv6-7b": "rwkv6_7b",
-    "qwen2-0.5b": "qwen2_0_5b",
-    "granite-8b": "granite_8b",
-    "qwen2-72b": "qwen2_72b",
-    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "arctic-480b": "arctic_480b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "granite-8b": "granite_8b",
+    "qwen2-0.5b": "qwen2_0_5b",
+    "qwen2-72b": "qwen2_72b",
+    "smollm-135m": "smollm_135m",
+    "musicgen-large": "musicgen_large",
+    "rwkv6-7b": "rwkv6_7b",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "llava-next-mistral-7b": "llava_next_mistral_7b",
 }
 
 ARCH_NAMES: List[str] = list(_MODULES)

@@ -2,12 +2,8 @@
 ``configs/base.py`` data classes.
 
 ``ArchConfig`` describes one model (layer pattern, widths, vocabulary);
-``reduced()`` gives the same family at a tiny size for CPU runs.  The
-port builds the ``dense`` family (``attn`` mixer, ``dense`` MLP), the
-``moe`` family (``attn`` mixer, ``moe`` MLP) and the RWKV6 family
-(``rwkv`` mixer, ``rwkv_cm`` channel mix); the other families' fields
-are kept so that a config and its ``reduced()`` read field for field
-like the reference's.
+``reduced()`` gives the same family at a tiny size for CPU runs.  A
+config and its ``reduced()`` read field for field like the reference's.
 """
 
 from __future__ import annotations

@@ -5,8 +5,9 @@ C interface (no PyTorch headers), loaded with :mod:`ctypes`; the wrappers
 in :mod:`repro_torch.kernels.sim_step`,
 :mod:`repro_torch.kernels.ckpt_codec`,
 :mod:`repro_torch.kernels.flash_attention`,
-:mod:`repro_torch.kernels.decode_attention` and
-:mod:`repro_torch.kernels.rwkv6` pass device pointers and PyTorch's
+:mod:`repro_torch.kernels.decode_attention`,
+:mod:`repro_torch.kernels.rwkv6` and :mod:`repro_torch.kernels.mamba` pass
+device pointers and PyTorch's
 current CUDA stream as integers.  Libraries land in ``build/repro_torch/``
 at the repository root, named by a hash of their source and flags, so an
 edited source is rebuilt and an unchanged one is loaded as it is.
@@ -132,6 +133,11 @@ _SIGNATURES = {
         "wkv6_fwd": [_P] * 8 + [_I32] * 4 + [_I64] * 23 + [_P],
         # the same, then the tile's rows a thread (0: hd's default)
         "wkv6_fwd_rows": [_P] * 8 + [_I32] * 4 + [_I64] * 23 + [_I32, _P],
+    },
+    "mamba_scan": {
+        # dt, x, A, Bc, Cc, h0, y, hT; B, S, D, ds; (batch, seq) strides of
+        # dt, x, Bc, Cc, y
+        "selective_scan_fwd": [_P] * 8 + [_I32] * 4 + [_I64] * 10 + [_P],
     },
 }
 

@@ -3,7 +3,10 @@
 No Pallas kernel of the reference has a VJP (its kernels define no
 ``custom_vjp``), so the reference never differentiates through one: its
 training path takes the dense or chunked attention and the ``lax.scan``
-WKV.  On CPU tensors a port wrapper runs its plain version, through which
+WKV.  The port's selective-scan kernel (Mamba's ``lax.scan`` in the
+reference, differentiable there) has no backward yet either; its wrapper
+guards only its CUDA launches, since on the CPU it runs the
+differentiable plain version.  On CPU tensors a port wrapper runs its plain version, through which
 autograd would go; on CUDA tensors it launches a ctypes kernel into a
 fresh tensor that has no ``grad_fn``, so a gradient would be cut without
 a word.  :func:`no_backward` makes both cases the same: when an operand
@@ -37,8 +40,8 @@ class NoBackward(torch.autograd.Function):
         raise NotImplementedError(
             f"{ctx.kernel_name} has no backward: the reference's Pallas kernel has no "
             "VJP, so neither has the port's. Train through the plain paths "
-            "(attn_impl 'auto', 'dense' or 'chunked'); RWKV6 training needs a "
-            "backward kernel (ROADMAP.md)")
+            "(attn_impl 'auto', 'dense' or 'chunked'); RWKV6 training, and Mamba "
+            "training on the card, need backward kernels (ROADMAP.md, queue 1.2)")
 
 
 def needs_guard(*operands) -> bool:

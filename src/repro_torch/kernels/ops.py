@@ -12,6 +12,11 @@ the reference's ``kernels/ops.py``.
   transposes to ``(B * H, S, hd)`` and broadcasts ``u`` to every batch
   row; here the kernel reads the model layout and ``u`` per head in
   place, and there is no ``chunk`` argument (the Pallas grid's block).
+* ``selective_scan``: Mamba's scan (the reference's ``models/ssm._ssm_scan``,
+  a ``lax.scan`` with no Pallas kernel) on ``(B, S, din)`` ``dt`` and
+  ``x``, ``A`` ``(din, ds)``, ``(B, S, ds)`` ``Bc`` / ``Cc`` and the ``(B,
+  din, ds)`` state: one launch of ``csrc/mamba_scan.cu`` a call on the
+  card.
 * ``quantize_checkpoint`` / ``dequantize_checkpoint``: a leaf of any shape
   in, the codec's ``(n_blocks, 256)`` int8 codes and ``(n_blocks, 1)`` f32
   scales out.  The kernels read the leaf flat with its length, so no
@@ -20,7 +25,9 @@ the reference's ``kernels/ops.py``.
 ``flash_attention``, ``decode_attention`` and ``wkv6`` have no backward,
 as the reference's Pallas kernels have no VJP: given an operand that
 requires a gradient they run behind :class:`.guard.NoBackward`, whose
-backward raises, on the card and on the CPU alike.
+backward raises, on the card and on the CPU alike.  ``selective_scan``
+has no backward on the card (its kernel has none yet); on the CPU its
+plain version is differentiable, as the reference's ``lax.scan`` is.
 """
 
 from __future__ import annotations
@@ -31,12 +38,13 @@ import torch
 
 from . import decode_attention as _decode
 from . import flash_attention as _flash
+from . import mamba as _mamba
 from . import rwkv6 as _rwkv6
 from .ckpt_codec import dequantize_blocks, quantize_blocks
 from .guard import no_backward
 
-__all__ = ["flash_attention", "decode_attention", "wkv6", "quantize_checkpoint",
-           "dequantize_checkpoint"]
+__all__ = ["flash_attention", "decode_attention", "wkv6", "selective_scan",
+           "quantize_checkpoint", "dequantize_checkpoint"]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -59,6 +67,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 #: shapes); the wrapper is already this layout's, so it is the entry itself
 #: (guarded there)
 wkv6 = _rwkv6.wkv
+
+#: Mamba's selective scan, already in the model's layout (guarded there)
+selective_scan = _mamba.selective_scan
 
 
 def _flat_f32(x: torch.Tensor) -> torch.Tensor:

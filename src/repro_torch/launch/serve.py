@@ -8,6 +8,10 @@ wall-clock fault trace) restores the last snapshot and re-decodes the
 tokens generated since.  Serving "waste" is the re-decoded tokens plus
 the snapshot time.
 
+A frontend family (musicgen, llava-next) is served with the reference's
+stub frontend: precomputed embeddings ``(requests, prefix, d_model)``
+drawn after the prompts, prepended to every prompt.
+
 The cache is updated in place, so a snapshot is a copy of it (into
 buffers cloned once) and a restore copies the snapshot back: an alias
 would let a replay decode from a cache that has already moved on.
@@ -16,9 +20,8 @@ would let a replay decode from a cache that has already moved on.
 Usage (on the card; ``--device cpu`` runs the kernels' plain versions):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
         --requests 4 --prompt-len 32 --gen 48 --inject-faults
-(``--arch`` takes any registered architecture: smollm-135m, rwkv6-7b, the
-dense qwen2-0.5b, granite-8b, qwen2-72b and the MoE qwen3-moe-30b-a3b,
-arctic-480b; the CLI serves its ``reduced()`` config.)
+(``--arch`` takes any registered architecture, every one of the
+reference's; the CLI serves its ``reduced()`` config.)
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from ..core.events import make_event_trace
 from ..core.torch_sim import resolve_device
 from .steps import build_decode_step, build_model, build_prefill_step
 
-__all__ = ["serve", "fault_trace", "main"]
+__all__ = ["serve", "draw_requests", "fault_trace", "main"]
 
 
 def fault_trace(seed: int, mtbf: float, horizon: float = 600.0) -> list:
@@ -45,6 +48,23 @@ def fault_trace(seed: int, mtbf: float, horizon: float = 600.0) -> list:
     tr = make_event_trace(np.random.default_rng(seed + 3), horizon=horizon, mtbf=mtbf,
                           recall=0.0, precision=1.0)
     return [f.time for f in tr.faults]
+
+
+def draw_requests(cfg: ArchConfig, requests: int, prompt_len: int, seed: int) -> dict:
+    """The prefill batch of :func:`serve`, on the CPU, drawn from
+    ``np.random.default_rng(seed)`` as the reference's server draws it:
+    ``tokens`` ``(requests, prompt_len)`` int32 and, for a frontend family,
+    then ``frontend``, ``0.02 N(0, 1)`` of shape ``(requests, prefix,
+    d_model)`` in bf16 (torch rounds f64 -> f32 -> bf16, as
+    ``jnp.asarray(..., jnp.bfloat16)`` does)."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (requests, prompt_len)).astype(np.int32))}
+    if cfg.frontend:
+        batch["frontend"] = torch.from_numpy(
+            rng.standard_normal((requests, cfg.frontend_prefix, cfg.d_model)) * 0.02
+        ).to(torch.bfloat16)
+    return batch
 
 
 def _copy_cache(dst: dict, src: dict) -> None:
@@ -68,8 +88,10 @@ def serve(cfg: ArchConfig, *, requests: int, prompt_len: int, gen: int,
           snapshot_every: int = 16, fault_times: Sequence[float] = (), seed: int = 0,
           device=None) -> dict:
     """Serve ``requests`` prompts of ``prompt_len`` tokens (drawn from
-    ``np.random.default_rng(seed)`` as the reference draws them) and
-    generate ``gen`` tokens each, greedily, on ``device`` (the current
+    ``np.random.default_rng(seed)`` as the reference draws them; for a
+    frontend family, then the frontend embeddings, ``0.02 N(0, 1)`` of
+    shape ``(requests, prefix, d_model)`` rounded to bf16) and generate
+    ``gen`` tokens each, greedily, on ``device`` (the current
     CUDA device by default; without CUDA and without ``device`` it raises
     before building the model).  Weights come from a ``torch.Generator`` seeded with
     ``seed`` on that device.  A fault at wall time
@@ -85,15 +107,13 @@ def serve(cfg: ArchConfig, *, requests: int, prompt_len: int, gen: int,
     g.manual_seed(seed)
     params = model.cast_params(model.init(g))  # once, not on every step
     max_seq = prompt_len + cfg.frontend_prefix + gen + 8
-    rng = np.random.default_rng(seed)
-    prompts = torch.from_numpy(
-        rng.integers(0, cfg.vocab_size, (requests, prompt_len)).astype(np.int32)).to(dev)
+    batch = {k: v.to(dev) for k, v in draw_requests(cfg, requests, prompt_len, seed).items()}
     prefill = build_prefill_step(model, max_seq)
     decode = build_decode_step(model)
 
     _sync(dev)
     t_start = time.monotonic()
-    logits, cache = prefill(params, {"tokens": prompts})
+    logits, cache = prefill(params, batch)
     out_tokens = [torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]]
     snapshot, k_snap = _clone_cache(cache), 1
     _sync(dev)

@@ -70,10 +70,11 @@ def build_train_step(model: LanguageModel, lr: float = 3e-4, total_steps: int = 
 
 
 def build_prefill_step(model: LanguageModel, max_seq: int):
-    """``step(params, {"tokens": (B, S) int32}) -> (logits, cache)``."""
+    """``step(params, {"tokens": (B, S) int32, optional "frontend": (B, P,
+    D)}) -> (logits, cache)``."""
 
     def prefill_step(params, batch):
-        return model.prefill(params, batch["tokens"], max_seq)
+        return model.prefill(params, batch["tokens"], max_seq, batch.get("frontend"))
 
     return prefill_step
 

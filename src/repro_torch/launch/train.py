@@ -147,7 +147,8 @@ def train(cfg: ArchConfig, *, steps: int = 100, batch: int = 8, seq: int = 128,
     state = make_train_state(cfg, model, seed, dev)
     inner = build_train_step(model, lr=lr, total_steps=steps, micro_batches=micro)
     data = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
-                              seed=seed)
+                              seed=seed, frontend_prefix=cfg.frontend_prefix if cfg.frontend
+                              else 0, d_model=cfg.d_model)
     own_dir = ckpt_dir is None
     root = tempfile.mkdtemp(prefix="repro_torch_train_") if own_dir else ckpt_dir
     store = CheckpointStore(root, codec=codec)

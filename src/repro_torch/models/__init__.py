@@ -1,5 +1,6 @@
-"""Models of the port: the language model of the dense, MoE and RWKV6
-families (:class:`LanguageModel`), its layers (``layers``, ``moe``,
+"""Models of the port: the language model of every family of the
+reference's configs (:class:`LanguageModel`: dense, MoE, RWKV6, the Mamba
+hybrid, the frontend families), its layers (``layers``, ``moe``,
 ``ssm``), and
 the conversion of the reference's parameter trees and training states
 (:func:`params_from_jax`, :func:`train_state_from_jax`)."""

@@ -1,6 +1,7 @@
-"""Language model for the dense, MoE and RWKV6 families: the port of the
-reference's ``models/transformer.py`` entry points, ``loss_fn`` (training),
-``prefill`` and ``decode_step`` (serving).
+"""Language model for every family of the reference's configs (dense,
+MoE, RWKV6, the Mamba hybrid and the modality-frontend families): the port
+of the reference's ``models/transformer.py`` entry points, ``loss_fn``
+(training), ``prefill`` and ``decode_step`` (serving).
 
 * Parameters are a plain tree with the reference's layout and key paths:
   ``embed``, ``final_norm`` (and ``lm_head`` when untied) and
@@ -20,16 +21,24 @@ reference's ``models/transformer.py`` entry points, ``loss_fn`` (training),
   pattern position, for an ``attn`` block ``k`` / ``v`` of shape ``(L, B,
   max_seq, KV, hd)`` in bf16; for an ``rwkv`` block the WKV ``state``
   ``(L, B, H, hd, hd)`` in f32 and the previous token's time-mix and
-  channel-mix inputs ``last`` / ``cm_last`` ``(L, B, D)`` in bf16.
+  channel-mix inputs ``last`` / ``cm_last`` ``(L, B, D)`` in bf16; for a
+  ``mamba`` block the conv window ``conv`` ``(L, B, d_conv - 1, d_inner)``
+  in bf16 and the SSM state ``ssm`` ``(L, B, d_inner, d_state)`` in f32.
   :meth:`LanguageModel.decode_step` updates it **in place** (the new K/V
   rows, the states and last tokens, ``pos``), where the reference returns
   a new tree; a caller that keeps an old state must clone it.
+* Modality frontends (musicgen's ``audio_frames``, llava-next's
+  ``vision_patches``) are the reference's stubs: the caller passes
+  precomputed ``frontend`` embeddings ``(B, prefix, D)``, concatenated
+  before the token embeddings in the compute dtype; ``pos`` and the RoPE
+  positions count them, and ``loss_fn`` scores the token positions only.
 
-Three block kinds are built: ``attn`` mixer with ``dense`` MLP, ``attn``
-mixer with ``moe`` MLP (:mod:`.moe`; its load-balance loss is summed over
-the layers into ``loss_fn``'s ``aux``), and ``rwkv`` mixer with
-``rwkv_cm`` channel mix.  Mamba blocks and the modality frontends are
-queue 1 of ``ROADMAP.md``.
+Five block kinds are built (``BLOCKS``): an ``attn`` or ``mamba`` mixer with
+a ``dense`` or ``moe`` MLP (:mod:`.moe`; its load-balance loss is summed
+over the layers into ``loss_fn``'s ``aux``), and the ``rwkv`` mixer with
+the ``rwkv_cm`` channel mix.  That covers every config of the reference;
+a remat policy other than ``"none"`` is refused (``ROADMAP.md``, queue
+1.2).
 """
 
 from __future__ import annotations
@@ -78,8 +87,9 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 #: weight of the (MoE) auxiliary loss in ``loss_fn``, the reference's
 _AUX_LOSS_WEIGHT = 0.01
 CACHE_DTYPE = torch.bfloat16
-#: the block kinds the port builds
-BLOCKS = (LayerSpec("attn", "dense"), LayerSpec("attn", "moe"), LayerSpec("rwkv", "rwkv_cm"))
+#: the block kinds the port builds (those of the reference's configs)
+BLOCKS = (LayerSpec("attn", "dense"), LayerSpec("attn", "moe"), LayerSpec("mamba", "dense"),
+          LayerSpec("mamba", "moe"), LayerSpec("rwkv", "rwkv_cm"))
 
 
 def _cast_tree(d: dict, dtype: torch.dtype) -> dict:
@@ -100,26 +110,23 @@ def _layer(tree: dict, r: int) -> dict:
 
 
 class LanguageModel(nn.Module):
-    """The LM of the dense, MoE and RWKV6 families.  Parameters and caches are
-    plain trees passed to the entry points, as in the reference."""
+    """The LM of every family of the reference's configs.  Parameters and
+    caches are plain trees passed to the entry points, as in the
+    reference."""
 
     def __init__(self, cfg: ArchConfig, flags: Optional[RuntimeFlags] = None):
         super().__init__()
         for spec in cfg.pattern:
             if spec not in BLOCKS:
                 raise NotImplementedError(
-                    f"{cfg.name}: {spec} blocks are not ported yet "
-                    "(ROADMAP.md, queue 1.1); the port builds attn + dense MLP, "
-                    "attn + moe and rwkv + rwkv_cm")
-        if cfg.frontend:
-            raise NotImplementedError(
-                f"{cfg.name}: modality frontends are not ported yet (ROADMAP.md, queue 1.1)")
+                    f"{cfg.name}: {spec} blocks are in no config of the reference and are "
+                    f"not built; the port builds {[(b.mixer, b.mlp) for b in BLOCKS]}")
         self.cfg = cfg
         self.flags = flags if flags is not None else RuntimeFlags()
         if self.flags.remat_policy != "none":
             raise NotImplementedError(
                 f"remat_policy={self.flags.remat_policy!r} is not ported yet (ROADMAP.md "
-                "§1, the remat item); the training path runs remat_policy='none'")
+                "§1, queue 1.2, the remat item); the training path runs remat_policy='none'")
         self.param_dtype = _DTYPES[cfg.param_dtype]
 
     # ------------------------------------------------------------------ #
@@ -144,12 +151,15 @@ class LanguageModel(nn.Module):
         for spec in cfg.pattern:
             if spec.mixer == "attn":
                 mixer = init_attention(generator, cfg, dt, lead=(R,))
-                if spec.mlp == "moe":
-                    mlp = moe.init_moe(generator, cfg, dt, lead=(R,))
-                else:
-                    mlp = init_mlp(generator, D, cfg.d_ff, dt, lead=(R,))
+            elif spec.mixer == "mamba":
+                mixer = ssm.init_mamba(generator, cfg, dt, lead=(R,))
             else:
                 mixer = ssm.init_rwkv(generator, cfg, dt, lead=(R,))
+            if spec.mlp == "moe":
+                mlp = moe.init_moe(generator, cfg, dt, lead=(R,))
+            elif spec.mlp == "dense":
+                mlp = init_mlp(generator, D, cfg.d_ff, dt, lead=(R,))
+            else:
                 mlp = ssm.init_rwkv_channel_mix(generator, cfg, dt, lead=(R,))
             blocks.append({
                 "mixer": mixer,
@@ -185,6 +195,9 @@ class LanguageModel(nn.Module):
                 kv = ((R, batch, max_seq, cfg.num_kv_heads, cfg.resolved_head_dim),
                       CACHE_DTYPE)
                 blocks.append({"k": kv, "v": kv})
+            elif spec.mixer == "mamba":
+                blocks.append({k: ((R,) + s, dt)
+                               for k, (s, dt) in ssm.mamba_cache_spec(cfg, batch).items()})
             else:
                 c = {k: ((R,) + s, dt) for k, (s, dt) in ssm.rwkv_cache_spec(cfg, batch).items()}
                 c["cm_last"] = ((R, batch, cfg.d_model), CACHE_DTYPE)
@@ -213,8 +226,10 @@ class LanguageModel(nn.Module):
         loss, else ``None``).  ``cache`` is the layer's slice of the
         serving cache: for ``attn``, the ``{"k", "v"}`` ``(B, max_seq, KV,
         hd)`` buffers, filled at ``[:, :S]`` in prefill; for ``rwkv``,
-        ``state``, ``last`` and ``cm_last``, read in decode and overwritten
-        in both modes.  In ``"train"`` mode there is no cache (``None``)."""
+        ``state``, ``last`` and ``cm_last``, and for ``mamba``, ``conv`` and
+        ``ssm``, read in decode and overwritten in both modes (the final
+        states written by the kernels straight into the cache).  In
+        ``"train"`` mode there is no cache (``None``)."""
         cfg, flags = self.cfg, self.flags
         decode, train = mode == "decode", mode == "train"
         h = rms_norm(x, bp["mixer_norm"], cfg.norm_eps)
@@ -229,6 +244,11 @@ class LanguageModel(nn.Module):
                     S = x.shape[1]
                     cache["k"][:, :S] = k_raw.to(CACHE_DTYPE)
                     cache["v"][:, :S] = v_raw.to(CACHE_DTYPE)
+        elif spec.mixer == "mamba":
+            y, st = ssm.mamba_apply(bp["mixer"], h, cfg, cache if decode else None,
+                                    state_out=None if train else cache["ssm"])
+            if not train:
+                cache["conv"].copy_(st["conv"])
         else:  # rwkv: the final state goes straight into the cache
             y, st = ssm.rwkv_apply(bp["mixer"], h, cache if decode else None,
                                    state_out=None if train else cache["state"])
@@ -279,8 +299,17 @@ class LanguageModel(nn.Module):
         positions = torch.arange(seq_len, device=device)
         return rope_table(positions, cfg.resolved_head_dim, cfg.rope_theta)
 
-    def _embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-        return F.embedding(tokens, params["embed"]).to(self.flags.compute_dtype)
+    def _embed(self, params: dict, tokens: torch.Tensor, frontend=None) -> torch.Tensor:
+        """The token embeddings in the compute dtype, after the ``frontend``
+        embeddings ``(B, prefix, D)`` when given."""
+        return self._prepend(F.embedding(tokens, params["embed"]).to(self.flags.compute_dtype),
+                             frontend)
+
+    @staticmethod
+    def _prepend(x: torch.Tensor, frontend) -> torch.Tensor:
+        if frontend is None:
+            return x
+        return torch.cat([frontend.to(x.dtype), x], dim=1)
 
     def _head(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
@@ -290,9 +319,11 @@ class LanguageModel(nn.Module):
         return torch.einsum("bsd,dv->bsv", x, w.to(x.dtype))
 
     def loss_fn(self, params: dict, batch: dict):
-        """``batch`` ``{"tokens": (B, S) int}`` -> ``(loss, {"ce", "aux"})``,
-        the reference's ``loss_fn``: next-token cross entropy over
-        positions ``0 .. S-2`` in f32, plus 0.01 times the auxiliary loss
+        """``batch`` ``{"tokens": (B, S) int}`` (and ``"frontend"`` ``(B, P,
+        D)`` for a frontend family) -> ``(loss, {"ce", "aux"})``, the
+        reference's ``loss_fn``: next-token cross entropy over the token
+        positions ``0 .. S-2`` (after the ``P`` frontend rows) in f32, plus
+        0.01 times the auxiliary loss
         (the MoE blocks' load-balance losses summed over the layers; 0
         without MoE).  ``params`` is the f32 master
         tree: the embedding row gather ``embed[tokens]``, each layer's
@@ -301,22 +332,24 @@ class LanguageModel(nn.Module):
         ``auto`` is dense up to ``dense_attn_max`` tokens and chunked
         beyond, as in the reference."""
         tokens = batch["tokens"]
-        if "frontend" in batch:
-            raise NotImplementedError("loss_fn: modality frontends are not ported")
-        x = params["embed"][tokens.long()].to(self.flags.compute_dtype)
+        frontend = batch.get("frontend")
+        prefix = 0 if frontend is None else frontend.shape[1]
+        x = self._prepend(params["embed"][tokens.long()].to(self.flags.compute_dtype), frontend)
         S = x.shape[1]
         sin, cos = self._rope(S, x.device)
         x, aux = self._run_layers(params, x, sin, cos, "train", None, None)
         logits = self._head(params, x)
-        ce = cross_entropy_loss(logits[:, : S - 1], tokens[:, 1:])
+        ce = cross_entropy_loss(logits[:, prefix: S - 1], tokens[:, 1:])
         return ce + _AUX_LOSS_WEIGHT * aux, {"ce": ce, "aux": aux}
 
-    def prefill(self, params: dict, tokens: torch.Tensor, max_seq: int):
-        """tokens ``(B, S)`` int32 -> (last-token logits ``(B, 1, V)``, the
-        cache: the attention blocks' first ``S`` K/V rows, the rwkv
-        blocks' states and last inputs, ``pos = S``)."""
+    def prefill(self, params: dict, tokens: torch.Tensor, max_seq: int, frontend=None):
+        """tokens ``(B, S_tok)`` int32, after ``frontend`` ``(B, P, D)``
+        when given -> (last-token logits ``(B, 1, V)``, the cache: the
+        attention blocks' first ``S = P + S_tok`` K/V rows, the rwkv and
+        mamba blocks' states (and last inputs, conv windows), ``pos =
+        S``)."""
         p = self.cast_params(params)
-        x = self._embed(p, tokens)
+        x = self._embed(p, tokens, frontend)
         B, S = x.shape[0], x.shape[1]
         sin, cos = self._rope(S, x.device)
         cache = self.init_cache(B, max_seq, x.device)

@@ -90,7 +90,7 @@ def test_config_and_reduced_match_reference_field_for_field():
                (r.resolved_head_dim, r.n_repeats, r.param_count())
     assert port.param_count() == 134_515_008
     with pytest.raises(KeyError):
-        configs.get("jamba-1.5-large-398b")
+        configs.get("no-such-arch")
 
 
 def test_rwkv_config_and_reduced_match_reference_field_for_field():
@@ -106,21 +106,18 @@ def test_rwkv_config_and_reduced_match_reference_field_for_field():
     assert "rwkv6-7b" in configs.ARCH_NAMES
 
 
-def test_other_families_are_not_built():
-    """Mamba blocks (jamba) and the modality frontends (llava-next) are
-    refused, each naming the queue item."""
-    for name, match in (("jamba-1.5-large-398b", "blocks are not ported"),
-                        ("llava-next-mistral-7b", "modality frontends")):
-        r = RC.get(name)
-        cfg = configs.base.ArchConfig(
-            name=r.name, family=r.family, num_layers=r.num_layers, d_model=r.d_model,
-            num_heads=r.num_heads, num_kv_heads=r.num_kv_heads, d_ff=r.d_ff,
-            vocab_size=r.vocab_size, frontend=r.frontend, frontend_prefix=r.frontend_prefix,
-            moe=r.moe and configs.MoESpec(r.moe.num_experts, r.moe.top_k),
-            pattern=tuple(configs.LayerSpec(s.mixer, s.mlp) for s in r.pattern))
-        with pytest.raises(NotImplementedError, match=match) as err:
-            LanguageModel(cfg)
-        assert "queue 1.1" in str(err.value)
+@pytest.mark.parametrize("name", RC.ARCH_NAMES)
+def test_other_families_are_not_built(name):
+    """Every config of the reference is built now (the port's names are the
+    reference's, in its order); what is not built is a remat policy other
+    than ``"none"``, refused naming its queue item (1.2)."""
+    assert configs.ARCH_NAMES == list(RC.ARCH_NAMES)
+    cfg = configs.get(name).reduced()
+    model = LanguageModel(cfg)
+    assert model.cfg is cfg
+    for policy in ("full", "dots"):
+        with pytest.raises(NotImplementedError, match="queue 1.2"):
+            LanguageModel(cfg, RuntimeFlags(remat_policy=policy))
 
 
 @pytest.mark.parametrize("which", ["width", "reduced"])
