@@ -156,11 +156,13 @@ bounds, plain versions and ``scaled_dot_product_attention``;
 Qwen3-30B-A3B at full width and 2 layers on the card against the port on
 the CPU, in f32 (routing equal) and bf16 (routing differences counted,
 the card then routed as the CPU), and a repeated prefill bit-equal;
-Qwen3-30B-A3B at full size (48 layers, 61 GB of bf16 weights) through
-``serve()`` (8 x 1024 prompt tokens, 128 generated, a snapshot every 16),
-fault-free and faulted with equal tokens, 48 flash launches a prefill and
-48 decode calls a step; then qwen2-0.5b and granite-8b at full size,
-qwen2-72b at 8 of its 80 layers and Arctic-480B at 2 of its 35 (32
+Qwen3-30B-A3B at full width (8 of its 48 layers since the training
+phases 49-52 took the script's time; 48, 61 GB of bf16 weights, fit)
+through ``serve()`` (8 x 1024 prompt tokens, 128 generated, a snapshot
+every 16), fault-free and faulted with equal tokens, a flash launch a
+layer a prefill and a decode call a layer a step; then qwen2-0.5b at
+full size, granite-8b at 12 of its 36 layers, qwen2-72b at 8 of its 80
+layers and Arctic-480B at 2 of its 35 (32
 generated tokens, fault-free), served the same way.  ``python3
 chip_smoke.py --only families`` runs the environment, the build and these
 phases alone.
@@ -184,6 +186,20 @@ llava-next and musicgen at full size with their 576- and 64-row frontend
 prefixes (32 generated tokens, fault-free and faulted, equal tokens; 32
 and 48 tensor-core flash launches a prefill).  ``python3 chip_smoke.py
 --only hybrid`` runs the environment, the build and these phases alone.
+
+Then training the recurrent families (phases 49-52): the WKV and
+selective-scan backward kernels against their plain versions at RWKV6-7B's
+and Jamba's training shapes and odd cases (ds0 / dh0 bit for bit, the same
+bits twice) and timed; RWKV6-7B at full width with 1 layer and Jamba's
+width cut, loss and every gradient leaf card against CPU (and the kernels
+against the plain recurrences on the card); ``train()`` on RWKV6-7B (4
+layers) and Jamba-1.5-Large (2 layers, 2 of 16 experts) at full width, 8 x
+1024 tokens, fault-free and under faults (paper-accurate predictor, int8
+store behind the memory tier): step ms, forward / backward / AdamW ms, the
+recurrence kernels' launches, peak memory, ``c_block`` / ``c_full``, the
+losses bit-equal up to the first disk restore; remat none / full / dots on
+the RWKV6 cut, bit-equal.  ``python3 chip_smoke.py --only ssm_train`` runs
+the environment, the build and these phases alone.
 
 Every phase prints one JSON line; any failure exits non-zero before the
 last line, which is ``{"ok": true, "device": {...}}``.  Needs one CUDA
@@ -3811,10 +3827,13 @@ TRAIN_CHECK_BATCH = (2, 128)
 TRAIN_CHECK_TOL = {"loss": 1e-5, "grad": 1e-4, "adamw": 1e-6}
 #: phase 39: repro_torch.launch.train at full size (30 layers, bf16
 #: compute, 8 x 1024 tokens, seed 0); the faulted run under the
-#: paper-accurate predictor, its faults from the seeded trace of this MTBF
-#: (wall seconds), which puts 2-4 of them inside the run
+#: paper-accurate predictor, its faults from the seeded trace of this MTBF,
+#: on the executor's simulated clock at TRAIN_SIM_STEP_S a step (the step
+#: measured on the H100), so that the same steps fault on every host: 3
+#: saves, a memory restore of step 22 and a disk restore of step 55 (the
+#: schedule tests/test_torch_executor.py replays on the CPU)
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEED = 60, 8, 1024, 0
-TRAIN_MTBF = 12.0
+TRAIN_MTBF, TRAIN_SIM_STEP_S = 12.0, 0.31
 TRAIN_LR = 3e-4
 #: every second fault loses the buddy's replica too, so the disk tier
 #: (int8, through dequantize_blocks) serves it
@@ -3857,11 +3876,14 @@ def leaf_rel(got: dict, want: dict) -> float:
     return worst
 
 
-def train_step_split(cfg, dev) -> None:
+def train_step_split(cfg, dev, counters=None, phase: str = "train_split") -> dict:
     """Where a training step's time goes: forward, backward and the AdamW
     update of the train path's step (full size, bf16 compute), each timed
     with CUDA events (median of 3 after a warm-up step), and the device
-    kernels of one step by total time in a ``torch.profiler`` trace."""
+    kernels of one step by total time in a ``torch.profiler`` trace.
+    ``counters`` (name -> a function reading a launch count) are read
+    around the warm-up step's forward and backward.  Emits ``phase`` and
+    returns its record."""
     import statistics
 
     import numpy as np
@@ -3879,15 +3901,27 @@ def train_step_split(cfg, dev) -> None:
     toks = torch.from_numpy(np.random.default_rng(TRAIN_SEED).integers(
         0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)).to(dev)
 
+    counters = counters or {}
+    per_step = {}
+
+    def read():
+        return {k: f() for k, f in counters.items()}
+
     def step(times=None):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        c0 = read()
         ev[0].record()
         live = map_with_keys(lambda _, p: p.detach().requires_grad_(True), st["params"])
         loss, _ = model.loss_fn(live, {"tokens": toks})
         ev[1].record()
+        c1 = read()
         flat = flatten_with_keys(live)
         grads = dict(zip(flat, torch.autograd.grad(loss, list(flat.values()))))
         ev[2].record()
+        c2 = read()
+        if times is None:
+            per_step.update({k: {"forward": c1[k] - c0[k], "backward": c2[k] - c1[k]}
+                             for k in counters})
         lr = cosine_schedule(st["opt"].step, TRAIN_LR, warmup=100, total=TRAIN_STEPS)
         out = adamw_update(map_with_keys(lambda k, _: grads[k], st["params"]), st["opt"],
                            st["params"], lr)
@@ -3914,13 +3948,17 @@ def train_step_split(cfg, dev) -> None:
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e3
     split = {k: statistics.median(v) for k, v in times.items()}
-    emit("train_split", seconds=time.monotonic() - t0, ms=split, step_ms=sum(split.values()),
-         profiled_device_ms=busy, device_kernels=sum(r[2] for r in rows),
-         top_kernels=[{"name": k[:80], "ms": dt / 1e3, "calls": n} for dt, k, n in rows[:12]],
+    rec = {"seconds": time.monotonic() - t0, "arch": cfg.name, "ms": split,
+           "step_ms": sum(split.values()), "profiled_device_ms": busy,
+           "device_kernels": sum(r[2] for r in rows), "launches_per_step": per_step,
+           "top_kernels": [{"name": k[:80], "ms": dt / 1e3, "calls": n}
+                           for dt, k, n in rows[:12]]}
+    emit(phase, **rec,
          note="CUDA events around forward (loss_fn), backward (autograd.grad) and "
               "adamw_update of one step on a fixed batch; profiled_device_ms: the device "
               "kernels' total time in one profiled step")
     del st
+    return rec
 
 
 def train_phases(dev, kernels: list) -> None:
@@ -4010,7 +4048,7 @@ def train_phases(dev, kernels: list) -> None:
     kw = dict(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR,
               seed=TRAIN_SEED, codec="int8", memory_tier=True,
               correlated_every=TRAIN_CORRELATED_EVERY, fault_mtbf=TRAIN_MTBF,
-              predictor="paper-accurate", strategy="auto",
+              sim_step_s=TRAIN_SIM_STEP_S, predictor="paper-accurate", strategy="auto",
               flags=RuntimeFlags(dense_attn_max=512), device=dev, log=lambda s: None)
     runs, codec = {}, {}
     try:
@@ -4048,7 +4086,7 @@ def train_phases(dev, kernels: list) -> None:
         r_meas = rp.ledger.recovery / rp.n_restores if rp.n_restores else 0.0
         rec, prec = (0.85, 0.82) if name == "faulted" else (0.0, 1.0)
         summary[name] = {
-            "wall_s": r["wall_s"], "step_ms_median": step_ms,
+            "wall_s": r["wall_s"], "clock_s": r["clock_s"], "step_ms_median": step_ms,
             "step_ms_min": min(s for _, s in r["step_s"]) * 1e3,
             "steps_run": len(r["step_s"]), "tokens_per_s_step": tokens / step_ms * 1e3,
             "tokens_per_s_wall": TRAIN_STEPS * tokens / r["wall_s"],
@@ -4065,8 +4103,8 @@ def train_phases(dev, kernels: list) -> None:
         }
     emit("train_path", seconds=time.monotonic() - t0, layers=cfg.num_layers,
          batch=[TRAIN_BATCH, TRAIN_SEQ], compute="bfloat16", steps=TRAIN_STEPS,
-         lr=TRAIN_LR, mtbf=TRAIN_MTBF, deterministic=True, runs=summary,
-         fault_times=[t for t in hit["fault_times"] if t <= hit["wall_s"] + 1.0],
+         lr=TRAIN_LR, mtbf=TRAIN_MTBF, sim_step_s=TRAIN_SIM_STEP_S, deterministic=True,
+         runs=summary, fault_times=[t for t in hit["fault_times"] if t <= hit["clock_s"]],
          quantize_per_save=q / max(n_saves, 1),
          dequantize_per_disk_restore=dq / max(len(disk), 1),
          bit_equal_steps=first_disk - len(unequal), first_disk_restore_step=first_disk,
@@ -4119,11 +4157,14 @@ def train_phases(dev, kernels: list) -> None:
 #: the families served on the card in phases 43-44, phase 41's attention
 #: shapes taken from their configs
 FAMILIES = ("qwen3-moe-30b-a3b", "qwen2-0.5b", "granite-8b", "qwen2-72b", "arctic-480b")
-#: Qwen3-30B-A3B's serving depth (full: its 61 GB of bf16 weights fit the
-#: card); the depth cuts of the two configs that do not fit, and Arctic's
-#: shorter generation
-QWEN3_LAYERS = 48
-DEPTH_CUTS = {"qwen2-72b": 8, "arctic-480b": 2}
+#: Qwen3-30B-A3B's serving depth: 8 of its 48 layers through serve() (all
+#: 48, 61 GB of bf16 weights, fit the card, and were served here until the
+#: recurrent families' training phases 49-52 needed the script's time; a
+#: prefill and the decode step's split still run at all 48); the depth
+#: cuts of the two configs that do not fit and of granite-8b (12 of its
+#: 36 layers, for the same reason), and Arctic's shorter generation
+QWEN3_LAYERS = 8
+DEPTH_CUTS = {"qwen2-72b": 8, "arctic-480b": 2, "granite-8b": 12}
 ARCTIC_GEN = 32
 #: Qwen3 at full width, 2 layers, on the card against the port on the CPU.
 #: f32: the routing must be equal (expert ids and keep mask of every MoE
@@ -4550,26 +4591,40 @@ def family_phases(dev, kernels: list) -> None:
                               num_layers=QWEN3_LAYERS)
     rec = serve_family(cfg, GEN, True, dev)
     rec["of_layers"] = get("qwen3-moe-30b-a3b").num_layers
-    # a decode step reads every weight but the embedding table (8 rows of
-    # it) and, at the middle of the decode, the K/V rows up to pos
-    step_bytes = (2 * (cfg.param_count() - cfg.vocab_size * cfg.d_model)
-                  + 2 * cfg.num_layers * B * (pos + 1) * cfg.num_kv_heads
-                  * cfg.resolved_head_dim * 2)
-    rec["decode_step_bytes"] = step_bytes
-    rec["decode_step_bound_ms"] = step_bytes / PEAK_BYTES_S * 1e3
     check(rec["peak_bytes"] <= 76 * 2**30, f"Qwen3 serving peaked at {rec['peak_bytes']} bytes")
     paths = {cfg.name: rec["launches"]}
     torch.cuda.empty_cache()
-    m = LanguageModel(cfg)
+    # all 48 layers (61 GB of bf16 weights): a prefill of the serve's
+    # prompts and the decode step's split, under the serve's memory limit
+    full = dataclasses.replace(cfg, num_layers=rec["of_layers"])
+    # a decode step reads every weight but the embedding table (8 rows of
+    # it) and, at the middle of the decode, the K/V rows up to pos
+    step_bytes = (2 * (full.param_count() - full.vocab_size * full.d_model)
+                  + 2 * full.num_layers * B * (pos + 1) * full.num_kv_heads
+                  * full.resolved_head_dim * 2)
+    torch.cuda.reset_peak_memory_stats(dev)
+    m = LanguageModel(full)
     g = torch.Generator(device=dev)
     g.manual_seed(SERVE_SEED)
     params = m.cast_params(m.init(g))
     prompts = torch.from_numpy(np.random.default_rng(SERVE_SEED).integers(
-        0, cfg.vocab_size, (REQUESTS, PROMPT_LEN)).astype(np.int32)).to(dev)
-    _, cache = m.prefill(params, prompts, max_seq)
-    rec["decode_step"] = decode_step_split(
-        m, params, cache, torch.zeros((REQUESTS, 1), dtype=torch.int32, device=dev))
-    del m, params, cache
+        0, full.vocab_size, (REQUESTS, PROMPT_LEN)).astype(np.int32)).to(dev)
+    torch.cuda.synchronize()
+    tp = time.monotonic()
+    logits, cache = m.prefill(params, prompts, max_seq)
+    torch.cuda.synchronize()
+    prefill_s = time.monotonic() - tp
+    finite = bool(torch.isfinite(logits).all())
+    step = decode_step_split(m, params, cache,
+                             torch.zeros((REQUESTS, 1), dtype=torch.int32, device=dev))
+    peak = torch.cuda.max_memory_allocated(dev)
+    rec["full_size"] = {"layers": full.num_layers, "params": full.param_count(),
+                        "prefill_s": prefill_s, "logits_finite": finite, "peak_bytes": peak,
+                        "decode_step": step, "decode_step_bytes": step_bytes,
+                        "decode_step_bound_ms": step_bytes / PEAK_BYTES_S * 1e3}
+    check(finite, "Qwen3 at full size: non-finite prefill logits")
+    check(peak <= 76 * 2**30, f"Qwen3 at full size peaked at {peak} bytes")
+    del m, params, cache, logits
     torch.cuda.empty_cache()
     emit("qwen3_serve", seconds=time.monotonic() - t0, **rec, nvidia_smi=smi_line())
 
@@ -4942,6 +4997,631 @@ def hybrid_phases(dev, kernels: list, scan_regs: dict) -> None:
     })
 
 
+# --------------------------------------------------------------------------- #
+# Training the recurrent families: the WKV and scan backward kernels
+# --------------------------------------------------------------------------- #
+RWKV = "rwkv6-7b"
+WKV_BWD_SOURCE = "src/repro_torch/kernels/csrc/rwkv6_bwd.cu"
+SCAN_BWD_SOURCE = "src/repro_torch/kernels/csrc/mamba_scan_bwd.cu"
+#: what each backward kernel takes the place of: jax.grad through the
+#: reference's lax.scans (no TPU kernel: the Pallas WKV kernel has no VJP,
+#: and the scan has no Pallas kernel)
+WKV_BWD_REPLACES = "src/repro/models/ssm.py:218"
+SCAN_BWD_REPLACES = SCAN_REPLACES
+WKV_BWD_NAMES = ("dr", "dk", "dv", "dw", "du", "ds0")
+SCAN_BWD_NAMES = ("ddt", "dx", "dA", "dB", "dC", "dh0")
+#: the backward kernels' reduced gradients against their plain versions', a
+#: fraction of each gradient's max (other summation orders; the CPU tests
+#: measure the plain versions' own reorderings at 3e-7); ds0 and dh0, the
+#: carried gradient's elementwise chain, bit-equal
+BWD_TOL = 1e-5
+#: f32 operations a state entry and token: the WKV backward (the state
+#: recomputed 3, dr 4, dkv 2, dk 2, dv 2, dw 2, G 3), the scan backward
+#: (the state recomputed 5 with its exp, G 2, dB 2, dC 2, du 2, gz 2, ddt
+#: 2, dA 2, the carried G 1, the exp again)
+WKV_BWD_OPS_PER_ENTRY, SCAN_BWD_OPS_PER_ENTRY = 18, 20
+BWD_SEED = 90
+#: phase 50: RWKV6-7B at full width with 1 layer, and Jamba at phase 46's
+#: width cut, f32, on a (batch, tokens) batch; card against CPU: the loss
+#: (rel) and every gradient leaf's max abs diff over the leaf's max (phase
+#: 38's bounds; RWKV6's gradients 5e-4: its time mix amplifies rounding
+#: noise, as reordering the WKV's y sum alone on the CPU moves them by
+#: 2.1e-5, and the card, with the plain recurrences in place of the
+#: kernels, sits 1.60e-4 from the CPU); the kernels against the plain
+#: recurrences, both on the card, 1e-4 (measured 2.4e-5 / 4.3e-6)
+SSM_CHECK_BATCH = (2, 32)
+SSM_CHECK_TOL = {"loss": 1e-5, "grad": {"rwkv": 5e-4, "mamba": 1e-4},
+                 "kernels_vs_plain_on_card": 1e-4}
+#: phase 51: the training cuts at full width.  RWKV6-7B at 4 of its 32
+#: layers (1.41 B parameters; f32 masters, bf16 compute); Jamba at the first
+#: two layers of its pattern, (Mamba, dense) and (Mamba, MoE), with 2 of its
+#: 16 experts, top-2 kept (3.72 B; bf16 parameters, 8-bit AdamW moments).
+#: At 4 experts (4.93 B) the card ran out of memory in the AdamW update (its
+#: f32 temporaries of the (4, 8192, 24576) expert stacks, 3 GB each, at 67.8
+#: GiB allocated and 8.3 GiB reserved), so the cut keeps 2.
+#: 8 x 1024 tokens a step.  The fault-free run takes no checkpoint (its
+#: MTBF prior is 1e9 s), so that its step times are the steps'.  The
+#: faulted run's executor runs on a simulated clock (train()'s sim_step_s,
+#: each family's step as measured on the H100), so its faults, predictions
+#: and saves fall at the same steps on every host; a wall-clock schedule
+#: had put a fault inside Jamba's run on one host and none on another.
+#: Seed 3 and these MTBFs (simulated seconds) give each run one save, a
+#: fault restored from the memory tier and a second one from the disk
+#: (every second restore of a checkpoint loses the buddy's replica):
+#: RWKV6 saves step 4, Jamba step 4 (its bf16 leaves read back by the
+#: manifest's dtype).  tests/test_torch_executor.py replays both schedules
+#: on the CPU.  A save costs what it costs on the wall clock: the RWKV6
+#: cut's 16.9 GB measured c_block 12.2-17.3 s and c_full 18.3 s (8.5 GB:
+#: int8 codes, the second moments raw), Jamba's 15.0 GB (raw) c_block
+#: 14-21 s and c_full 29-36 s, which the restore after it waits for.
+#: After an int8 disk restore the last loss is held to SSM_LOSS_RTOL (the
+#: RWKV6 cut's f32 masters, the decays' w0 among them, come back within
+#: half a code step of their block: 4.7e-3 three steps after it; 7.8e-2
+#: while the second moments were coded too; Jamba's bf16 and int8 leaves
+#: and its second moments' scales are stored raw)
+RWKV_TRAIN_LAYERS, JAMBA_TRAIN_EXPERTS = 4, 2
+SSM_TRAIN_SEED = 3
+SSM_TRAIN = {"rwkv": {"steps": 8, "mtbf": 2.5, "sim_step_s": 0.32},
+             "jamba": {"steps": 6, "mtbf": 4.0, "sim_step_s": 0.97}}
+SSM_LOSS_RTOL = {"rwkv": 5e-2, "jamba": TRAIN_LOSS_RTOL}
+SSM_PEAK_LIMIT = 76 * 2**30
+
+
+def wkv_bwd_case(B, S, H, hd, seed, dev, with_s0, with_dsT):
+    """Inputs of a WKV backward: the forward's (the kernel test's laws),
+    ``dy`` and ``dsT`` (or None) ~ N(0, 1) / 0.1 N(0, 1) from a seeded
+    card generator."""
+    import torch
+    from repro_torch.kernels import rwkv6 as RW
+
+    r, k, v, w, u, s0 = RW.sample_wkv_inputs(B, S, H, hd, seed, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    dy = torch.randn((B, S, H, hd), generator=g, device=dev)
+    dsT = torch.randn((B, H, hd, hd), generator=g, device=dev) * 0.1 if with_dsT else None
+    return r, k, v, w, u[None], (s0 if with_s0 else None), dy, dsT
+
+
+def scan_bwd_case(B, S, din, ds, seed, dev, with_h0, with_dhT):
+    """Inputs of a scan backward: the forward's (Mamba's laws), ``dy`` and
+    ``dhT`` (or None) from a seeded card generator."""
+    import torch
+    from repro_torch.kernels import mamba as MB
+
+    dt, x, A, Bc, Cc, h0 = MB.sample_scan_inputs(B, S, din, ds, seed, device=dev,
+                                                 with_h0=with_h0)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    dy = torch.randn((B, S, din), generator=g, device=dev)
+    dhT = torch.randn((B, din, ds), generator=g, device=dev) * 0.1 if with_dhT else None
+    return dt, x, A, Bc, Cc, h0, dy, dhT
+
+
+def bwd_close(got, want, names, exact: str, what: str) -> dict:
+    """Hold a backward kernel's gradients to its plain version's: ``exact``
+    bit for bit, the others within BWD_TOL of their max.  Returns each
+    gradient's largest absolute error."""
+    import torch
+
+    torch.cuda.synchronize()
+    errs = {}
+    for name, a, b in zip(names, got, want):
+        if b is None:
+            check(a is None, f"{what}: {name} given where the plain version has none")
+            continue
+        check(a.shape == b.shape and a.dtype == torch.float32
+              and bool(torch.isfinite(a).all()), f"{what}: {name} {tuple(a.shape)} "
+              f"against {tuple(b.shape)}, or not finite")
+        if name == exact:
+            differ = int((a.view(torch.int32) != b.view(torch.int32)).sum())
+            check(differ == 0, f"{what}: {differ} entries of {name} differ from the plain "
+                  f"version's (max {float((a - b).abs().max())})")
+            errs[name] = 0.0
+            continue
+        err, scale = float((a - b).abs().max()), float(b.abs().max())
+        check(err <= BWD_TOL * scale, f"{what}: {name} off by {err} (max {scale})")
+        errs[name] = err
+    return errs
+
+
+def bits_digest(tensors) -> str:
+    """sha256 of the tensors' bytes (None skipped), to compare runs."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        if t is not None:
+            h.update(t.contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def wkv_bwd_bound(B, S, H, hd, with_s0: bool) -> dict:
+    """Least time of one backward: r, k, v, w, dy read and dr, dk, dv, dw
+    written (f32), u read and du written, s0 read and ds0 written when
+    given; against the f32 operations of the reverse recurrence."""
+    n = B * S * H * hd
+    nbytes = 4 * (9 * n + 2 * H * hd + (2 * B * H * hd * hd if with_s0 else 0))
+    nops = WKV_BWD_OPS_PER_ENTRY * n * hd
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, nops / PEAK_F32_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else
+            "operations", "bytes": nbytes, "ops": nops}
+
+
+def scan_bwd_bound(B, S, din, ds, with_h0: bool) -> dict:
+    """Least time of one backward: dt, x, dy read and ddt, dx written, B,
+    C read and dB, dC written, A read and dA written (f32), h0 read and
+    dh0 written when given; against the f32 operations of the reverse
+    recurrence."""
+    nbytes = 4 * (5 * B * S * din + 4 * B * S * ds + 2 * din * ds
+                  + (2 * B * din * ds if with_h0 else 0))
+    nops = SCAN_BWD_OPS_PER_ENTRY * B * S * din * ds
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, nops / PEAK_F32_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else
+            "operations", "bytes": nbytes, "ops": nops}
+
+
+def draw_constant_leaves(params: dict, g, dev) -> None:
+    """Draw, in place, the leaves the reference's init leaves constant (the
+    time mix's ``u``, ``w0``, ``mu``, ``ln``, the channel mix's ``mu``;
+    Mamba's ``dt_b``, ``D_skip``, ``conv_b``), so that their gradients and
+    the paths through them are exercised."""
+    import torch
+
+    def rn(x, scale, shift=0.0):
+        return (torch.randn(x.shape, generator=g, device=dev) * scale + shift).to(x.dtype)
+
+    def ru(x, lo, hi):
+        return (torch.rand(x.shape, generator=g, device=dev) * (hi - lo) + lo).to(x.dtype)
+
+    for blk in params["blocks"]:
+        mx, mlp = blk["mixer"], blk["mlp"]
+        if "u" in mx:
+            mx["u"], mx["w0"] = rn(mx["u"], 0.5), rn(mx["w0"], 0.5, -0.5)
+            mx["mu"], mx["ln"] = ru(mx["mu"], 0.0, 1.0), ru(mx["ln"], 0.5, 1.5)
+            mlp["mu"] = ru(mlp["mu"], 0.0, 1.0)
+        if "dt_b" in mx:
+            mx["dt_b"] = mx["dt_b"] + rn(mx["dt_b"], 1.0)
+            mx["D_skip"], mx["conv_b"] = rn(mx["D_skip"], 0.3, 1.0), rn(mx["conv_b"], 0.1)
+
+
+def ssm_grads_card_vs_cpu(cfg, dev) -> dict:
+    """``cfg`` in f32 on a SSM_CHECK_BATCH batch: the loss and every
+    gradient leaf on the card (the forward and backward kernels) against
+    the port on the CPU (their plain versions), MoE routing compared."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.store import map_with_keys
+    from repro_torch.kernels import mamba as MB
+    from repro_torch.kernels import rwkv6 as RW
+    from repro_torch.models import LanguageModel, RuntimeFlags
+
+    m = LanguageModel(cfg, RuntimeFlags(compute_dtype=torch.float32))
+    g = torch.Generator(device=dev)
+    g.manual_seed(TRAIN_CHECK_SEED)
+    p_gpu = m.init(g)
+    draw_constant_leaves(p_gpu, g, dev)
+    p_cpu = map_with_keys(lambda _, x: x.cpu(), p_gpu)
+    B, S = SSM_CHECK_BATCH
+    toks = torch.from_numpy(np.random.default_rng(TRAIN_CHECK_SEED).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32))
+    c0 = (RW.wkv6_bhsd.launches, RW.wkv6_bwd.launches, MB.selective_scan.launches,
+          MB.selective_scan_bwd.launches)
+    with RoutingTap() as tg:
+        l_gpu, g_gpu = loss_and_grads(m, p_gpu, {"tokens": toks.to(dev)})
+    torch.cuda.synchronize()
+    c1 = (RW.wkv6_bhsd.launches, RW.wkv6_bwd.launches, MB.selective_scan.launches,
+          MB.selective_scan_bwd.launches)
+    # the same step on the card with the recurrences' plain versions in
+    # place of their kernels (forward and backward): separates the kernels'
+    # share of the card-CPU distance from the rest of the step's
+    patched = {(RW, "_run"): lambda name, r, k, v, w, u3, s0, so, tr: RW.wkv_ref(
+                   r, k, v, w, u3, s0),
+               (RW, "wkv6_bwd"): RW.wkv_bwd_ref,
+               (MB, "_run"): lambda dt, x, A, Bc, Cc, h0, so: MB.selective_scan_ref(
+                   dt, x, A, Bc, Cc, h0),
+               (MB, "selective_scan_bwd"): MB.selective_scan_bwd_ref}
+    real = {key: getattr(*key) for key in patched}
+    try:
+        for (mod, name), f in patched.items():
+            setattr(mod, name, f)
+        with RoutingTap() as tp:
+            l_pl, g_pl = loss_and_grads(m, p_gpu, {"tokens": toks.to(dev)})
+    finally:
+        for (mod, name), f in real.items():
+            setattr(mod, name, f)
+    with RoutingTap() as tc:
+        l_cpu, g_cpu = loss_and_grads(m, p_cpu, {"tokens": toks})
+    g_pl = {k: v.cpu() for k, v in g_pl.items()}
+    mism = routing_mismatches(tc.calls, tg.calls) + routing_mismatches(tc.calls, tp.calls)
+    check(mism == 0, f"{cfg.name} grads card vs CPU: {mism} MoE calls routed otherwise")
+
+    def by_leaf(got, want):
+        rel = {k: float((got[k].detach().cpu() - w.cpu()).abs().max())
+               / (float(w.abs().max()) or 1.0) for k, w in want.items()}
+        return dict(sorted(rel.items(), key=lambda kv: -kv[1])[:6])
+
+    fam = "rwkv" if any(sp.mixer == "rwkv" for sp in cfg.pattern) else "mamba"
+    tol = {"loss": SSM_CHECK_TOL["loss"], "grad": SSM_CHECK_TOL["grad"][fam],
+           "kernels_vs_plain_on_card": SSM_CHECK_TOL["kernels_vs_plain_on_card"]}
+    d = {"loss": abs(float(l_gpu) - float(l_cpu)) / abs(float(l_cpu)),
+         "grad": leaf_rel(g_gpu, g_cpu), "kernels_vs_plain_on_card": leaf_rel(g_gpu, g_pl)}
+    worst = {"card_vs_cpu": by_leaf(g_gpu, g_cpu),
+             "card_kernels_vs_card_plain": by_leaf(g_gpu, g_pl),
+             "card_plain_vs_cpu": by_leaf(g_pl, g_cpu),
+             "loss_card_plain_vs_cpu": abs(float(l_pl) - float(l_cpu)) / abs(float(l_cpu))}
+    del g_pl
+    late = [(v <= tol[k], f"{cfg.name} card vs CPU: {k} off by {v} > {tol[k]}")
+            for k, v in d.items()]
+    launches = dict(zip(("wkv6_bhsd", "wkv6_bwd", "selective_scan", "selective_scan_bwd"),
+                        (b - a for a, b in zip(c0, c1))))
+    n_rwkv = sum(s.mixer == "rwkv" for s in cfg.pattern) * cfg.n_repeats
+    n_mamba = sum(s.mixer == "mamba" for s in cfg.pattern) * cfg.n_repeats
+    want = {"wkv6_bhsd": n_rwkv, "wkv6_bwd": n_rwkv, "selective_scan": n_mamba,
+            "selective_scan_bwd": n_mamba}
+    check(launches == want, f"{cfg.name} card step launches {launches}, wanted {want}")
+    return {"arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "params": cfg.param_count(), "batch": [B, S], "compute": "float32",
+            "loss": float(l_gpu), "rel_diff": d, "tol": tol, "launches": launches,
+            "worst_leaves": worst, "moe_calls": len(tc.calls),
+            "routing_mismatched_calls": mism, "leaves": len(g_cpu), "late_checks": late}
+
+
+def train_state_bytes(cfg) -> int:
+    """Bytes of ``cfg``'s training state: the parameters in their dtype and
+    the AdamW moments (two f32, or two int8 with an f32 scale a block of
+    256)."""
+    n = cfg.param_count()
+    moments = 2 * n * 4 if cfg.optimizer != "adamw8bit" else 2 * (n + n // 256 * 4)
+    return n * (4 if cfg.param_dtype == "float32" else 2) + moments
+
+
+def ssm_train_run(cfg, dev, steps: int, mtbf: float, sim_step_s: float) -> dict:
+    """``train()`` on ``cfg`` at full width, fault-free (no checkpoint) and
+    faulted (paper-accurate predictor, int8 store behind the buddy memory
+    tier, every second restore of a checkpoint from the disk; faults of
+    mean ``mtbf`` on the executor's clock of ``sim_step_s`` a step), under
+    ``torch.use_deterministic_algorithms``; each run's kernel launches
+    (counters reset just before it and read just after), peak memory and
+    the records ``train()`` returns."""
+    import gc
+
+    import torch
+    from repro_torch.kernels import ckpt_codec as CK
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import mamba as MB
+    from repro_torch.kernels import rwkv6 as RW
+    from repro_torch.launch.train import train
+    from repro_torch.models import RuntimeFlags
+
+    wrappers = {"wkv6_bhsd": RW.wkv6_bhsd, "wkv6_bwd": RW.wkv6_bwd,
+                "selective_scan": MB.selective_scan, "selective_scan_bwd": MB.selective_scan_bwd,
+                "quantize_blocks": CK.quantize_blocks, "dequantize_blocks": CK.dequantize_blocks,
+                "flash_attention_bhsd": FA.flash_attention_bhsd}
+    kw = dict(steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR, seed=SSM_TRAIN_SEED,
+              codec="int8", memory_tier=True, correlated_every=TRAIN_CORRELATED_EVERY,
+              predictor="paper-accurate", strategy="auto", sim_step_s=sim_step_s,
+              flags=RuntimeFlags(dense_attn_max=512), device=dev, log=lambda s: None)
+    runs = {}
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name, inject in (("fault_free", False), ("faulted", True)):
+            m = mtbf if inject else 1e9
+            for w in wrappers.values():
+                w.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.monotonic()
+            r = train(cfg, inject_faults=inject, fault_mtbf=m, **kw)
+            torch.cuda.synchronize()
+            r["seconds"] = time.monotonic() - t0
+            r["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+            r["launches"] = {k: w.launches for k, w in wrappers.items()}
+            r["mtbf"] = m
+            runs[name] = r
+            # the run's executor and its restore tiers' closures form a cycle
+            # that holds its training state (~20 GB) until a collection
+            gc.collect()
+            torch.cuda.empty_cache()
+            emit("ssm_train_run", arch=cfg.name, run=name, seconds=r["seconds"],
+                 wall_s=r["wall_s"], clock_s=r["clock_s"], steps_run=len(r["step_s"]),
+                 step_ms=[t * 1e3 for _, t in r["step_s"]], mtbf=m,
+                 saves=r["saves"], restores=r["restores"], peak_bytes=r["peak_bytes"],
+                 allocated_after=torch.cuda.memory_allocated(dev), launches=r["launches"])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return runs
+
+
+def summarize_train(cfg, runs: dict, steps: int) -> tuple:
+    """The phase-51 record of one family and its checks, ``(ok, message)``
+    pairs: every step's loss finite, the faulted run's faults restored, one
+    of them from the memory tier and one from the disk, its
+    losses bit-equal to the fault-free run's up to the first disk restore
+    and the last within TRAIN_LOSS_RTOL, the recurrence kernels launched
+    forward and backward, no flash launch, peak memory under
+    SSM_PEAK_LIMIT."""
+    import statistics
+
+    from repro_torch.core.waste import waste_exact
+
+    clean, hit = runs["fault_free"], runs["faulted"]
+    rep, last, tokens = hit["report"], steps - 1, TRAIN_BATCH * TRAIN_SEQ
+    mtbf = hit["mtbf"]
+    checks = []
+    disk = [e for e in hit["restores"] if e["tier"] == "disk"]
+    first_disk = min((e["step"] for e in disk), default=steps)
+    unequal = [k for k in range(first_disk) if hit["losses"].get(k) != clean["losses"].get(k)]
+    rel_last = abs(hit["losses"][last] - clean["losses"][last]) / abs(clean["losses"][last])
+    rec = "rwkv" if any(s.mixer == "rwkv" for s in cfg.pattern) else "jamba"
+    fwd, bwd = (("wkv6_bhsd", "wkv6_bwd") if rec == "rwkv"
+                else ("selective_scan", "selective_scan_bwd"))
+    summary = {}
+    for name, r in runs.items():
+        rp = r["report"]
+        ls = r["losses"]
+        what = f"ssm_train/{cfg.name}/{name}"
+        n_run = len(r["step_s"])
+        checks += [(sorted(ls) == list(range(steps)), f"{what}: steps {sorted(ls)}"),
+                   (all(math.isfinite(v) for v in ls.values()), f"{what}: non-finite loss"),
+                   (r["launches"]["flash_attention_bhsd"] == 0,
+                    f"{what}: the flash kernel ran in training"),
+                   (r["peak_bytes"] <= SSM_PEAK_LIMIT, f"{what}: peak {r['peak_bytes']} bytes")]
+        checks += [(r["launches"][k] >= n_run,
+                    f"{what}: {k} launched {r['launches'][k]} times in {n_run} steps")
+                   for k in (fwd, bwd)]
+        step_ms = statistics.median(s for _, s in r["step_s"]) * 1e3
+        r_meas = rp.ledger.recovery / rp.n_restores if rp.n_restores else 0.0
+        rc, pc = (0.85, 0.82) if name == "faulted" else (0.0, 1.0)
+        summary[name] = {
+            "seconds": r["seconds"], "wall_s": r["wall_s"], "clock_s": r["clock_s"],
+            "step_ms_median": step_ms,
+            "step_ms_min": min(s for _, s in r["step_s"]) * 1e3, "steps_run": n_run,
+            "tokens_per_s_step": tokens / step_ms * 1e3,
+            "tokens_per_s_wall": steps * tokens / r["wall_s"],
+            "losses": [ls[k] for k in range(steps)], "saves": r["saves"],
+            "c_estimate": rp.c_estimate, "period_T": rp.period_T, "q": rp.q,
+            "counts": {"periodic": rp.n_periodic, "proactive": rp.n_proactive,
+                       "faults": rp.n_faults, "restores": rp.n_restores},
+            "restores": r["restores"], "ledger": rp.ledger.as_dict(),
+            "analytic_waste": rp.analytic_waste, "mtbf": r["mtbf"],
+            "waste_exact_own": (float(waste_exact(rp.period_T, rp.q, rp.c_estimate, 0.2,
+                                                  r_meas, mtbf, rc, pc))
+                                if name == "faulted" else None),
+            "launches": r["launches"],
+            "launches_per_step_run": {k: r["launches"][k] / max(n_run, 1) for k in (fwd, bwd)},
+            "peak_bytes": r["peak_bytes"],
+        }
+    tiers = [e["tier"] for e in hit["restores"]]
+    checks += [(rep.n_faults >= 2 and rep.n_restores == rep.n_faults,
+                f"ssm_train/{cfg.name}: {rep.n_faults} faults, {rep.n_restores} restores"),
+               ("memory" in tiers and "disk" in tiers,
+                f"ssm_train/{cfg.name}: restores from {tiers}, wanted memory and disk"),
+               (not unequal, f"ssm_train/{cfg.name}: steps {unequal} differ from the "
+                "fault-free run before any disk restore"),
+               (rel_last <= SSM_LOSS_RTOL[rec], f"ssm_train/{cfg.name}: last loss "
+                f"{hit['losses'][last]} vs {clean['losses'][last]} (rel {rel_last})")]
+    return {"arch": cfg.name, "layers": cfg.num_layers,
+            "pattern": [[s.mixer, s.mlp] for s in cfg.pattern],
+            "experts": cfg.moe.num_experts if cfg.moe else None, "params": cfg.param_count(),
+            "param_dtype": cfg.param_dtype, "optimizer": cfg.optimizer, "compute": "bfloat16",
+            "batch": [TRAIN_BATCH, TRAIN_SEQ], "steps": steps, "mtbf": mtbf,
+            "seed": SSM_TRAIN_SEED, "sim_step_s": SSM_TRAIN[rec]["sim_step_s"],
+            "fault_times": [t for t in hit["fault_times"] if t <= hit["clock_s"]],
+            "runs": summary, "bit_equal_steps": first_disk - len(unequal),
+            "first_disk_restore_step": first_disk, "last_loss_rel_diff": rel_last,
+            "state_bytes": train_state_bytes(cfg), "tol": SSM_LOSS_RTOL[rec]}, checks
+
+
+def remat_check(cfg, dev) -> dict:
+    """Phase 52: one step's loss and gradients of ``cfg`` (bf16 compute,
+    8 x 1024 tokens) under remat "none", "full" and "dots", bit-equal
+    across the three (deterministic algorithms); each policy's step ms
+    (CUDA events, median of 2 after a warm-up) and its peak memory above
+    what was resident before the step."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import rwkv6 as RW
+    from repro_torch.models import LanguageModel, RuntimeFlags
+
+    toks = torch.from_numpy(np.random.default_rng(TRAIN_SEED).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)).to(dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(TRAIN_SEED)
+    params = LanguageModel(cfg).init(g)
+    out, want = {}, None
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        for pol in ("none", "full", "dots"):
+            m = LanguageModel(cfg, RuntimeFlags(remat_policy=pol, dense_attn_max=512))
+            loss_and_grads(m, params, {"tokens": toks})
+            ms = []
+            for i in range(2):
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                f0 = RW.wkv6_bhsd.launches
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                loss, grads = loss_and_grads(m, params, {"tokens": toks})
+                b.record()
+                torch.cuda.synchronize()
+                ms.append(a.elapsed_time(b))
+                peak = torch.cuda.max_memory_allocated(dev) - base
+                fwd = RW.wkv6_bhsd.launches - f0
+                if i == 0:
+                    continue
+                if want is None:
+                    want = (loss, grads)
+                    same = True
+                else:
+                    same = bool(torch.equal(loss, want[0])) and all(
+                        torch.equal(v, want[1][k]) for k, v in grads.items())
+                    check(same, f"remat {pol}: loss or gradients differ from remat none")
+                del grads
+            out[pol] = {"step_ms": statistics.median(ms), "peak_bytes_above_resident": peak,
+                        "wkv_forward_launches": fwd, "loss": float(loss),
+                        "bit_equal_to_none": same}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del want, params
+    return out
+
+
+def ssm_train_phases(dev, kernels: list) -> None:
+    """Phases 49-52: the WKV and scan backward kernels against their plain
+    versions, timed; RWKV6 and Jamba loss and gradients card against CPU;
+    ``train()`` on RWKV6-7B and Jamba-1.5-Large at full width under faults;
+    remat on the RWKV6 cut.  Appends the two backward kernels' entries to
+    ``kernels`` and adds the training path's launches to the WKV, scan and
+    codec entries."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.kernels import mamba as MB
+    from repro_torch.kernels import rwkv6 as RW
+
+    rwkv, jamba = get(RWKV), get(JAMBA)
+    H, hd = rwkv.rwkv_heads, rwkv.ssm.rwkv_head_dim
+    din, ds = jamba.d_inner, jamba.ssm.d_state
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+
+    # ---- 49. the backward kernels against their plain versions --------- #
+    t0 = time.monotonic()
+    entries = {}
+    for kname, names, exact, case_fn, fn, ref, cases, bound_fn in (
+        ("wkv6_bwd", WKV_BWD_NAMES, "ds0", wkv_bwd_case, RW.wkv6_bwd, RW.wkv_bwd_ref, (
+            ("train", B, S, H, hd, False, False), ("s1_s0", 2, 1, H, hd, True, True),
+            ("s37_s0", 2, 37, 8, hd, True, True), ("s333", 2, 333, 4, hd, True, False),
+            ("hd16_s37", 2, 37, 4, 16, True, True)), wkv_bwd_bound),
+        ("selective_scan_bwd", SCAN_BWD_NAMES, "dh0", scan_bwd_case, MB.selective_scan_bwd,
+         MB.selective_scan_bwd_ref, (
+            ("train", B, S, din, ds, False, False), ("s1_h0", 2, 1, 4096, ds, True, True),
+            ("s37_h0", 2, 37, 4096, ds, True, True), ("s333", 2, 333, 2048, ds, True, False),
+            ("ds8", 2, 100, 2048, 8, True, True)), scan_bwd_bound),
+    ):
+        rows, errs = [], {}
+        for i, (case, *shape, with_0, with_T) in enumerate(cases):
+            x = case_fn(*shape, BWD_SEED + i, dev, with_0, with_T)
+            n0 = fn.launches
+            got = fn(*x)
+            check(fn.launches == n0 + 1, f"{kname}/{case}: {fn.launches - n0} launches")
+            e = bwd_close(got, ref(*x), names, exact, f"{kname}/{case}")
+            for k, v in e.items():
+                errs[k] = max(errs.get(k, 0.0), v)
+            row = {"case": case, "shape": shape, "initial_state": with_0,
+                   "final_state_grad": with_T, "max_abs_err": e}
+            if case == "train":
+                again = fn(*x)
+                torch.cuda.synchronize()
+                same = all((a is None and b is None) or bool(torch.equal(a, b))
+                           for a, b in zip(got, again))
+                check(same, f"{kname}/train: a second call gave other bits")
+                row["bits_sha256"] = bits_digest(got)
+                del again
+                ms, _ = device_ms([lambda x=x: fn(*x)])
+                pms, _ = device_ms([lambda x=x: ref(*x)], samples=1)
+                timing = {"ms": ms, "plain_ms": pms, **bound_fn(*shape, with_0)}
+                row.update(timing, repeat_bit_equal=same)
+            rows.append(row)
+            del x, got
+            torch.cuda.empty_cache()
+        entries[kname] = {"rows": rows, "errs": errs, "timing": timing}
+    emit("ssm_bwd_check", seconds=time.monotonic() - t0,
+         **{k: v["rows"] for k, v in entries.items()}, tol=BWD_TOL,
+         note="each backward kernel against its plain version on the card: ds0 / dh0 bit "
+              "for bit, the reduced gradients within tol of their max; train: RWKV6-7B's "
+              "8 x 1024 x 64 heads x 64 and Jamba's 8 x 1024 x 16384 x ds 16 from a zero "
+              "state, timed (device_ms: a CUDA graph of the call, median of replays; the "
+              "plain version's graph of its per-token loop), bits_sha256 of its outputs for "
+              "comparing runs; no single PyTorch call computes either backward",
+         nvidia_smi=smi_line())
+
+    # ---- 50. loss and gradients, card against CPU ---------------------- #
+    t0 = time.monotonic()
+    r1 = ssm_grads_card_vs_cpu(dataclasses.replace(rwkv, num_layers=1), dev)
+    torch.cuda.empty_cache()
+    width = dataclasses.replace(jamba, num_layers=JAMBA_LAYERS, d_model=1024, num_heads=8,
+                                num_kv_heads=1, d_ff=2048, param_dtype="float32")
+    j1 = ssm_grads_card_vs_cpu(width, dev)
+    torch.cuda.empty_cache()
+    late = r1.pop("late_checks") + j1.pop("late_checks")
+    emit("ssm_train_card_vs_cpu", seconds=time.monotonic() - t0, rwkv=r1, jamba_width=j1)
+
+    # ---- 51. train() on both cuts under faults ------------------------- #
+    cuts = {
+        "rwkv": dataclasses.replace(rwkv, num_layers=RWKV_TRAIN_LAYERS),
+        "jamba": dataclasses.replace(jamba, num_layers=2, pattern=jamba.pattern[:2],
+                                     moe=dataclasses.replace(jamba.moe,
+                                                             num_experts=JAMBA_TRAIN_EXPERTS)),
+    }
+    path = {}
+    for fam, cfg in cuts.items():
+        t0 = time.monotonic()
+        kw = SSM_TRAIN[fam]
+        runs = ssm_train_run(cfg, dev, kw["steps"], kw["mtbf"], kw["sim_step_s"])
+        rec, checks = summarize_train(cfg, runs, kw["steps"])
+        del runs
+        gc.collect()
+        torch.cuda.empty_cache()
+        fw, bw = (RW.wkv6_bhsd, RW.wkv6_bwd) if fam == "rwkv" else (MB.selective_scan,
+                                                                    MB.selective_scan_bwd)
+        rec["step_split"] = train_step_split(
+            cfg, dev, {fw.__name__: lambda fw=fw: fw.launches,
+                       bw.__name__: lambda bw=bw: bw.launches}, phase="ssm_train_split")
+        torch.cuda.empty_cache()
+        path[fam] = rec
+        emit("ssm_train_path", seconds=time.monotonic() - t0, family=fam, **rec,
+             nvidia_smi=smi_line(),
+             compared="losses before the first disk restore bit-equal to the fault-free "
+                      "run's (torch.use_deterministic_algorithms); the last step's within "
+                      "tol (int8 disk restore)")
+        for ok, msg in checks:
+            check(ok, msg)
+
+    # ---- 52. remat on the RWKV6 cut ------------------------------------ #
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    remat = remat_check(cuts["rwkv"], dev)
+    torch.cuda.empty_cache()
+    emit("ssm_remat", seconds=time.monotonic() - t0, arch=cuts["rwkv"].name,
+         layers=RWKV_TRAIN_LAYERS, batch=[B, S], compute="bfloat16", policies=remat,
+         note="one step's loss and every gradient leaf bit-equal across the policies; peak: "
+              "max_memory_allocated over what was resident before the step")
+
+    for ok, msg in late:  # phase 50's bounds, held after phases 51-52 have run
+        check(ok, msg)
+    faulted = {fam: path[fam]["runs"]["faulted"]["launches"] for fam in path}
+    for k in kernels:
+        if k["name"] in ("wkv6_bhsd", "quantize_blocks", "dequantize_blocks",
+                         "selective_scan"):
+            k["ssm_train_path_launches"] = {fam: faulted[fam][k["name"]] for fam in faulted}
+    for kname, fam, source, replaces in (
+        ("wkv6_bwd", "rwkv", WKV_BWD_SOURCE, WKV_BWD_REPLACES),
+        ("selective_scan_bwd", "jamba", SCAN_BWD_SOURCE, SCAN_BWD_REPLACES),
+    ):
+        tm = entries[kname]["timing"]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": faulted[fam][kname],
+            "max_abs_err": max(entries[kname]["errs"].values()),
+            "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
+            "bound_by": tm["bound_by"], "library_ms": None,
+            "max_abs_err_by_gradient": entries[kname]["errs"],
+            "fault_free_launches": path[fam]["runs"]["fault_free"]["launches"][kname],
+            "note": "no TPU kernel: the backward of the reference's lax.scan (jax.grad); "
+                    "launches: the faulted training run of phase 51 (replays included)",
+        })
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -4949,11 +5629,12 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--campaign-fault"]:
         return campaign_fault_child(sys.argv[2], sys.argv[3])
-    # "--only train" / "--only families" / "--only hybrid": the environment,
-    # the build and phases 38-40 / 41-44 / 45-48 alone
+    # "--only train" / "--only families" / "--only hybrid" / "--only
+    # ssm_train": the environment, the build and phases 38-40 / 41-44 /
+    # 45-48 / 49-52 alone
     only = sys.argv[2] if sys.argv[1:2] == ["--only"] and len(sys.argv) > 2 else None
-    if only not in (None, "train", "families", "hybrid"):
-        print(f"chip_smoke: --only takes train, families or hybrid, not {only!r}",
+    if only not in (None, "train", "families", "hybrid", "ssm_train"):
+        print(f"chip_smoke: --only takes train, families, hybrid or ssm_train, not {only!r}",
               file=sys.stderr)
         return 2
     t_script = time.monotonic()
@@ -4986,9 +5667,11 @@ def main() -> int:
     regs = ptxas_report(logs.get("sim_step", ""))
     wkv_regs = ptxas_kernels(logs.get("rwkv6", ""), r"(wkv6_(?:chunk|token)_kernel)")
     scan_regs = ptxas_kernels(logs.get("mamba_scan", ""), r"(selective_scan_kernel)")
+    bwd_regs = {**ptxas_kernels(logs.get("rwkv6_bwd", ""), r"(wkv6_bwd_\w+_kernel)"),
+                **ptxas_kernels(logs.get("mamba_scan_bwd", ""), r"(scan_bwd_\w+_kernel)")}
     emit("build", seconds=time.monotonic() - t0, built=sorted(logs),
          ptxas=ptxas, sim_step_registers=regs, wkv6_registers=wkv_regs,
-         selective_scan_registers=scan_regs)
+         selective_scan_registers=scan_regs, backward_registers=bwd_regs)
 
     from repro_torch.kernels import sim_step as K
 
@@ -5002,6 +5685,10 @@ def main() -> int:
         return 0
     if only == "hybrid":
         hybrid_phases(dev, [], scan_regs)
+        emit("total", seconds=time.monotonic() - t_script)
+        return 0
+    if only == "ssm_train":
+        ssm_train_phases(dev, [])
         emit("total", seconds=time.monotonic() - t_script)
         return 0
 
@@ -5195,6 +5882,10 @@ def main() -> int:
     t0 = time.monotonic()
     hybrid_phases(dev, kernels, scan_regs)
     emit("hybrid_phases", seconds=time.monotonic() - t0)
+    torch.cuda.empty_cache()  # the training cuts need the card's memory
+    t0 = time.monotonic()
+    ssm_train_phases(dev, kernels)
+    emit("ssm_train_phases", seconds=time.monotonic() - t0)
     emit("total", seconds=time.monotonic() - t_script)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

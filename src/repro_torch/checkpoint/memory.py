@@ -32,10 +32,16 @@ class BuddyMemoryCheckpoint:
         return (rank + 1) % self.n_nodes
 
     def save(self, step: int, tree, rank: int = 0) -> float:
-        """Snapshot to own RAM and replicate to the buddy.  Returns seconds."""
+        """Snapshot to own RAM and replicate to the buddy.  Returns seconds.
+        The rank's previous snapshot and its replica stay until the new
+        snapshot is in host memory, as the reference's do, so a failed copy
+        leaves them restorable; the old replica is dropped before the new
+        one is cloned, so host memory holds at most three copies of a
+        training state of tens of GB, as the reference's does."""
         t0 = time.monotonic()
         host = map_with_keys(lambda _, x: _tensor(x).to("cpu", copy=True), tree)
         self._own[rank] = (step, host)
+        self._buddy.pop(self.buddy_of(rank), None)
         self._buddy[self.buddy_of(rank)] = (step, map_with_keys(lambda _, x: x.clone(), host))
         return time.monotonic() - t0
 

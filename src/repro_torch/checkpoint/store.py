@@ -34,8 +34,16 @@ arrays are taken too).  Leaf keys follow ``jax.tree_util``: dict keys
 sorted, sequence entries by index, a NamedTuple's fields as ``.<name>``
 (the AdamW state's ``opt/.step``, ``opt/.moments/...``), joined with
 ``/``; ``None`` holds no leaf.
-bfloat16 leaves are refused: numpy, which writes the files, has no such
-type.
+
+**bfloat16 leaves** (Jamba's parameters) are stored raw under every codec,
+as the reference's codec takes only f32 / f16.  numpy has no bfloat16, so
+the leaf is copied to the host as its int16 bit pattern and written with
+the header the reference's ``np.save`` of an ``ml_dtypes`` bfloat16 array
+writes (``'descr': '<V2'``): the same bytes, the same crc and the manifest
+dtype ``"bfloat16"``.  A restore reads the two-byte records back as
+bfloat16 by the manifest's dtype.  The reference's own restore cannot read
+such a file into a target (its ``astype`` has no cast from ``V2``); the
+port's reads the reference's files and its own.
 """
 
 from __future__ import annotations
@@ -107,22 +115,51 @@ def _tensor(x) -> torch.Tensor:
     return x.detach() if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
 
 
+_BF16 = "bfloat16"
+#: the ``.npy`` header field of a bfloat16 leaf, as ``np.save`` writes it
+#: for an ``ml_dtypes`` bfloat16 array
+_BF16_DESCR = "<V2"
+
+
 def _np_dtype_name(dtype: torch.dtype) -> str:
-    """numpy's name of a torch dtype (``"float32"``), as the manifest
-    records it."""
+    """numpy's name of a torch dtype (``"float32"``; ``"bfloat16"``, the
+    name ``ml_dtypes`` gives it), as the manifest records it."""
     if dtype == torch.bfloat16:
-        raise TypeError("bfloat16 leaves are not supported: the file format "
-                        "is numpy's, which has no bfloat16")
+        return _BF16
     return str(torch.empty(0, dtype=dtype).numpy().dtype)
 
 
 def _torch_dtype(name: str) -> torch.dtype:
+    if name == _BF16:
+        return torch.bfloat16
     return torch.from_numpy(np.empty(0, dtype=name)).dtype
 
 
 def _host_copy(x: torch.Tensor) -> np.ndarray:
-    """A C-ordered host copy of a leaf."""
+    """A C-ordered host copy of a leaf (a bfloat16 leaf's int16 bits)."""
+    if x.dtype == torch.bfloat16:
+        x = x.view(torch.int16)
     return x.to("cpu", copy=True, memory_format=torch.contiguous_format).numpy()
+
+
+def _save_npy(f, a: np.ndarray, dtype: str) -> None:
+    """``np.save`` of a payload; a bfloat16 leaf's int16 bits under the
+    reference's ``'<V2'`` header."""
+    if dtype != _BF16:
+        np.save(f, a, allow_pickle=False)
+        return
+    np.lib.format.write_array_header_1_0(
+        f, {"descr": _BF16_DESCR, "fortran_order": False, "shape": a.shape})
+    f.write(np.ascontiguousarray(a).reshape(-1).view(np.uint8).data)
+
+
+def _from_payload(payload: np.ndarray, dtype: str) -> torch.Tensor:
+    """A raw payload as a CPU tensor: two-byte records (the reference's
+    ``V2`` or the port's int16 bits) as bfloat16 when the manifest says
+    so."""
+    if dtype == _BF16:
+        return torch.from_numpy(np.ascontiguousarray(payload).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(payload)
 
 
 def _crc(a: np.ndarray) -> int:
@@ -165,7 +202,7 @@ def decode_leaf(payload: np.ndarray, meta: Dict, prev=None, device="cuda") -> to
     :func:`repro_torch.checkpoint.codec.decode_array` there (by the kernel
     on the card), or the raw array moved there."""
     if meta["codec"] == "raw":
-        return torch.from_numpy(payload).to(device)
+        return _from_payload(payload, meta["dtype"]).to(device)
     nb = meta["nblocks"]
     qn = nb * BLOCK
     q = torch.from_numpy(payload[:qn].view(np.int8)).to(device).view(nb, BLOCK)
@@ -235,6 +272,8 @@ class Snapshot:
 class CheckpointStore:
     root: str
     codec: str = "raw"  # raw | int8 | int8_delta
+    #: leaf keys it accepts are stored raw under every codec
+    raw_keys: Optional[Callable[[str], bool]] = None
 
     def _dir(self, step: int) -> str:
         return os.path.join(self.root, f"step_{step:09d}")
@@ -251,7 +290,9 @@ class CheckpointStore:
         for key, leaf in flatten_with_keys(tree).items():
             x = _tensor(leaf)
             raw_bytes += x.numel() * x.element_size()
-            if self.codec != "raw" and x.dtype in _CODEC_DTYPES and x.numel() >= _CODEC_MIN_SIZE:
+            if (self.codec != "raw" and x.dtype in _CODEC_DTYPES
+                    and x.numel() >= _CODEC_MIN_SIZE
+                    and not (self.raw_keys is not None and self.raw_keys(key))):
                 prev = prev_flat.get(key) if self.codec == "int8_delta" else None
                 leaves[key] = encode_leaf(x, prev)
             else:
@@ -273,7 +314,7 @@ class CheckpointStore:
             fname = key.replace("/", "__") + ".npy"
             _write_durable(
                 os.path.join(tmp, fname),
-                lambda f, a=arr: np.save(f, a, allow_pickle=False),
+                lambda f, a=arr, dt=meta["dtype"]: _save_npy(f, a, dt),
             )
             manifest["leaves"][key] = dict(meta, crc=_crc(arr))
             stored_bytes += arr.nbytes

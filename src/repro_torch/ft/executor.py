@@ -418,6 +418,11 @@ class FaultTolerantExecutor:
                         continue
                     self.restore_events.append({"fault": self.n_faults, "step": cand,
                                                 "tier": ti, "failed_attempts": failed})
+                    # a failed attempt's traceback holds this frame, and the
+                    # frame the tree: drop the error, or the cycle keeps the
+                    # restored state (tens of GB on a card) alive until a
+                    # garbage collection
+                    last_err = None
                     return tree, cand
         if last_err is not None:
             raise last_err

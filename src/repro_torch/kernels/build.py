@@ -6,9 +6,9 @@ in :mod:`repro_torch.kernels.sim_step`,
 :mod:`repro_torch.kernels.ckpt_codec`,
 :mod:`repro_torch.kernels.flash_attention`,
 :mod:`repro_torch.kernels.decode_attention`,
-:mod:`repro_torch.kernels.rwkv6` and :mod:`repro_torch.kernels.mamba` pass
-device pointers and PyTorch's
-current CUDA stream as integers.  Libraries land in ``build/repro_torch/``
+:mod:`repro_torch.kernels.rwkv6` and :mod:`repro_torch.kernels.mamba`
+(each of the last two with a forward and a backward library) pass device
+pointers and PyTorch's current CUDA stream as integers.  Libraries land in ``build/repro_torch/``
 at the repository root, named by a hash of their source and flags, so an
 edited source is rebuilt and an unchanged one is loaded as it is.
 
@@ -134,10 +134,22 @@ _SIGNATURES = {
         # the same, then the tile's rows a thread (0: hd's default)
         "wkv6_fwd_rows": [_P] * 8 + [_I32] * 4 + [_I64] * 23 + [_I32, _P],
     },
+    "rwkv6_bwd": {
+        "wkv6_bwd_chunk": [_I32],
+        # r, k, v, w, u, s0, dy, dsT; dr, dk, dv, dw, du, ds0; three scratch
+        # buffers; B, S, H, hd, u_batched
+        "wkv6_bwd": [_P] * 17 + [_I32] * 5 + [_P],
+    },
     "mamba_scan": {
         # dt, x, A, Bc, Cc, h0, y, hT; B, S, D, ds; (batch, seq) strides of
         # dt, x, Bc, Cc, y
         "selective_scan_fwd": [_P] * 8 + [_I32] * 4 + [_I64] * 10 + [_P],
+    },
+    "mamba_scan_bwd": {
+        "selective_scan_bwd_chunk": [],
+        # dt, x, A, Bc, Cc, h0, dy, dhT; ddt, dx, dA, dB, dC, dh0; three
+        # scratch buffers; B, S, D, ds
+        "selective_scan_bwd": [_P] * 17 + [_I32] * 4 + [_P],
     },
 }
 

@@ -2,19 +2,19 @@
 
 No Pallas kernel of the reference has a VJP (its kernels define no
 ``custom_vjp``), so the reference never differentiates through one: its
-training path takes the dense or chunked attention and the ``lax.scan``
-WKV.  The port's selective-scan kernel (Mamba's ``lax.scan`` in the
-reference, differentiable there) has no backward yet either; its wrapper
-guards only its CUDA launches, since on the CPU it runs the
-differentiable plain version.  On CPU tensors a port wrapper runs its plain version, through which
-autograd would go; on CUDA tensors it launches a ctypes kernel into a
-fresh tensor that has no ``grad_fn``, so a gradient would be cut without
-a word.  :func:`no_backward` makes both cases the same: when an operand
-requires a gradient it runs the wrapper inside a
-:class:`torch.autograd.Function` whose forward is the wrapper itself
-(same launch, same counters, same bits) and whose backward raises.
+training path takes the dense or chunked attention.  The port's
+attention wrappers keep that: on CPU tensors a port wrapper runs its
+plain version, through which autograd would go; on CUDA tensors it
+launches a ctypes kernel into a fresh tensor that has no ``grad_fn``, so
+a gradient would be cut without a word.  :func:`no_backward` makes both
+cases the same: when an operand requires a gradient it runs the wrapper
+inside a :class:`torch.autograd.Function` whose forward is the wrapper
+itself (same launch, same counters, same bits) and whose backward raises.
 Without such an operand, or with grad mode off, it calls the wrapper
-directly, so the serving path pays nothing.
+directly, so the serving path pays nothing.  (The WKV recurrence and the
+selective scan, ``lax.scan``s that the reference differentiates, have
+backward kernels of their own instead: :class:`.rwkv6.WKV`,
+:class:`.mamba.SelectiveScan`.)
 """
 
 from __future__ import annotations
@@ -40,8 +40,7 @@ class NoBackward(torch.autograd.Function):
         raise NotImplementedError(
             f"{ctx.kernel_name} has no backward: the reference's Pallas kernel has no "
             "VJP, so neither has the port's. Train through the plain paths "
-            "(attn_impl 'auto', 'dense' or 'chunked'); RWKV6 training, and Mamba "
-            "training on the card, need backward kernels (ROADMAP.md, queue 1.2)")
+            "(attn_impl 'auto', 'dense' or 'chunked')")
 
 
 def needs_guard(*operands) -> bool:

@@ -22,12 +22,25 @@ any ``S >= 1`` and ``ds`` 8 or 16 (:data:`D_STATES`).
 ``dt A``, its exp, the rounded products ``da h`` and ``(dt x) B``, their
 rounded sum) the kernel repeats bit for bit; ``y`` sums over ``s`` in
 another order there, so the kernel's ``y`` is held to it within a
-tolerance.  A wrapper given CPU tensors runs the plain version, through
-which autograd goes (``loss_fn`` trains a Mamba block on the CPU, as the
-reference differentiates its ``lax.scan``); given CUDA tensors it launches
-the kernel or raises, and the call has no backward (behind
-:class:`.guard.NoBackward`: the kernel has none yet).
+tolerance.  A wrapper given CPU tensors runs the plain version; given
+CUDA tensors it launches the kernel or raises.
 ``selective_scan.launches`` counts the kernel's launches.
+
+**Backward.**  The reference trains through ``jax.grad`` of its
+``lax.scan``.  Given an operand that requires a gradient,
+:func:`selective_scan` runs inside :class:`SelectiveScan`, an autograd
+Function whose forward is the same call (the same launch and bits, or the
+plain version on the CPU) and whose backward is
+:func:`selective_scan_bwd`: the hand-written CUDA kernel
+``csrc/mamba_scan_bwd.cu`` on CUDA tensors, :func:`selective_scan_bwd_ref`
+(the reverse recurrence in torch ops) on CPU ones.  With ``Gc`` the
+gradient reaching a state from the tokens after it, ``G_t = C_t dy_t +
+Gc`` and ``Gc <- exp(dt_t A) G_t``; it gives ``ddt``, ``dx``, ``dA``
+(summed over the batch and the sequence), ``dB``, ``dC`` (summed over the
+channels) and ``dh0``; the states are recomputed forwards, never
+recovered by dividing by ``exp(dt A)``.  The Function saves its inputs
+only.  ``selective_scan_bwd.launches`` counts the backward's launches
+(one a call, three device kernels).
 """
 
 from __future__ import annotations
@@ -38,13 +51,17 @@ import numpy as np
 import torch
 
 from .flash_attention import _check_device
-from .guard import NoBackward, needs_guard
+from .guard import needs_guard
 from .sim_step import _raise_on, _stream_ptr
 
-__all__ = ["D_STATES", "selective_scan_ref", "selective_scan", "sample_scan_inputs"]
+__all__ = ["D_STATES", "selective_scan_ref", "selective_scan", "selective_scan_bwd_ref",
+           "selective_scan_bwd", "SelectiveScan", "sample_scan_inputs"]
 
 #: state sizes the kernel is built for (Jamba's 16, ``reduced()``'s 8)
 D_STATES = (8, 16)
+#: channels a block of ``csrc/mamba_scan_bwd.cu`` (its ``kThreads``): one
+#: partial of dB and dC a block
+_BWD_CHANNELS = 128
 
 
 def selective_scan_ref(dt: torch.Tensor, x: torch.Tensor, A: torch.Tensor,
@@ -62,6 +79,42 @@ def selective_scan_ref(dt: torch.Tensor, x: torch.Tensor, A: torch.Tensor,
         h = da * h + (dti * x[:, t])[..., None] * Bc[:, t, None, :]
         ys.append(torch.einsum("bds,bs->bd", h, Cc[:, t]))
     return torch.stack(ys, dim=1), h
+
+
+def selective_scan_bwd_ref(dt: torch.Tensor, x: torch.Tensor, A: torch.Tensor,
+                           Bc: torch.Tensor, Cc: torch.Tensor, h0: Optional[torch.Tensor],
+                           dy: torch.Tensor, dhT: Optional[torch.Tensor] = None):
+    """Plain backward: the inputs of :func:`selective_scan_ref`, ``dy``
+    ``(B, S, din)`` and the final state's gradient ``dhT`` (zeros if None)
+    -> ``(ddt, dx, dA, dB, dC, dh0)``, f32 (``dh0`` None when ``h0`` is).
+    The states are run forwards and kept; the gradient runs backwards,
+    each product and sum a torch op of its own, as the kernel rounds
+    them."""
+    B, S, din = x.shape
+    h = x.new_zeros((B, din, A.shape[1])) if h0 is None else h0
+    hs = [h]
+    for t in range(S):
+        dti = dt[:, t]
+        h = torch.exp(dti[..., None] * A) * h + (dti * x[:, t])[..., None] * Bc[:, t, None, :]
+        hs.append(h)
+    Gc = torch.zeros_like(h) if dhT is None else dhT
+    ddt, dx = torch.empty_like(x), torch.empty_like(x)
+    dB, dC = torch.empty_like(Bc), torch.empty_like(Cc)
+    dA = torch.zeros_like(A)
+    for t in reversed(range(S)):
+        dti, xi, dyi = dt[:, t], x[:, t], dy[:, t]
+        G = Cc[:, t, None, :] * dyi[..., None] + Gc
+        u = dti * xi
+        dC[:, t] = torch.einsum("bd,bds->bs", dyi, hs[t + 1])
+        dB[:, t] = torch.einsum("bds,bd->bs", G, u)
+        du = (G * Bc[:, t, None, :]).sum(-1)
+        da = torch.exp(dti[..., None] * A)
+        gz = G * hs[t] * da
+        ddt[:, t] = du * xi + (gz * A).sum(-1)
+        dx[:, t] = du * dti
+        dA = dA + (gz * dti[..., None]).sum(0)
+        Gc = da * G
+    return ddt, dx, dA, dB, dC, (None if h0 is None else Gc)
 
 
 def _check(dt, x, A, Bc, Cc, h0, state_out):
@@ -136,25 +189,99 @@ def selective_scan(dt: torch.Tensor, x: torch.Tensor, A: torch.Tensor, Bc: torch
     card) -> ``(y, h_final)``: a fresh ``(B, S, din)`` f32 and the final
     state, written into ``state_out`` when given (which may be ``h0``).
 
-    CUDA tensors launch the kernel (given an operand that requires a
-    gradient, the call has no backward and the final state goes to a fresh
-    tensor, copied into ``state_out``); CPU tensors run
-    :func:`selective_scan_ref`, differentiable."""
+    CUDA tensors launch the kernel; CPU tensors run
+    :func:`selective_scan_ref`.  Given an operand that requires a gradient
+    the call runs inside :class:`SelectiveScan` (backward:
+    :func:`selective_scan_bwd`); the final state then goes to a fresh
+    tensor, copied into ``state_out``."""
     dev = _check(dt, x, A, Bc, Cc, h0, state_out)
+    if needs_guard(dt, x, A, Bc, Cc, h0):
+        y, h = SelectiveScan.apply(dt, x, A, Bc, Cc, h0)
+        if state_out is not None:
+            with torch.no_grad():
+                state_out.copy_(h)
+        return y, h
     if dev.type == "cpu":
         y, h = selective_scan_ref(dt, x, A, Bc, Cc, h0)
-        if state_out is None:
-            return y, h
-        with torch.no_grad():
-            state_out.copy_(h)
-        return y, (h if h.requires_grad else state_out)
-    if not needs_guard(dt, x, A, Bc, Cc, h0):
-        return _run(dt, x, A, Bc, Cc, h0, state_out)
-    y, h = NoBackward.apply("selective_scan", _run, {}, dt, x, A, Bc, Cc, h0, None)
-    return y, (h if state_out is None else state_out.copy_(h))
+        return y, (h if state_out is None else state_out.copy_(h))
+    return _run(dt, x, A, Bc, Cc, h0, state_out)
 
 
 selective_scan.launches = 0
+
+
+class SelectiveScan(torch.autograd.Function):
+    """``apply(dt, x, A, Bc, Cc, h0) -> (y, h_final)``: forward
+    :func:`selective_scan`'s launch (or plain version) into fresh tensors;
+    backward :func:`selective_scan_bwd` on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, dt, x, A, Bc, Cc, h0):
+        if x.device.type == "cpu":
+            y, h = selective_scan_ref(dt, x, A, Bc, Cc, h0)
+        else:
+            y, h = _run(dt, x, A, Bc, Cc, h0, None)
+        ctx.save_for_backward(dt, x, A, Bc, Cc, h0)
+        ctx.set_materialize_grads(False)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dhT):
+        dt, x, A, Bc, Cc, h0 = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        dhT = None if dhT is None else dhT.contiguous()  # autograd may hand expanded grads
+        return selective_scan_bwd(dt, x, A, Bc, Cc, h0, dy, dhT)
+
+
+def selective_scan_bwd(dt: torch.Tensor, x: torch.Tensor, A: torch.Tensor, Bc: torch.Tensor,
+                       Cc: torch.Tensor, h0: Optional[torch.Tensor], dy: torch.Tensor,
+                       dhT: Optional[torch.Tensor] = None):
+    """The scan's backward: the forward's inputs, ``dy`` ``(B, S, din)``
+    and ``dhT`` (None: zeros), f32 -> ``(ddt, dx, dA, dB, dC, dh0)``
+    (``dh0`` None when ``h0`` is).  CUDA tensors launch
+    ``csrc/mamba_scan_bwd.cu`` (one call, three device kernels: counted
+    once in ``selective_scan_bwd.launches``); CPU tensors run
+    :func:`selective_scan_bwd_ref`."""
+    dev = _check(dt, x, A, Bc, Cc, h0, dhT)
+    if tuple(dy.shape) != tuple(x.shape) or dy.dtype != torch.float32:
+        raise ValueError(f"selective_scan_bwd: dy must be f32 of x's shape {tuple(x.shape)}")
+    _check_device("selective_scan_bwd", (x, dy))
+    if dev.type == "cpu":
+        return selective_scan_bwd_ref(dt, x, A, Bc, Cc, h0, dy, dhT)
+    from . import build
+
+    B, S, din = x.shape
+    ds = A.shape[1]
+    if ds not in D_STATES:
+        raise ValueError(f"selective_scan_bwd: d_state {ds} is not one of {D_STATES}")
+    if B > 65535:
+        raise ValueError("selective_scan_bwd: batch must be <= 65535")
+    lib = build.load("mamba_scan_bwd")
+    chunk = lib.selective_scan_bwd_chunk()
+    dt, x, A, Bc, Cc, dy = (t.contiguous() for t in (dt, x, A, Bc, Cc, dy))
+    h0, dhT = (None if t is None else t.contiguous() for t in (h0, dhT))
+
+    def new(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    ddt, dx, dA, dB, dC = new(B, S, din), new(B, S, din), new(din, ds), new(B, S, ds), new(B, S, ds)
+    dh0 = None if h0 is None else new(B, din, ds)
+    states = new(B * ((S + chunk - 1) // chunk) * din * ds)
+    bc_part = new(B * ((din + _BWD_CHANNELS - 1) // _BWD_CHANNELS) * S * 2 * ds)
+    dA_part = new(B * din * ds)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    rc = lib.selective_scan_bwd(
+        *(ptr(t) for t in (dt, x, A, Bc, Cc, h0, dy, dhT, ddt, dx, dA, dB, dC, dh0, states,
+                           bc_part, dA_part)), B, S, din, ds, _stream_ptr(dev))
+    _raise_on("selective_scan_bwd", rc)
+    selective_scan_bwd.launches += 1
+    return ddt, dx, dA, dB, dC, dh0
+
+
+selective_scan_bwd.launches = 0
 
 
 def sample_scan_inputs(B: int, S: int, din: int, ds: int, seed: int, *, device="cpu",

@@ -22,12 +22,14 @@ the reference's ``kernels/ops.py``.
   scales out.  The kernels read the leaf flat with its length, so no
   padded copy is made.
 
-``flash_attention``, ``decode_attention`` and ``wkv6`` have no backward,
-as the reference's Pallas kernels have no VJP: given an operand that
-requires a gradient they run behind :class:`.guard.NoBackward`, whose
-backward raises, on the card and on the CPU alike.  ``selective_scan``
-has no backward on the card (its kernel has none yet); on the CPU its
-plain version is differentiable, as the reference's ``lax.scan`` is.
+``flash_attention`` and ``decode_attention`` have no backward, as the
+reference's Pallas kernels have no VJP: given an operand that requires a
+gradient they run behind :class:`.guard.NoBackward`, whose backward
+raises, on the card and on the CPU alike.  ``wkv6`` and
+``selective_scan`` are differentiable, as the reference's ``lax.scan``s
+are: given such an operand they run inside an autograd Function whose
+backward is a hand-written kernel on the card (``csrc/rwkv6_bwd.cu``,
+``csrc/mamba_scan_bwd.cu``) and its plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -65,10 +67,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 #: the kernel of ``wkv6_bhsd`` in the model layout (its docstring holds the
 #: shapes); the wrapper is already this layout's, so it is the entry itself
-#: (guarded there)
+#: (its backward set up there)
 wkv6 = _rwkv6.wkv
 
-#: Mamba's selective scan, already in the model's layout (guarded there)
+#: Mamba's selective scan, already in the model's layout (its backward set
+#: up there)
 selective_scan = _mamba.selective_scan
 
 

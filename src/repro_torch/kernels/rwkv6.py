@@ -32,9 +32,22 @@ whose state update (one rounded product ``k_i v_j``, one rounded product
 ``w_i S_ij``, one rounded sum) the kernel repeats bit for bit.  A wrapper
 given CPU tensors runs the plain version; given CUDA tensors it launches
 the kernel or raises.  ``wkv6_bhsd.launches`` counts the kernel's launches
-from either entry.  :func:`wkv` has no backward (the reference's kernel
-has no VJP): given an operand that requires a gradient it runs behind
-:class:`.guard.NoBackward`, whose backward raises.
+from either entry.
+
+**Backward.**  The reference's kernel has no VJP; the reference trains
+RWKV6 through ``jax.grad`` of its ``lax.scan``.  Given an operand that
+requires a gradient, :func:`wkv` runs inside :class:`WKV`, an autograd
+Function whose forward is the same call (the same launch and bits) and
+whose backward is :func:`wkv6_bwd`: the hand-written CUDA kernel
+``csrc/rwkv6_bwd.cu`` on CUDA tensors, :func:`wkv_bwd_ref` (the reverse
+recurrence in torch ops) on CPU ones.  With ``G = dL/dS`` carried
+backwards, ``G <- diag(w_t) G + r_t dy_tᵀ``, it gives dr, dk, dv, dw, du
+(summed over the batch and the sequence) and ds0; the states are
+recomputed forwards, never recovered by dividing by ``w``.  The Function
+saves its inputs only (``s0`` may be the serving cache: a caller that
+also writes the final state into it in place gets autograd's error, not a
+wrong gradient).  ``wkv6_bwd.launches`` counts the backward's launches
+(one a call, three device kernels).
 """
 
 from __future__ import annotations
@@ -45,10 +58,11 @@ import numpy as np
 import torch
 
 from .flash_attention import _check_device
-from .guard import NoBackward, needs_guard
+from .guard import needs_guard
 from .sim_step import _raise_on, _stream_ptr
 
-__all__ = ["HEAD_DIMS", "TILE_ROWS", "wkv_ref", "wkv6_ref", "wkv", "wkv6_bhsd", "sample_wkv_inputs"]
+__all__ = ["HEAD_DIMS", "TILE_ROWS", "wkv_ref", "wkv6_ref", "wkv", "wkv6_bhsd",
+           "wkv_bwd_ref", "wkv6_bwd", "WKV", "sample_wkv_inputs"]
 
 #: head dims the kernel is built for
 HEAD_DIMS = (16, 32, 64, 128)
@@ -75,6 +89,43 @@ def wkv_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         y[:, t] = torch.einsum("bhi,bhij->bhj", r[:, t], s + u[..., None] * kv)
         s = w[:, t, :, :, None] * s + kv
     return y, s
+
+
+def wkv_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                u: torch.Tensor, s0: Optional[torch.Tensor], dy: torch.Tensor,
+                dsT: Optional[torch.Tensor] = None):
+    """Plain backward in the model layout: the inputs of :func:`wkv_ref`
+    (``u`` ``(Bu, H, hd)``, Bu 1 or B), ``dy`` ``(B, S, H, hd)`` and the
+    final state's gradient ``dsT`` (zeros if None) -> ``(dr, dk, dv, dw,
+    du, ds0)``, f32; ``du`` has ``u``'s shape (summed over the batch when
+    ``u`` is shared), ``ds0`` is None when ``s0`` is.  The states are run
+    forwards and kept; ``G = dL/dS`` runs backwards, each product and sum
+    a torch op of its own, as the kernel rounds it."""
+    B, S, H, hd = r.shape
+    f32 = torch.float32
+    s = (torch.zeros((B, H, hd, hd), dtype=f32, device=r.device) if s0 is None
+         else s0.to(f32))
+    states = [s]
+    for t in range(S - 1):
+        s = w[:, t, :, :, None] * s + k[:, t, :, :, None] * v[:, t, :, None, :]
+        states.append(s)
+    G = torch.zeros_like(s) if dsT is None else dsT.to(f32)
+    dr, dk, dv, dw = (torch.empty((B, S, H, hd), dtype=f32, device=r.device) for _ in range(4))
+    du = torch.zeros((B, H, hd), dtype=f32, device=r.device)
+    ub = u.expand(B, H, hd)
+    for t in reversed(range(S)):
+        rt, kt, vt, wt, dyt = r[:, t], k[:, t], v[:, t], w[:, t], dy[:, t]
+        sp = states[t]
+        kv = kt[..., :, None] * vt[..., None, :]
+        dr[:, t] = torch.einsum("bhj,bhij->bhi", dyt, sp + ub[..., None] * kv)
+        dkv = G + (rt * ub)[..., None] * dyt[..., None, :]
+        dk[:, t] = torch.einsum("bhij,bhj->bhi", dkv, vt)
+        dv[:, t] = torch.einsum("bhij,bhi->bhj", dkv, kt)
+        dw[:, t] = (G * sp).sum(-1)
+        du = du + rt * kt * (vt * dyt).sum(-1, keepdim=True)
+        G = wt[..., None] * G + rt[..., None] * dyt[..., None, :]
+    du = du.sum(0, keepdim=True) if u.shape[0] == 1 else du
+    return dr, dk, dv, dw, du, (None if s0 is None else G)
 
 
 def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
@@ -172,15 +223,91 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     runs another built tile than the default; the results are the same.
 
     CUDA tensors launch the kernel; CPU tensors run :func:`wkv_ref`.  With
-    an operand that requires a gradient the call has no backward (the
-    final state then goes to a fresh tensor, copied into ``state_out``)."""
+    an operand that requires a gradient the call runs inside :class:`WKV`
+    (backward: :func:`wkv6_bwd`); the final state then goes to a fresh
+    tensor, copied into ``state_out``."""
     if not isinstance(u, torch.Tensor) or u.dim() != 2:
         raise TypeError("wkv: u must be a 2-D (H, hd) tensor")
     u3 = u.unsqueeze(0)
     if not needs_guard(r, k, v, w, u, s0):
         return _run("wkv", r, k, v, w, u3, s0, state_out, tile_rows)
-    y, s = NoBackward.apply("wkv6_bhsd", _run, {}, "wkv", r, k, v, w, u3, s0, None, tile_rows)
-    return y, (s if state_out is None else state_out.copy_(s))
+    y, s = WKV.apply(r, k, v, w, u3, s0, tile_rows)
+    if state_out is None:
+        return y, s
+    with torch.no_grad():
+        state_out.copy_(s)
+    return y, s
+
+
+class WKV(torch.autograd.Function):
+    """``apply(r, k, v, w, u3, s0, tile_rows) -> (y, sT)``: forward
+    :func:`wkv`'s launch (or plain version) into fresh tensors; backward
+    :func:`wkv6_bwd` on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u3, s0, tile_rows):
+        y, sT = _run("wkv", r, k, v, w, u3, s0, None, tile_rows)
+        ctx.save_for_backward(r, k, v, w, u3, s0)
+        ctx.set_materialize_grads(False)
+        return y, sT
+
+    @staticmethod
+    def backward(ctx, dy, dsT):
+        r, k, v, w, u3, s0 = ctx.saved_tensors
+        dy = torch.zeros_like(r) if dy is None else dy.contiguous()
+        dsT = None if dsT is None else dsT.contiguous()  # autograd may hand expanded grads
+        dr, dk, dv, dw, du, ds0 = wkv6_bwd(r, k, v, w, u3, s0, dy, dsT)
+        return dr, dk, dv, dw, du, ds0, None
+
+
+def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+             u3: torch.Tensor, s0: Optional[torch.Tensor], dy: torch.Tensor,
+             dsT: Optional[torch.Tensor] = None):
+    """The recurrence's backward in the model layout: the forward's inputs
+    (``u3`` ``(1, H, hd)`` or ``(B, H, hd)``), ``dy`` ``(B, S, H, hd)`` and
+    ``dsT`` (None: zeros), f32 -> ``(dr, dk, dv, dw, du3, ds0)`` (``ds0``
+    None when ``s0`` is).  CUDA tensors launch ``csrc/rwkv6_bwd.cu`` (one
+    call, three device kernels: counted once in ``wkv6_bwd.launches``);
+    CPU tensors run :func:`wkv_bwd_ref`."""
+    dev = _check("wkv6_bwd", r, k, v, w, u3, s0, dsT)
+    for arg, x in (("dy", dy),):
+        if tuple(x.shape) != tuple(r.shape) or x.dtype != torch.float32:
+            raise ValueError(f"wkv6_bwd: {arg} must be f32 of r's shape {tuple(r.shape)}")
+    _check_device("wkv6_bwd", (r, dy))
+    if dev.type == "cpu":
+        return wkv_bwd_ref(r, k, v, w, u3, s0, dy, dsT)
+    from . import build
+
+    B, S, H, hd = r.shape
+    lib = build.load("rwkv6_bwd")
+    chunk = lib.wkv6_bwd_chunk(hd)
+    if chunk <= 0:
+        raise ValueError(f"wkv6_bwd: head dim {hd} is not built")
+    r, k, v, w, dy = (x.contiguous() for x in (r, k, v, w, dy))
+    u3 = u3.contiguous()
+    s0, dsT = (None if x is None else x.contiguous() for x in (s0, dsT))
+
+    def new(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    dr, dk, dv, dw = (new(B, S, H, hd) for _ in range(4))
+    du, ds0 = new(*u3.shape), (None if s0 is None else new(B, H, hd, hd))
+    states = new(B * H * ((S + chunk - 1) // chunk) * hd * hd)
+    dv_part = new((hd // min(hd, 16)) * B * S * H * hd)
+    du_part = new(B * H * hd)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    rc = lib.wkv6_bwd(*(ptr(x) for x in (r, k, v, w, u3, s0, dy, dsT, dr, dk, dv, dw, du,
+                                          ds0, states, dv_part, du_part)),
+                      B, S, H, hd, int(u3.shape[0] != 1), _stream_ptr(dev))
+    _raise_on("wkv6_bwd", rc)
+    wkv6_bwd.launches += 1
+    return dr, dk, dv, dw, du, ds0
+
+
+wkv6_bwd.launches = 0
 
 
 def wkv6_bhsd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,

@@ -11,8 +11,9 @@ the weights are random from ``--seed``, the data
 Checkpoints go to an :class:`~repro_torch.checkpoint.AsyncCheckpointer`
 over a :class:`~repro_torch.checkpoint.CheckpointStore` with ``--codec``
 (``raw``, as the reference; ``int8`` or ``int8_delta`` encode the f32
-leaves on the device; ``int8_delta`` codes each save's difference from
-the run's first checkpoint, except the AdamW second moments), and with
+leaves on the device, except the AdamW second moments, stored raw;
+``int8_delta`` codes each save's difference from the run's first
+checkpoint), and with
 ``--memory-tier`` first to a
 :class:`~repro_torch.checkpoint.BuddyMemoryCheckpoint`.  A fault restores
 the step the executor names through the tiers in order: the buddy's
@@ -48,7 +49,7 @@ from ..core.predictor import SimulatedPredictor, predictor_preset
 from ..core.torch_sim import resolve_device
 from ..core.waste import Platform, PredictorModel
 from ..data.pipeline import SyntheticLMDataset
-from ..ft import FaultInjector, FaultTolerantExecutor, WallClock
+from ..ft import FaultInjector, FaultTolerantExecutor, SimClock, WallClock
 from ..models.layers import RuntimeFlags
 from ..optim.adamw import adamw_init
 from .steps import build_model, build_train_step
@@ -56,6 +57,16 @@ from .steps import build_model, build_train_step
 __all__ = ["make_train_state", "train", "main", "CODECS"]
 
 CODECS = ("raw", "int8", "int8_delta")
+
+
+def _second_moment(key: str) -> bool:
+    """AdamW's second moments (``v``; the 8-bit state's ``v_s`` block
+    scales): stored raw under the int8 codecs.  Coded, a block's entries
+    below half a code step of its absmax come back 0, and the next update
+    divides ``m`` by ``sqrt(0) + eps`` (on an H100, the loss of a 4-layer
+    RWKV6-7B three steps after such a restore moved by 7.8%)."""
+    return key.rsplit("/", 1)[-1] in ("v", "v_s")
+
 #: the tiers' names, in their order on the restore ladder
 TIERS = ("memory", "disk", "initial")
 
@@ -102,11 +113,9 @@ class _Checkpointer:
         if self.delta and self.base is None:
             # later saves code their delta from this checkpoint as a
             # restore decodes it, so saves and restores add the same base.
-            # The second moments stay out of the base (coded alone): a
-            # delta's rounding can take a small v below 0, and sqrt(v) in
-            # the next update would be NaN
+            # The second moments are stored raw and need no base
             self._drained()
-            self.base = map_with_keys(lambda k, x: None if k.endswith("/v") else x,
+            self.base = map_with_keys(lambda k, x: None if _second_moment(k) else x,
                                       self.disk.store.restore(step, target=tree))
         rec["c_block"] = rec["c_block_memory"] + rec["c_block_disk"]
         self.saves.append(rec)
@@ -122,7 +131,7 @@ def train(cfg: ArchConfig, *, steps: int = 100, batch: int = 8, seq: int = 128,
           codec: str = "raw", memory_tier: bool = False,
           correlated_every: int = 0, inject_faults: bool = False, fault_mtbf: float = 20.0,
           predictor: Optional[str] = None, strategy: str = "auto",
-          flags: Optional[RuntimeFlags] = None, device=None,
+          flags: Optional[RuntimeFlags] = None, device=None, sim_step_s: Optional[float] = None,
           log: Callable[[str], None] = print) -> dict:
     """Train ``cfg`` for ``steps`` steps under the executor on ``device``
     (the current CUDA device by default; without CUDA and without
@@ -133,12 +142,21 @@ def train(cfg: ArchConfig, *, steps: int = 100, batch: int = 8, seq: int = 128,
     7)``; ``predictor`` names a Table-3 preset whose predictions the
     executor acts on (without one it runs Young's period).
 
+    ``sim_step_s`` runs the executor on a :class:`~repro_torch.ft.SimClock`
+    instead of the wall clock: each step counts ``sim_step_s`` seconds and
+    each checkpoint, downtime and restore the platform's priors (C 0.5, D
+    0.2, R 0.5 s), so faults, predictions and saves fall at the same steps
+    on every host.  The steps, saves and restores still run for real;
+    ``step_s`` and ``saves`` hold their measured times, and the report's
+    ledger the simulated ones.
+
     Returns ``report`` (the executor's :class:`~repro_torch.ft.RunReport`),
     ``losses`` (step -> loss, the last run of each step), ``step_s``
     (``(step, seconds)`` of every completed step, replays included),
     ``saves`` (per checkpoint: step, ``c_block`` of each tier, the disk's
     ``c_full`` and bytes), ``restores`` (per restore: fault ordinal, step,
-    tier name, failed attempts), ``fault_times``, ``wall_s``,
+    tier name, failed attempts), ``fault_times``, ``wall_s``, ``clock_s``
+    (the executor's clock at the end: ``wall_s`` or the simulated time),
     ``c_estimate``, ``period_T`` and ``device``."""
     if codec not in CODECS:
         raise ValueError(f"codec {codec!r} is not one of {CODECS}")
@@ -151,7 +169,8 @@ def train(cfg: ArchConfig, *, steps: int = 100, batch: int = 8, seq: int = 128,
                               else 0, d_model=cfg.d_model)
     own_dir = ckpt_dir is None
     root = tempfile.mkdtemp(prefix="repro_torch_train_") if own_dir else ckpt_dir
-    store = CheckpointStore(root, codec=codec)
+    store = CheckpointStore(root, codec=codec,
+                            raw_keys=_second_moment if codec != "raw" else None)
     memory = BuddyMemoryCheckpoint(n_nodes=2) if memory_tier else None
     ckpt = _Checkpointer(AsyncCheckpointer(store, keep=3), memory, codec == "int8_delta")
 
@@ -212,7 +231,8 @@ def train(cfg: ArchConfig, *, steps: int = 100, batch: int = 8, seq: int = 128,
     ex = FaultTolerantExecutor(
         step_fn=step_fn, state=state, platform=plat, pred_model=pm, predictor=sim_pred,
         checkpointer=ckpt, restore_tiers=tiers if inject_faults else None,
-        injector=injector, clock=WallClock(),
+        injector=injector, clock=WallClock() if sim_step_s is None else SimClock(),
+        step_time=1.0 if sim_step_s is None else sim_step_s,
         strategy=strategy if sim_pred else "young",
     )
     t0 = time.monotonic()
@@ -226,6 +246,7 @@ def train(cfg: ArchConfig, *, steps: int = 100, batch: int = 8, seq: int = 128,
     restores = [dict(e, tier=tier_names[e["tier"]]) for e in ex.restore_events]
     return {"report": report, "losses": losses, "step_s": step_s, "saves": ckpt.saves,
             "restores": restores, "fault_times": fault_times, "wall_s": wall,
+            "clock_s": ex.clock.now(),
             "c_estimate": report.c_estimate, "period_T": report.period_T,
             "device": str(dev)}
 

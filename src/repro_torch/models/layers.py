@@ -62,8 +62,8 @@ class RuntimeFlags:
     dense up to it, chunked beyond; prefill takes the kernel),
     ``moe_capacity_factor`` overrides the config's capacity factor in the
     MoE blocks when set, ``seq_shard_prefill`` has no effect (one device),
-    and ``LanguageModel`` refuses a ``remat_policy`` other than
-    ``"none"`` (``ROADMAP.md`` §1, the remat item)."""
+    and ``remat_policy`` (``"none"``, ``"full"`` or ``"dots"``, training
+    only) is :class:`~.transformer.LanguageModel`'s to apply."""
 
     attn_impl: str = "auto"  # auto | dense | chunked | pallas
     dense_attn_max: int = 8192

@@ -36,19 +36,35 @@ of the reference's ``models/transformer.py`` entry points, ``loss_fn``
 Five block kinds are built (``BLOCKS``): an ``attn`` or ``mamba`` mixer with
 a ``dense`` or ``moe`` MLP (:mod:`.moe`; its load-balance loss is summed
 over the layers into ``loss_fn``'s ``aux``), and the ``rwkv`` mixer with
-the ``rwkv_cm`` channel mix.  That covers every config of the reference;
-a remat policy other than ``"none"`` is refused (``ROADMAP.md``, queue
-1.2).
+the ``rwkv_cm`` channel mix.  That covers every config of the reference.
+
+Remat (``RuntimeFlags.remat_policy``, training only), where the reference
+wraps its layer body in ``jax.checkpoint``: ``"full"`` runs each layer's
+block under ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``
+(its activations recomputed in the backward); ``"dots"`` saves the outputs
+of the matrix products without a batch dimension (``aten.mm`` /
+``aten.addmm``, the counterpart of ``dots_with_no_batch_dims_saveable``)
+and recomputes the rest, ``aten.bmm`` included, through
+``create_selective_checkpoint_contexts``.  The block is chosen outside the
+checkpointed function (:func:`_train_block` branches on nothing), and the
+recomputation repeats the forward's operations, so the loss and the
+gradients are those of ``"none"`` bit for bit.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..configs.base import ArchConfig, LayerSpec
 from ..core.torch_sim import resolve_device
@@ -109,6 +125,76 @@ def _layer(tree: dict, r: int) -> dict:
     return {k: _layer(v, r) if isinstance(v, dict) else v[r] for k, v in tree.items()}
 
 
+# --------------------------------------------------------------------------- #
+# Blocks: one composition, each part chosen by the block's kind
+# --------------------------------------------------------------------------- #
+def _block(mixer, mlp, eps, bp, x):
+    """One block -> (``x``, its auxiliary loss or ``None``): the residual
+    stream plus the mixer over its rms norm, then plus the MLP over its
+    own.  ``mixer`` maps ``(p, h)`` to ``y``, ``mlp`` to ``(y, aux)``; the
+    serving ones read and write the layer's cache."""
+    x = x + mixer(bp["mixer"], rms_norm(x, bp["mixer_norm"], eps))
+    y2, aux = mlp(bp["mlp"], rms_norm(x, bp["mlp_norm"], eps))
+    return x + y2, aux
+
+
+def _attn_mixer(p, h, cfg, flags, sin, cos):
+    return attention(p, h, cfg, sin, cos, flags, train=True)[0]
+
+
+def _mamba_mixer(p, h, cfg, flags, sin, cos):
+    return ssm.mamba_apply(p, h, cfg)[0]
+
+
+def _rwkv_mixer(p, h, cfg, flags, sin, cos):
+    return ssm.rwkv_apply(p, h)[0]
+
+
+def _dense_mlp(p, h, cfg, flags):
+    return swiglu_mlp(p, h), None
+
+
+def _moe_mlp(p, h, cfg, flags):
+    return moe.moe_apply(p, h, cfg, flags.moe_capacity_factor)
+
+
+def _rwkv_cm_mlp(p, h, cfg, flags):
+    return ssm.rwkv_channel_mix(p, h)[0], None
+
+
+_MIXERS = {"attn": _attn_mixer, "mamba": _mamba_mixer, "rwkv": _rwkv_mixer}
+_MLPS = {"dense": _dense_mlp, "moe": _moe_mlp, "rwkv_cm": _rwkv_cm_mlp}
+
+
+def _train_block(mixer, mlp, cfg, flags, bp, x, sin, cos):
+    """One block in training (no cache): the layer's slice cast to the
+    compute dtype inside the graph, then :func:`_block` with the mixer and
+    the MLP chosen by the caller."""
+    return _block(lambda p, h: mixer(p, h, cfg, flags, sin, cos),
+                  lambda p, h: mlp(p, h, cfg, flags), cfg.norm_eps,
+                  _cast_tree(bp, flags.compute_dtype), x)
+
+
+#: the products ``"dots"`` keeps: no batch dimension, as
+#: ``dots_with_no_batch_dims_saveable`` (``x @ W`` over a ``(B, S, D)`` x
+#: folds into ``aten.mm``; an ``aten.bmm`` is recomputed)
+_SAVED_UNDER_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_UNDER_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+#: ``checkpoint`` keywords of each remat policy (``"none"`` calls the block)
+_REMAT = {
+    "full": {},
+    "dots": {"context_fn": functools.partial(create_selective_checkpoint_contexts,
+                                             _dots_policy)},
+}
+REMAT_POLICIES = ("none",) + tuple(_REMAT)
+
+
 class LanguageModel(nn.Module):
     """The LM of every family of the reference's configs.  Parameters and
     caches are plain trees passed to the entry points, as in the
@@ -123,10 +209,9 @@ class LanguageModel(nn.Module):
                     f"not built; the port builds {[(b.mixer, b.mlp) for b in BLOCKS]}")
         self.cfg = cfg
         self.flags = flags if flags is not None else RuntimeFlags()
-        if self.flags.remat_policy != "none":
-            raise NotImplementedError(
-                f"remat_policy={self.flags.remat_policy!r} is not ported yet (ROADMAP.md "
-                "§1, queue 1.2, the remat item); the training path runs remat_policy='none'")
+        if self.flags.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy {self.flags.remat_policy!r} is not one of "
+                             f"{REMAT_POLICIES}")
         self.param_dtype = _DTYPES[cfg.param_dtype]
 
     # ------------------------------------------------------------------ #
@@ -222,68 +307,71 @@ class LanguageModel(nn.Module):
     # Blocks
     # ------------------------------------------------------------------ #
     def _apply_block(self, spec: LayerSpec, bp: dict, x, sin, cos, mode: str, cache, pos):
-        """One block -> (``x``, its auxiliary loss: the MoE load-balance
-        loss, else ``None``).  ``cache`` is the layer's slice of the
-        serving cache: for ``attn``, the ``{"k", "v"}`` ``(B, max_seq, KV,
-        hd)`` buffers, filled at ``[:, :S]`` in prefill; for ``rwkv``,
-        ``state``, ``last`` and ``cm_last``, and for ``mamba``, ``conv`` and
-        ``ssm``, read in decode and overwritten in both modes (the final
-        states written by the kernels straight into the cache).  In
-        ``"train"`` mode there is no cache (``None``)."""
+        """One serving block (``mode`` ``"prefill"`` or ``"decode"``) ->
+        ``x``: :func:`_block` with mixers (and the RWKV channel mix) that
+        use the layer's slice of the serving cache.  ``cache``: for
+        ``attn``, the ``{"k", "v"}`` ``(B, max_seq, KV, hd)`` buffers,
+        filled at ``[:, :S]`` in prefill; for ``rwkv``, ``state``, ``last``
+        and ``cm_last``, and for ``mamba``, ``conv`` and ``ssm``, read in
+        decode and overwritten in both modes (the final states written by
+        the kernels straight into the cache)."""
         cfg, flags = self.cfg, self.flags
-        decode, train = mode == "decode", mode == "train"
-        h = rms_norm(x, bp["mixer_norm"], cfg.norm_eps)
-        if spec.mixer == "attn":
+        decode = mode == "decode"
+
+        def attn(p, h):
             if decode:
-                y, _ = attention_decode(bp["mixer"], h, cfg, pos, (cache["k"], cache["v"]),
-                                        flags)
-            else:
-                y, (k_raw, v_raw) = attention(bp["mixer"], h, cfg, sin, cos, flags,
-                                              train=train)
-                if not train:
-                    S = x.shape[1]
-                    cache["k"][:, :S] = k_raw.to(CACHE_DTYPE)
-                    cache["v"][:, :S] = v_raw.to(CACHE_DTYPE)
-        elif spec.mixer == "mamba":
-            y, st = ssm.mamba_apply(bp["mixer"], h, cfg, cache if decode else None,
-                                    state_out=None if train else cache["ssm"])
-            if not train:
-                cache["conv"].copy_(st["conv"])
-        else:  # rwkv: the final state goes straight into the cache
-            y, st = ssm.rwkv_apply(bp["mixer"], h, cache if decode else None,
-                                   state_out=None if train else cache["state"])
-            if not train:
-                cache["last"].copy_(st["last"])
-        x = x + y
-        h2 = rms_norm(x, bp["mlp_norm"], cfg.norm_eps)
-        if spec.mlp == "dense":
-            return x + swiglu_mlp(bp["mlp"], h2), None
-        if spec.mlp == "moe":
-            y2, aux = moe.moe_apply(bp["mlp"], h2, cfg, flags.moe_capacity_factor)
-            return x + y2, aux
-        last = cache["cm_last"].to(h2.dtype) if decode else None
-        y2, cm_last = ssm.rwkv_channel_mix(bp["mlp"], h2, last)
-        if not train:
+                return attention_decode(p, h, cfg, pos, (cache["k"], cache["v"]), flags)[0]
+            y, (k_raw, v_raw) = attention(p, h, cfg, sin, cos, flags)
+            S = h.shape[1]
+            cache["k"][:, :S] = k_raw.to(CACHE_DTYPE)
+            cache["v"][:, :S] = v_raw.to(CACHE_DTYPE)
+            return y
+
+        def mamba(p, h):
+            y, st = ssm.mamba_apply(p, h, cfg, cache if decode else None,
+                                    state_out=cache["ssm"])
+            cache["conv"].copy_(st["conv"])
+            return y
+
+        def rwkv(p, h):  # the final state goes straight into the cache
+            y, st = ssm.rwkv_apply(p, h, cache if decode else None, state_out=cache["state"])
+            cache["last"].copy_(st["last"])
+            return y
+
+        def rwkv_cm(p, h):
+            last = cache["cm_last"].to(h.dtype) if decode else None
+            y, cm_last = ssm.rwkv_channel_mix(p, h, last)
             cache["cm_last"].copy_(cm_last)
-        return x + y2, None
+            return y, None
+
+        mixer = {"attn": attn, "mamba": mamba, "rwkv": rwkv}[spec.mixer]
+        mlp = rwkv_cm if spec.mlp == "rwkv_cm" else (
+            lambda p, h: _MLPS[spec.mlp](p, h, cfg, flags))
+        return _block(mixer, mlp, cfg.norm_eps, bp, x)[0]
 
     def _run_layers(self, params: dict, x, sin, cos, mode: str, cache: Optional[dict], pos):
         """The repeated pattern, layer by layer, over the stacked slices ->
         (``x``, the blocks' auxiliary losses summed in layer order, f32, as
         the reference's scan carries them).  In ``"train"`` mode (no cache)
-        each layer's slice is cast to the compute dtype here, inside the
-        autograd graph."""
-        train = mode == "train"
-        cd = self.flags.compute_dtype
+        each layer runs :func:`_train_block`, under the remat policy; its
+        slice is cast to the compute dtype there, inside the autograd
+        graph."""
+        cfg, flags = self.cfg, self.flags
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for r in range(self.cfg.n_repeats):
-            for pi, spec in enumerate(self.cfg.pattern):
+        remat = _REMAT.get(flags.remat_policy)
+        for r in range(cfg.n_repeats):
+            for pi, spec in enumerate(cfg.pattern):
                 bp = _layer(params["blocks"][pi], r)
-                if train:
-                    bp, layer_cache = _cast_tree(bp, cd), None
+                if mode != "train":
+                    x = self._apply_block(spec, bp, x, sin, cos, mode,
+                                          _layer(cache["blocks"][pi], r), pos)
+                    continue
+                block = functools.partial(_train_block, _MIXERS[spec.mixer], _MLPS[spec.mlp],
+                                          cfg, flags)
+                if remat is None:
+                    x, a = block(bp, x, sin, cos)
                 else:
-                    layer_cache = _layer(cache["blocks"][pi], r)
-                x, a = self._apply_block(spec, bp, x, sin, cos, mode, layer_cache, pos)
+                    x, a = checkpoint(block, bp, x, sin, cos, use_reentrant=False, **remat)
                 if a is not None:
                     aux = aux + a
         return x, aux

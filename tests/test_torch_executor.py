@@ -163,6 +163,42 @@ def test_restore_ladder_ledger_equals_reference():
     assert [e["failed_attempts"] for e in ex.restore_events] == [2, 2]
 
 
+def test_restore_ladder_keeps_no_restored_state_alive():
+    """A restore served after a failed tier must not keep the restored
+    state alive once the steps have replaced it: the failed attempt's
+    traceback holds the ladder's frame, and the frame held the tree, a
+    reference cycle that kept each restored training state (tens of GB on
+    a card) until a garbage collection.  Checked with the collector off."""
+    import gc
+    import weakref
+
+    restored = []
+
+    def memory(step):
+        raise KeyError("no replica in memory")
+
+    def disk(step):
+        tree = {"w": torch.full((4,), float(step))}
+        restored.append(weakref.ref(tree["w"]))
+        return tree
+
+    ex = PFT.FaultTolerantExecutor(
+        step_fn=lambda s, k: {"w": s["w"] + 1.0}, state={"w": torch.zeros(4)},
+        platform=Platform(mu=200.0, C=2.0, D=0.5, R=3.0), restore_tiers=[memory, disk],
+        restore_retry=PFT.RetryPolicy(max_attempts=1, sleep=lambda s: None),
+        injector=PFT.FaultInjector(EventTrace(horizon=1e9, faults=[FaultEvent(40.5),
+                                                                   FaultEvent(77.2)],
+                                              predictions=[])),
+        clock=PFT.SimClock(), step_time=1.0, strategy="young")
+    gc.disable()
+    try:
+        ex.run(120)
+        assert len(restored) == 2
+        assert all(w() is None for w in restored), "a restored state outlived its steps"
+    finally:
+        gc.enable()
+
+
 # --------------------------------------------------------------------------- #
 # tests/test_ft_executor.py on the port
 # --------------------------------------------------------------------------- #
@@ -682,3 +718,85 @@ def test_train_through_every_tier_and_codec(tmp_path, codec, monkeypatch):
     assert all(s["c_block"] >= s["c_block_disk"] > 0 for s in res["saves"])
     assert all("c_full" in s for s in res["saves"])
     assert res["losses"][99] < res["losses"][0]
+
+
+def test_int8_disk_restore_keeps_the_second_moments():
+    """Under ``--codec int8`` the driver stores AdamW's second moments raw:
+    coded, the small entries of a block come back 0 and the next updates
+    divide ``m`` by ``eps``.  ``rwkv6-7b.reduced()`` on phase 51's schedule
+    (a memory, then a disk restore of step 4): the last of 8 losses within
+    2e-3 of the fault-free run's (measured 8.4e-4; 6.1e-3 with the moments
+    coded), the steps before the disk restore bit-equal."""
+    cfg = configs.get("rwkv6-7b").reduced()
+    kw = dict(steps=8, batch=8, seq=64, seed=3, codec="int8", memory_tier=True,
+              correlated_every=2, predictor="paper-accurate", sim_step_s=0.32,
+              device="cpu", log=lambda s: None)
+    clean = TR.train(cfg, inject_faults=False, fault_mtbf=1e9, **kw)
+    hit = TR.train(cfg, inject_faults=True, fault_mtbf=2.5, **kw)
+    assert [(r["step"], r["tier"]) for r in hit["restores"]] == [(4, "memory"), (4, "disk")]
+    assert [hit["losses"][k] for k in range(4)] == [clean["losses"][k] for k in range(4)]
+    assert abs(hit["losses"][7] - clean["losses"][7]) <= 2e-3 * abs(clean["losses"][7])
+
+
+def _chip_smoke():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _smoke_schedules():
+    cs = _chip_smoke()
+    out = {"train_path": (cs.TRAIN_STEPS, cs.TRAIN_MTBF, cs.TRAIN_SIM_STEP_S, cs.TRAIN_SEED)}
+    for fam, kw in cs.SSM_TRAIN.items():
+        out[fam] = (kw["steps"], kw["mtbf"], kw["sim_step_s"], cs.SSM_TRAIN_SEED)
+    return out, cs.TRAIN_CORRELATED_EVERY
+
+
+@pytest.mark.parametrize("run", ["train_path", "rwkv", "jamba"])
+def test_sim_clock_fault_schedule_of_the_chip_smoke_runs(tmp_path, run, monkeypatch):
+    """``train(sim_step_s=...)``: the faulted runs of ``chip_smoke.py``'s
+    phases 39 and 51 (their steps, MTBF, simulated step and seed) save and
+    restore at the same steps whatever a step takes on the wall clock, and
+    restore once from the memory tier and once from the disk (phase 51:
+    after a single save), as the phases require.  The schedule depends on
+    the seeded trace and the simulated clock only, so a tiny model on the
+    CPU replays the card's."""
+    import time as _time
+
+    schedules, corr = _smoke_schedules()
+    steps, mtbf, sim_step_s, seed = schedules[run]
+    cfg = configs.get("smollm-135m").reduced()
+
+    def once(delay):
+        real = TR.build_train_step
+
+        def slow_step(*a, **k):
+            inner = real(*a, **k)
+
+            def step(*b):
+                _time.sleep(delay)
+                return inner(*b)
+            return step
+
+        monkeypatch.setattr(TR, "build_train_step", slow_step)
+        res = TR.train(cfg, steps=steps, batch=1, seq=8, seed=seed, codec="int8",
+                       memory_tier=True, correlated_every=corr, inject_faults=True,
+                       fault_mtbf=mtbf, predictor="paper-accurate", strategy="auto",
+                       sim_step_s=sim_step_s, device="cpu", log=lambda s: None)
+        return ([s["step"] for s in res["saves"]],
+                [(r["step"], r["tier"]) for r in res["restores"]], res)
+
+    saves, restores, res = once(0.0)
+    again = once(0.01)
+    assert (saves, restores) == again[:2]
+    rep = res["report"]
+    assert rep.n_faults >= 2 and rep.n_restores == rep.n_faults
+    tiers = [t for _, t in restores]
+    assert "memory" in tiers and "disk" in tiers
+    assert res["clock_s"] >= steps * sim_step_s  # simulated seconds, not the wall's
+    if run != "train_path":
+        assert len(saves) == 1
+    assert sorted(res["losses"]) == list(range(steps))

@@ -167,7 +167,9 @@ def test_scan_writes_the_state_in_place_and_checks_its_operands():
 
 def test_scan_is_differentiable_on_the_cpu():
     """The reference differentiates its ``lax.scan``; on the CPU the port's
-    plain version carries autograd (the card's kernel has no backward)."""
+    scan trains through :class:`SelectiveScan`, whose backward is the plain
+    reverse recurrence (``test_torch_mamba_bwd.py`` holds it gradient for
+    gradient)."""
     dt, x, A, Bc, Cc, h0 = M.sample_scan_inputs(2, 9, 8, 8, seed=5)
     x.requires_grad_(True)
     y, h = ops.selective_scan(dt, x, A, Bc, Cc, h0)

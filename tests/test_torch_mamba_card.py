@@ -4,8 +4,9 @@ against its plain version, at both built state sizes (8 and 16), one token
 staging chunk's edge (16 tokens), more (batch, channel) blocks than fit the
 card at once, a channel count that is not a multiple of the block's 128, a
 zero initial state, strided B / C rows (the model's slices of one product),
-and the wrappers' checks on the card.  Imports neither JAX nor the
-reference, so it runs on the card's machine:
+and the wrappers' checks on the card (a backward through the wrapper
+runs the backward kernel, ``test_torch_mamba_bwd_card.py``).  Imports
+neither JAX nor the reference, so it runs on the card's machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_mamba_card.py
 
@@ -89,7 +90,12 @@ def test_card_refuses_what_the_kernel_does_not_take(cuda_device):
     dt, x, A, Bc, Cc, h0 = M.sample_scan_inputs(2, 4, 64, 8, seed=3, device=cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
         ops.selective_scan(dt, x, A.t().contiguous().t(), Bc, Cc, h0)
+    # a backward runs now, through the backward kernel (one launch)
     x.requires_grad_(True)
     y, _ = ops.selective_scan(dt, x, A, Bc, Cc, h0)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        y.sum().backward()
+    n0 = M.selective_scan_bwd.launches
+    y.sum().backward()
+    assert M.selective_scan_bwd.launches == n0 + 1
+    want = M.selective_scan_bwd_ref(dt, x.detach(), A, Bc, Cc, h0, torch.ones_like(y))[1]
+    err = float((x.grad - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max()), f"dx off by {err}"

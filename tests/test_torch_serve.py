@@ -108,16 +108,17 @@ def test_rwkv_config_and_reduced_match_reference_field_for_field():
 
 @pytest.mark.parametrize("name", RC.ARCH_NAMES)
 def test_other_families_are_not_built(name):
-    """Every config of the reference is built now (the port's names are the
-    reference's, in its order); what is not built is a remat policy other
-    than ``"none"``, refused naming its queue item (1.2)."""
+    """Every config of the reference is built (the port's names are the
+    reference's, in its order), under each remat policy of the reference
+    (``test_torch_train.py`` holds the policies' gradients bit-equal); a
+    policy the reference does not name is refused."""
     assert configs.ARCH_NAMES == list(RC.ARCH_NAMES)
     cfg = configs.get(name).reduced()
-    model = LanguageModel(cfg)
-    assert model.cfg is cfg
-    for policy in ("full", "dots"):
-        with pytest.raises(NotImplementedError, match="queue 1.2"):
-            LanguageModel(cfg, RuntimeFlags(remat_policy=policy))
+    for policy in ("none", "full", "dots"):
+        model = LanguageModel(cfg, RuntimeFlags(remat_policy=policy))
+        assert model.cfg is cfg and model.flags.remat_policy == policy
+    with pytest.raises(ValueError, match="remat_policy"):
+        LanguageModel(cfg, RuntimeFlags(remat_policy="offload"))
 
 
 @pytest.mark.parametrize("which", ["width", "reduced"])

@@ -18,6 +18,9 @@ Tolerances (measured on the CPU before they were set):
   scales as the f32 moments.
 * three ``build_train_step`` steps: losses rtol 1e-4 (measured up to
   3e-7); ``micro_batches=2`` against 1 on the same batch within 1e-5.
+* remat ``"full"`` / ``"dots"`` against ``"none"`` (smollm, rwkv6 and
+  jamba ``reduced()``): the loss and every gradient leaf bit-equal, as
+  recomputation repeats the forward's operations.
 """
 
 import jax
@@ -158,8 +161,56 @@ def test_bf16_gradients_reach_the_f32_masters():
 
 
 def test_remat_policies_are_refused_with_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="remat item"):
-        LanguageModel(configs.get("smollm-135m").reduced(), RuntimeFlags(remat_policy="full"))
+    """The reference's three policies build; "dots" saves the outputs of
+    the matrix products without a batch dimension (a spy on the policy sees
+    ``aten.mm`` saved and ``aten.bmm`` recomputed), and only a name the
+    reference does not know is refused."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    from repro_torch.models import transformer as T
+
+    cfg = configs.get("smollm-135m").reduced()
+    with pytest.raises(ValueError, match="remat_policy"):
+        LanguageModel(cfg, RuntimeFlags(remat_policy="offload"))
+    seen = {}
+
+    def spy(ctx, op, *args, **kwargs):
+        got = T._dots_policy(ctx, op, *args, **kwargs)
+        seen.setdefault(op, got)
+        return got
+
+    import functools
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    kw = {"context_fn": functools.partial(create_selective_checkpoint_contexts, spy)}
+    real = T._REMAT["dots"]
+    T._REMAT["dots"] = kw
+    try:
+        pm = LanguageModel(cfg, RuntimeFlags(remat_policy="dots", compute_dtype=torch.float32,
+                                             dense_attn_max=64))
+        _grads(pm, pm.init(torch.Generator().manual_seed(0)),
+               {"tokens": torch.from_numpy(_tokens())})
+    finally:
+        T._REMAT["dots"] = real
+    assert seen[torch.ops.aten.mm.default] == CheckpointPolicy.MUST_SAVE
+    assert seen[torch.ops.aten.bmm.default] == CheckpointPolicy.PREFER_RECOMPUTE
+
+
+@pytest.mark.parametrize("name", ["smollm-135m", "rwkv6-7b", "jamba-1.5-large-398b"])
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_remat_is_bit_equal_to_none(name, policy):
+    """Loss and every gradient leaf of ``reduced()`` under ``"full"`` and
+    ``"dots"`` remat bit-equal to ``"none"`` (f32 compute; RWKV6's WKV and
+    Jamba's scan recomputed through their autograd Functions)."""
+    cfg = configs.get(name).reduced()
+    toks = {"tokens": torch.from_numpy(_tokens(5, b=2, s=16))}
+    out = {}
+    for pol in ("none", policy):
+        pm = LanguageModel(cfg, RuntimeFlags(remat_policy=pol, compute_dtype=torch.float32))
+        out[pol] = _grads(pm, pm.init(torch.Generator().manual_seed(0)), toks)
+    (l0, a0, g0), (l1, a1, g1) = out["none"], out[policy]
+    assert torch.equal(l0, l1) and torch.equal(a0["aux"], a1["aux"])
+    assert list(g0) == list(g1)
+    for k, g in g0.items():
+        assert torch.equal(g, g1[k]), k
 
 
 def test_prefill_auto_still_takes_the_kernel():
@@ -194,7 +245,8 @@ def test_backward_through_flash_attention_raises():
 
 def test_guarded_forwards_are_the_wrappers():
     """With an operand that requires a gradient each wrapper's forward is
-    the same call (same values), and its backward raises."""
+    the same call (same values); the attention wrappers' backward raises,
+    the WKV recurrence's is the plain reverse recurrence."""
     rng = np.random.default_rng(4)
 
     def t(*shape, grad=True):
@@ -216,15 +268,19 @@ def test_guarded_forwards_are_the_wrappers():
     with pytest.raises(NotImplementedError, match="decode_attention_bhd"):
         out.sum().backward()
 
+    # the WKV recurrence has a backward now (the reference differentiates
+    # its lax.scan): the gradient is the plain reverse recurrence's
     r, kk, vv = t(1, 6, 2, 16), t(1, 6, 2, 16, grad=False), t(1, 6, 2, 16, grad=False)
     w = torch.rand((1, 6, 2, 16), generator=torch.Generator().manual_seed(0))
     u = t(2, 16, grad=False)
     state = torch.zeros((1, 2, 16, 16))
     y, s = ops.wkv6(r, kk, vv, w, u, None, state_out=state)
     y0, s0 = ops.wkv6(r.detach(), kk, vv, w, u, None)
-    assert s is state and torch.equal(state, s0.detach()) and torch.equal(y.detach(), y0)
-    with pytest.raises(NotImplementedError, match="wkv6_bhsd"):
-        y.sum().backward()
+    assert torch.equal(state, s0) and torch.equal(s.detach(), s0) and torch.equal(y.detach(), y0)
+    y.sum().backward()
+    from repro_torch.kernels.rwkv6 import wkv_bwd_ref
+    want = wkv_bwd_ref(r.detach(), kk, vv, w, u[None], None, torch.ones_like(y0))[0]
+    assert torch.equal(r.grad, want)
     # without a gradient the wrappers are called directly
     with torch.no_grad():
         assert ops.flash_attention(q, k, v).grad_fn is None
@@ -279,18 +335,22 @@ def test_adamw_matches_reference_over_steps(quantize):
 
 def test_adamw_sliced_loop_equals_whole_leaf(monkeypatch):
     """The leading-dim loop for giant stacked leaves gives the whole-leaf
-    update bit for bit (the threshold lowered to reach it)."""
+    update bit for bit (the threshold lowered to reach it), in chunks of
+    one slice and of several."""
     p_np = _np_params(1)
     g = {k: torch.from_numpy(v) for k, v in _np_grads(2, p_np).items()}
     for quantize in (False, True):
         pp = {k: torch.from_numpy(v.copy()) for k, v in p_np.items()}
         st = PA.adamw_init(pp, quantize=quantize)
         a = PA.adamw_update(g, st, pp, 1e-2)
-        monkeypatch.setattr(PA, "_SLICED_MIN", 8)
-        b = PA.adamw_update(g, st, pp, 1e-2)
-        monkeypatch.setattr(PA, "_SLICED_MIN", 1 << 29)
-        for x, y in zip(flatten_with_keys(a[:2]).values(), flatten_with_keys(b[:2]).values()):
-            assert torch.equal(x, y)
+        for chunk in (1, 600, 1 << 26):  # elements a chunk: 1 and 2 slices, the whole leaf
+            monkeypatch.setattr(PA, "_SLICED_MIN", 8)
+            monkeypatch.setattr(PA, "_SLICE_ELEMS", chunk)
+            b = PA.adamw_update(g, st, pp, 1e-2)
+            monkeypatch.setattr(PA, "_SLICED_MIN", 1 << 29)
+            for x, y in zip(flatten_with_keys(a[:2]).values(),
+                            flatten_with_keys(b[:2]).values()):
+                assert torch.equal(x, y)
 
 
 def test_adamw_update_leaves_its_inputs_untouched():
@@ -378,13 +438,15 @@ def test_micro_batches_match_the_whole_batch_and_the_reference():
 
 
 def test_rwkv_loss_forward_runs_and_backward_raises():
-    """RWKV6 training is not ported: its forward runs (the WKV plain
-    version on the CPU), a backward hits the WKV guard."""
+    """RWKV6 trains: its forward runs (the WKV plain version on the CPU) and
+    the backward reaches every leaf through the WKV Function
+    (``test_torch_rwkv6_bwd.py`` holds the gradients to ``jax.grad``)."""
     cfg = configs.get("rwkv6-7b").reduced()
     pm = LanguageModel(cfg, RuntimeFlags(compute_dtype=torch.float32))
     p = pm.init(torch.Generator().manual_seed(0))
     live = map_with_keys(lambda _, x: x.detach().requires_grad_(True), p)
     loss, _ = pm.loss_fn(live, {"tokens": torch.from_numpy(_tokens(b=2, s=8))})
     assert bool(torch.isfinite(loss))
-    with pytest.raises(NotImplementedError, match="wkv6_bhsd"):
-        loss.backward()
+    loss.backward()
+    for k, x in flatten_with_keys(live).items():
+        assert x.grad is not None and bool(torch.isfinite(x.grad).all()), k
