@@ -42,7 +42,7 @@ Then the serving path of RWKV6-7B (phases 15-18): the WKV6 kernel
 (``wkv6_bhsd``) against its plain version at the path's prefill and
 decode shapes and on edge cases (final state bit-equal, y within a stated
 tolerance); the RWKV model on the card against the port on the CPU (full
-width, 2 layers, f32); ``repro_torch.launch.serve`` on ``rwkv6-7b`` at
+width, 1 layer, f32); ``repro_torch.launch.serve`` on ``rwkv6-7b`` at
 full width and depth in bf16 (8 requests of 1024 prompt tokens, 128
 generated), once without faults and once with wall-clock faults, whose
 tokens must equal the fault-free ones, with 32 kernel launches a prefill
@@ -133,8 +133,8 @@ restore): SmolLM-135M's ``loss_fn``, every gradient leaf and one
 ``adamw_update`` on the card against the CPU (full width, 2 layers, f32,
 dense and chunked attention), no flash launch in a training step, and a
 backward through ``attn_impl="pallas"`` that raises; then
-``repro_torch.launch.train`` at full size (30 layers, bf16 compute, 8 x
-1024 tokens) under ``FaultTolerantExecutor`` on the wall clock, through
+``repro_torch.launch.train`` at full width (15 of its 30 layers since PR
+30 cut the script's time; bf16 compute, 8 x 1024 tokens) under ``FaultTolerantExecutor`` on the wall clock, through
 ``AsyncCheckpointer(CheckpointStore(codec="int8"))`` with a
 ``BuddyMemoryCheckpoint`` as the first restore tier, once fault-free and
 once with faults from a seeded trace under the paper-accurate predictor,
@@ -153,16 +153,17 @@ kernels against their plain versions at every new shape (head dim 128
 with query groups 8, 4 and 7, head dim 64 with group 7; Qwen3-30B-A3B,
 qwen2-0.5b, granite-8b, qwen2-72b, Arctic-480B), timed beside their
 bounds, plain versions and ``scaled_dot_product_attention``;
-Qwen3-30B-A3B at full width and 2 layers on the card against the port on
-the CPU, in f32 (routing equal) and bf16 (routing differences counted,
+Qwen3-30B-A3B at full width and 1 layer on the card
+against the port on the CPU, in f32 (routing equal) and bf16 (routing differences counted,
 the card then routed as the CPU), and a repeated prefill bit-equal;
 Qwen3-30B-A3B at full width (8 of its 48 layers since the training
-phases 49-52 took the script's time; 48, 61 GB of bf16 weights, fit)
+phases 49-52 took the script's time, now 4; 48, 61 GB of bf16
+weights, fit; a prefill and the decode step's split at 12 layers)
 through ``serve()`` (8 x 1024 prompt tokens, 128 generated, a snapshot
 every 16), fault-free and faulted with equal tokens, a flash launch a
 layer a prefill and a decode call a layer a step; then qwen2-0.5b at
-full size, granite-8b at 12 of its 36 layers, qwen2-72b at 8 of its 80
-layers and Arctic-480B at 2 of its 35 (32
+full width and 12 of its 24 layers, granite-8b at 6 of its 36 layers,
+qwen2-72b at 4 of its 80 layers and Arctic-480B at 2 of its 35 (32
 generated tokens, fault-free), served the same way.  ``python3
 chip_smoke.py --only families`` runs the environment, the build and these
 phases alone.
@@ -182,9 +183,10 @@ on the CPU, in f32; Jamba at full width through ``serve()`` (1 of its 9
 repeats, 8 of its 16 experts; 8 x 1024 prompt tokens, 128 generated),
 fault-free and faulted with equal tokens, 7 scan launches and 1 flash
 launch a prefill, 7 scan launches and 1 decode call a step; then
-llava-next and musicgen at full size with their 576- and 64-row frontend
-prefixes (32 generated tokens, fault-free and faulted, equal tokens; 32
-and 48 tensor-core flash launches a prefill).  ``python3 chip_smoke.py
+llava-next and musicgen at full width and half depth (16 of 32 and 24 of 48
+layers, to keep the script inside its time limit) with their 576- and
+64-row frontend prefixes (32 generated tokens, fault-free and faulted,
+equal tokens; a tensor-core flash launch a layer a prefill).  ``python3 chip_smoke.py
 --only hybrid`` runs the environment, the build and these phases alone.
 
 Then training the recurrent families (phases 49-52): the WKV and
@@ -192,7 +194,7 @@ selective-scan backward kernels against their plain versions at RWKV6-7B's
 and Jamba's training shapes and odd cases (ds0 / dh0 bit for bit, the same
 bits twice) and timed; RWKV6-7B at full width with 1 layer and Jamba's
 width cut, loss and every gradient leaf card against CPU (and the kernels
-against the plain recurrences on the card); ``train()`` on RWKV6-7B (4
+against the plain recurrences on the card); ``train()`` on RWKV6-7B (2
 layers) and Jamba-1.5-Large (2 layers, 2 of 16 experts) at full width, 8 x
 1024 tokens, fault-free and under faults (paper-accurate predictor, int8
 store behind the memory tier): step ms, forward / backward / AdamW ms, the
@@ -200,6 +202,22 @@ recurrence kernels' launches, peak memory, ``c_block`` / ``c_full``, the
 losses bit-equal up to the first disk restore; remat none / full / dots on
 the RWKV6 cut, bit-equal.  ``python3 chip_smoke.py --only ssm_train`` runs
 the environment, the build and these phases alone.
+
+Then the distributed layer (phase 53), on Qwen3-30B-A3B at full width (128
+experts, top-8): in a subprocess with a world-size-1 NCCL process group
+(file rendezvous) and the (1, 1) ``(data, model)`` mesh, 2 of its 48
+layers, the sharded train step (ZeRO-1 moment specs, f32 AdamW) for two
+steps of 8 x 1024 tokens, bit-equal to the unsharded step (losses,
+parameters), a sharded prefill (one flash launch a layer,
+bit-equal to the unsharded prefill), ``dp_allreduce_int8`` bit-equal to the
+quantize / dequantize round trip, and one MoE layer's expert leaves and
+their moments saved through the int8 store with ``shardings=`` and restored
+onto the mesh (bit-equal to the coded round trip, the codec launches
+counted, ``c_block`` / ``c_full``); then, with no process group, one MoE
+layer's output as 8 expert-parallel shares (16 experts each) run in turn
+and summed in rank order against ``moe_apply`` (bf16 and f32), each
+share's device ms beside ``moe_apply``'s.  ``python3 chip_smoke.py --only
+parallel`` runs the environment, the build and this phase alone.
 
 Every phase prints one JSON line; any failure exits non-zero before the
 last line, which is ``{"ok": true, "device": {...}}``.  Needs one CUDA
@@ -375,6 +393,8 @@ WKV_OTHER_TILE = {"prefill": 4, "decode": 8}
 #: against eight (another summation order, as the card's): prefill logits
 #: 1.9e-5 apart, free-running decode up to 3.9e-3 (22 flipped bf16
 #: roundings of ``last`` / ``cm_last`` over 8 steps); this is 5x that.
+#: phase 16's depth (cut to keep the script inside its time limit)
+RWKV_CPU_LAYERS = 1
 RWKV_CARD_CPU_TOL = {"prefill": 1e-4, "decode_same_cache": 1e-4, "decode_own_cache": 2e-2}
 
 
@@ -1728,12 +1748,12 @@ def rwkv_phases(dev, wkv_regs: dict) -> list:
          state="bit-equal to the plain version in every case")
 
     # ---- 16. the RWKV model on the card against the port on the CPU ---- #
-    # (full width, 2 layers, f32; the bonus u, the decays w0, the token-shift
+    # (full width, RWKV_CPU_LAYERS layers, f32; the bonus u, the decays w0, the token-shift
     # lerps mu and the group-norm scale ln drawn from a seed, with the CPU
     # tests' laws, since the init leaves them zero or constant; the CPU side
     # on one thread)
     t0 = time.monotonic()
-    small = dataclasses.replace(cfg, num_layers=2)
+    small = dataclasses.replace(cfg, num_layers=RWKV_CPU_LAYERS)
     flags = RuntimeFlags(compute_dtype=torch.float32)
     m_cpu, m_gpu = LanguageModel(small, flags), LanguageModel(small, flags)
     p_cpu = m_cpu.init(torch.Generator().manual_seed(SERVE_SEED))
@@ -1771,7 +1791,8 @@ def rwkv_phases(dev, wkv_regs: dict) -> list:
     check(bool(torch.isfinite(lg).all()), "card logits not finite")
     for k_, tol in RWKV_CARD_CPU_TOL.items():
         check(diffs[k_] <= tol, f"RWKV card vs CPU: {k_} logits differ by {diffs[k_]} > {tol}")
-    emit("rwkv_card_vs_cpu", seconds=time.monotonic() - t0, layers=2, d_model=small.d_model,
+    emit("rwkv_card_vs_cpu", seconds=time.monotonic() - t0, layers=RWKV_CPU_LAYERS,
+         d_model=small.d_model,
          heads=H, head_dim=hd, d_ff=small.d_ff, vocab=small.vocab_size, batch=2, prompt=128,
          decode_steps=8, compute="float32", max_abs_logit=float(lc.abs().max()),
          max_abs_diff=diffs, prefill_state_max_abs_diff=state_diff, tol=RWKV_CARD_CPU_TOL,
@@ -3825,14 +3846,16 @@ def campaign_phases(dev, main_res, main_wall: float) -> None:
 TRAIN_CHECK_SEED = 0
 TRAIN_CHECK_BATCH = (2, 128)
 TRAIN_CHECK_TOL = {"loss": 1e-5, "grad": 1e-4, "adamw": 1e-6}
-#: phase 39: repro_torch.launch.train at full size (30 layers, bf16
-#: compute, 8 x 1024 tokens, seed 0); the faulted run under the
+#: phase 39: repro_torch.launch.train at full width, TRAIN_LAYERS of its 30
+#: layers (bf16 compute, 8 x 1024 tokens, seed 0; cut from 30 layers to keep the
+#: script inside its time limit); the faulted run under the
 #: paper-accurate predictor, its faults from the seeded trace of this MTBF,
 #: on the executor's simulated clock at TRAIN_SIM_STEP_S a step (the step
 #: measured on the H100), so that the same steps fault on every host: 3
 #: saves, a memory restore of step 22 and a disk restore of step 55 (the
 #: schedule tests/test_torch_executor.py replays on the CPU)
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEED = 60, 8, 1024, 0
+TRAIN_LAYERS = 15
 TRAIN_MTBF, TRAIN_SIM_STEP_S = 12.0, 0.31
 TRAIN_LR = 3e-4
 #: every second fault loses the buddy's replica too, so the disk tier
@@ -3844,8 +3867,9 @@ TRAIN_CORRELATED_EVERY = 2
 #: absmax).  Steps whose last run followed only exact memory restores must
 #: be bit-equal (the phase runs under torch.use_deterministic_algorithms)
 TRAIN_LOSS_RTOL = 1e-2
-#: phase 40: the CLI on the card, reduced config
-TRAIN_CLI_ARGS = ("--steps", "30", "--inject-faults", "--predictor", "paper-accurate",
+#: phase 40: the CLI on the card, reduced config (15 steps, to keep the
+#: script inside its time limit)
+TRAIN_CLI_ARGS = ("--steps", "15", "--inject-faults", "--predictor", "paper-accurate",
                   "--fault-mtbf", "0.3", "--memory-tier", "--correlated-every", "2",
                   "--codec", "int8")
 
@@ -4043,6 +4067,7 @@ def train_phases(dev, kernels: list) -> None:
 
     # ---- 39. the training path, fault-free and faulted ------------------ #
     t0 = time.monotonic()
+    path_cfg = dataclasses.replace(cfg, num_layers=TRAIN_LAYERS)
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     torch.use_deterministic_algorithms(True)
     kw = dict(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR,
@@ -4057,7 +4082,7 @@ def train_phases(dev, kernels: list) -> None:
             FA.flash_attention_bhsd.launches = 0
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
-            runs[name] = train(cfg, inject_faults=inject, **kw)
+            runs[name] = train(path_cfg, inject_faults=inject, **kw)
             torch.cuda.synchronize()
             runs[name]["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
             codec[name] = {"quantize_blocks": CK.quantize_blocks.launches,
@@ -4101,7 +4126,8 @@ def train_phases(dev, kernels: list) -> None:
                                                  r_meas, TRAIN_MTBF, rec, prec)),
             "codec_launches": codec[name], "peak_bytes": r["peak_bytes"],
         }
-    emit("train_path", seconds=time.monotonic() - t0, layers=cfg.num_layers,
+    emit("train_path", seconds=time.monotonic() - t0, layers=path_cfg.num_layers,
+         of_layers=cfg.num_layers,
          batch=[TRAIN_BATCH, TRAIN_SEQ], compute="bfloat16", steps=TRAIN_STEPS,
          lr=TRAIN_LR, mtbf=TRAIN_MTBF, sim_step_s=TRAIN_SIM_STEP_S, deterministic=True,
          runs=summary, fault_times=[t for t in hit["fault_times"] if t <= hit["clock_s"]],
@@ -4133,7 +4159,7 @@ def train_phases(dev, kernels: list) -> None:
         if k["name"] in ("quantize_blocks", "dequantize_blocks"):
             k["train_path_launches"] = codec["faulted"][k["name"]]
     del runs, clean, hit
-    train_step_split(cfg, dev)
+    train_step_split(path_cfg, dev)
 
     # ---- 40. the train CLI on the card ---------------------------------- #
     t0 = time.monotonic()
@@ -4157,16 +4183,19 @@ def train_phases(dev, kernels: list) -> None:
 #: the families served on the card in phases 43-44, phase 41's attention
 #: shapes taken from their configs
 FAMILIES = ("qwen3-moe-30b-a3b", "qwen2-0.5b", "granite-8b", "qwen2-72b", "arctic-480b")
-#: Qwen3-30B-A3B's serving depth: 8 of its 48 layers through serve() (all
-#: 48, 61 GB of bf16 weights, fit the card, and were served here until the
+#: Qwen3-30B-A3B's serving depth: 4 of its 48 layers through serve() (cut to keep
+#: the script inside its time limit; all 48, 61 GB of bf16 weights, fit the card, and were served here until the
 #: recurrent families' training phases 49-52 needed the script's time; a
-#: prefill and the decode step's split still run at all 48); the depth
-#: cuts of the two configs that do not fit and of granite-8b (12 of its
-#: 36 layers, for the same reason), and Arctic's shorter generation
-QWEN3_LAYERS = 8
-DEPTH_CUTS = {"qwen2-72b": 8, "arctic-480b": 2, "granite-8b": 12}
+#: prefill and the decode step's split ran at all 48 before); the
+#: depth cuts of the two configs that do not fit and of granite-8b (for
+#: the same reason), and Arctic's shorter generation
+QWEN3_LAYERS = 4
+#: phase 42's depth, and phase 43's prefill and decode
+#: split (cut from all 48 layers to keep the script inside its time limit)
+QWEN3_CPU_LAYERS, QWEN3_SPLIT_LAYERS = 1, 12
+DEPTH_CUTS = {"qwen2-72b": 4, "arctic-480b": 2, "granite-8b": 6, "qwen2-0.5b": 12}
 ARCTIC_GEN = 32
-#: Qwen3 at full width, 2 layers, on the card against the port on the CPU.
+#: Qwen3 at full width, QWEN3_CPU_LAYERS, on the card against the port on the CPU.
 #: f32: the routing must be equal (expert ids and keep mask of every MoE
 #: call); the logits tolerances are those of tests/test_torch_families.py
 #: (measured there against the reference: decode steps move where a K/V
@@ -4188,8 +4217,10 @@ FRONTEND_FAMILIES = ("llava-next-mistral-7b", "musicgen-large")
 #: attention) and 8 of its 16 experts, top-2 kept: 25.9 B parameters, 51.8
 #: GB of bf16 weights (one repeat with every expert is 90.5 GB)
 JAMBA_LAYERS, JAMBA_EXPERTS = 8, 8
-#: generated tokens of the frontend families' serving runs
+#: generated tokens of the frontend families' serving runs, and their
+#: depth (half their layers, to keep the script inside its time limit)
 FRONTEND_GEN = 32
+FRONTEND_LAYERS = {"llava-next-mistral-7b": 16, "musicgen-large": 24}
 SCAN_SOURCE = "src/repro_torch/kernels/csrc/mamba_scan.cu"
 #: the lax.scan the kernel takes the place of (no TPU kernel: the
 #: reference has no Pallas kernel for it)
@@ -4500,11 +4531,11 @@ def family_phases(dev, kernels: list) -> None:
     emit("family_attn_check", seconds=time.monotonic() - t0, shapes=shapes, tol=ATTN_TOL,
          nvidia_smi=smi_line())
 
-    # ---- 42. Qwen3 at full width, 2 layers: card against CPU ----------- #
+    # ---- 42. Qwen3 at full width, 1 layer: card against CPU ------------ #
     t0 = time.monotonic()
     cpu_threads = torch.get_num_threads()
     torch.set_num_threads(1)
-    small = dataclasses.replace(get("qwen3-moe-30b-a3b"), num_layers=2)
+    small = dataclasses.replace(get("qwen3-moe-30b-a3b"), num_layers=QWEN3_CPU_LAYERS)
     g = torch.Generator(device=dev)
     g.manual_seed(SERVE_SEED)
     p_gpu = LanguageModel(small).init(g)  # f32 masters, made on the card
@@ -4582,7 +4613,8 @@ def family_phases(dev, kernels: list) -> None:
     torch.set_num_threads(cpu_threads)
     del p_gpu, p_cpu
     torch.cuda.empty_cache()
-    emit("qwen3_card_vs_cpu", seconds=time.monotonic() - t0, layers=2, batch=2, prompt=64,
+    emit("qwen3_card_vs_cpu", seconds=time.monotonic() - t0, layers=QWEN3_CPU_LAYERS,
+         batch=2, prompt=64,
          decode_steps=steps, cpu_threads=1, results=res42)
 
     # ---- 43. Qwen3-30B-A3B at full size through serve() ---------------- #
@@ -4594,9 +4626,9 @@ def family_phases(dev, kernels: list) -> None:
     check(rec["peak_bytes"] <= 76 * 2**30, f"Qwen3 serving peaked at {rec['peak_bytes']} bytes")
     paths = {cfg.name: rec["launches"]}
     torch.cuda.empty_cache()
-    # all 48 layers (61 GB of bf16 weights): a prefill of the serve's
-    # prompts and the decode step's split, under the serve's memory limit
-    full = dataclasses.replace(cfg, num_layers=rec["of_layers"])
+    # QWEN3_SPLIT_LAYERS of the 48 layers: a prefill of the serve's prompts
+    # and the decode step's split, under the serve's memory limit
+    full = dataclasses.replace(cfg, num_layers=QWEN3_SPLIT_LAYERS)
     # a decode step reads every weight but the embedding table (8 rows of
     # it) and, at the middle of the decode, the K/V rows up to pos
     step_bytes = (2 * (full.param_count() - full.vocab_size * full.d_model)
@@ -4804,7 +4836,8 @@ def hybrid_phases(dev, kernels: list, scan_regs: dict) -> None:
     and timed, the attention kernels at the frontend families' shapes;
     one Mamba block at full width and Jamba at a width cut, card against
     CPU; Jamba served at full width (1 of 9 repeats, 8 of 16 experts);
-    llava-next and musicgen served at full size with their prefixes.
+    llava-next and musicgen served at full width, half depth, with their
+    prefixes.
     Appends the scan kernel's entry to ``kernels`` and adds the new shapes
     and paths to the attention entries."""
     import dataclasses
@@ -4968,9 +5001,10 @@ def hybrid_phases(dev, kernels: list, scan_regs: dict) -> None:
     # ---- 48. llava-next and musicgen with their prefixes ---------------- #
     for name in FRONTEND_FAMILIES:
         t0 = time.monotonic()
-        fcfg = dataclasses.replace(get(name), param_dtype="bfloat16")
+        fcfg = dataclasses.replace(get(name), param_dtype="bfloat16",
+                                   num_layers=FRONTEND_LAYERS[name])
         frec = serve_family(fcfg, FRONTEND_GEN, True, dev)
-        frec["of_layers"] = fcfg.num_layers
+        frec["of_layers"] = get(name).num_layers
         paths[name] = frec["launches"]
         torch.cuda.empty_cache()
         emit("frontend_serve", seconds=time.monotonic() - t0, **frec, nvidia_smi=smi_line())
@@ -5059,7 +5093,8 @@ SSM_CHECK_TOL = {"loss": 1e-5, "grad": {"rwkv": 5e-4, "mamba": 1e-4},
 #: half a code step of their block: 4.7e-3 three steps after it; 7.8e-2
 #: while the second moments were coded too; Jamba's bf16 and int8 leaves
 #: and its second moments' scales are stored raw)
-RWKV_TRAIN_LAYERS, JAMBA_TRAIN_EXPERTS = 4, 2
+#: (RWKV6 at 2 layers to keep the script inside its time limit)
+RWKV_TRAIN_LAYERS, JAMBA_TRAIN_EXPERTS = 2, 2
 SSM_TRAIN_SEED = 3
 SSM_TRAIN = {"rwkv": {"steps": 8, "mtbf": 2.5, "sim_step_s": 0.32},
              "jamba": {"steps": 6, "mtbf": 4.0, "sim_step_s": 0.97}}
@@ -5622,6 +5657,314 @@ def ssm_train_phases(dev, kernels: list) -> None:
         })
 
 
+# --------------------------------------------------------------------------- #
+# The distributed layer (phase 53)
+# --------------------------------------------------------------------------- #
+QWEN3 = "qwen3-moe-30b-a3b"
+PAR_LAYERS = 2
+PAR_BATCH = (8, 1024)
+PAR_SEED = 0
+PAR_STEPS = 2
+#: expert-parallel shares run in turn: M ranks of the model axis
+PAR_EP_M = 8
+#: the shares summed in rank order against moe_apply, of max|y| (the same
+#: pairs; a token's outputs summed in another association, each add
+#: rounded: bf16 the repo's 2e-2, a few ulps; measured 9.3e-3 in bf16,
+#: 1.4e-7 in f32, measured on one H100)
+EP_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+#: the aux loss rebuilt from all-reduced sums (route's me / ce): the one
+#: place the sharded step may leave the unsharded step's bits
+AUX_RTOL = 1e-6
+PAR_CHILD_S = 300
+
+
+def parallel_child(out: str) -> int:
+    """Phase 53 (a), (c), (d) in a process of its own (``chip_smoke.py
+    --parallel-child OUT``): a world-size-1 NCCL process group through a
+    file rendezvous in ``OUT``, the (1, 1) ``(data, model)`` mesh, and
+    Qwen3-30B-A3B at full width at 2 layers; the record is written to
+    ``OUT/parallel.json``."""
+    sys.path.insert(0, str(SRC))
+    # two 2-layer training states take turns on the card: let freed blocks
+    # be reused at other sizes (set before CUDA starts in this process)
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{out}/rdzv", rank=0, world_size=1,
+                            timeout=timedelta(seconds=120))
+    try:
+        rec = parallel_child_body(out, dev)
+    finally:
+        dist.destroy_process_group()
+    Path(out, "parallel.json").write_text(json.dumps(rec))
+    return 0
+
+
+def parallel_child_body(out: str, dev) -> dict:
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.checkpoint.store import decode_leaf, encode_leaf, flatten_with_keys
+    from repro_torch.configs import get
+    from repro_torch.kernels.ckpt_codec import dequantize_blocks, quantize_blocks
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.launch.steps import (
+        build_model, build_prefill_step, build_train_step, moment_shardings, param_shardings,
+    )
+    from repro_torch.models import RuntimeFlags
+    from repro_torch.models.moe import EXPERT_LEAVES
+    from repro_torch.optim import AdamWState, adamw_init, dp_allreduce_int8
+    from repro_torch.optim.compress import _blockwise, _decode
+    from repro_torch.parallel.sharding import (
+        NamedSharding, PartitionSpec, local_block, shard_tree,
+    )
+
+    cfg = dataclasses.replace(get(QWEN3), num_layers=PAR_LAYERS)
+    flags = RuntimeFlags()
+    B, S = PAR_BATCH
+    rng = np.random.default_rng(PAR_SEED)
+    batches = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)).to(dev)
+               for _ in range(PAR_STEPS)]
+    rec = {"layers": PAR_LAYERS, "of_layers": get(QWEN3).num_layers, "batch": list(PAR_BATCH),
+           "steps": PAR_STEPS, "experts": cfg.moe.num_experts, "top_k": cfg.moe.top_k}
+
+    def fresh(model):
+        g = torch.Generator(device=dev)
+        g.manual_seed(PAR_SEED)
+        return model.init(g)
+
+    def run_steps(step, p, o, rows):
+        metrics = []
+        for b in batches:
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            p, o, m = step(p, o, {"tokens": rows(b)})
+            metrics.append({k: float(v) for k, v in m.items()})  # syncs
+            metrics[-1]["step_ms"] = (time.monotonic() - t) * 1e3
+        return p, o, metrics
+
+    # ---- (a) the unsharded step, then the sharded one ------------------ #
+    t0 = time.monotonic()
+    mu = build_model(cfg, flags)
+    p = fresh(mu)
+    p, o, met_u = run_steps(build_train_step(mu, lr=TRAIN_LR, total_steps=100), p,
+                            adamw_init(p), lambda b: b)
+    host = {k: v.cpu() for k, v in flatten_with_keys(p).items()}
+    del p, o, mu
+    torch.cuda.empty_cache()
+    unsharded_s = time.monotonic() - t0
+
+    t0 = time.monotonic()
+    mesh = make_mesh_compat((1, 1), ("data", "model"), device=dev)
+    ms = build_model(cfg, flags, mesh)
+    p_sh, m_sh = param_shardings(ms), moment_shardings(ms, False)
+    o_sh = AdamWState(NamedSharding(mesh, PartitionSpec()), m_sh)
+    full = fresh(ms)
+    p, o = shard_tree(full, p_sh), shard_tree(adamw_init(full), o_sh)
+    del full
+    rows_sh = NamedSharding(mesh, PartitionSpec("data"))
+    torch.cuda.reset_peak_memory_stats(dev)
+    p, o, met_s = run_steps(build_train_step(ms, lr=TRAIN_LR, total_steps=100), p, o,
+                            lambda b: local_block(b, rows_sh))
+    sharded_s = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    differ = [k for k, v in flatten_with_keys(p).items() if not torch.equal(v.cpu(), host[k])]
+    aux_rel = max(abs(a["aux"] - b["aux"]) / max(abs(b["aux"]), 1e-30)
+                  for a, b in zip(met_s, met_u))
+    check(all(a[k] == b[k] for a, b in zip(met_s, met_u) for k in ("loss", "ce", "grad_norm")),
+          f"sharded step losses {[m['loss'] for m in met_s]} differ from the unsharded "
+          f"{[m['loss'] for m in met_u]}")
+    check(aux_rel <= AUX_RTOL, f"sharded aux {aux_rel} (relative) from the unsharded")
+    check(not differ, f"sharded step: parameters {differ[:4]} differ from the unsharded "
+          "step's bits")
+    check(all(np.isfinite(m["loss"]) for m in met_s), "non-finite loss")
+    rec["step"] = {"unsharded": met_u, "sharded": met_s, "losses_bit_equal": True,
+                   "params_bit_equal": True,
+                   "aux_max_rel_diff": aux_rel, "aux_rtol": AUX_RTOL,
+                   "aux_place": "route(): me / ce from the data group's all-reduced sums",
+                   "unsharded_s": unsharded_s, "sharded_s": sharded_s,
+                   "sharded_peak_bytes": peak, "leaves": len(host)}
+    del host
+
+    # the sharded prefill: one flash launch a layer, the unsharded bits
+    flash_attention_bhsd.launches = flash_attention_bhsd.tc_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    logits, _ = build_prefill_step(ms, S + 8)(p, {"tokens": local_block(batches[0], rows_sh)})
+    torch.cuda.synchronize()
+    prefill_s = time.monotonic() - t0
+    fl, tc = flash_attention_bhsd.launches, flash_attention_bhsd.tc_launches
+    want, _ = build_prefill_step(build_model(cfg, flags), S + 8)(p, {"tokens": batches[0]})
+    check(fl == PAR_LAYERS and tc == PAR_LAYERS,
+          f"sharded prefill: {fl} flash launches ({tc} tensor-core), {PAR_LAYERS} layers")
+    check(bool(torch.isfinite(logits).all()), "sharded prefill: non-finite logits")
+    same = bool(torch.equal(logits, want))
+    check(same, "sharded prefill: logits differ from the unsharded prefill's bits")
+    rec["prefill"] = {"seconds": prefill_s, "flash_launches": fl, "tc_launches": tc,
+                      "bit_equal_to_unsharded": same, "logits_shape": list(logits.shape)}
+    del logits, want
+
+    # ---- (c) dp_allreduce_int8 at world size 1 ---------------------------- #
+    g = torch.Generator(device=dev)
+    g.manual_seed(PAR_SEED + 3)
+    x = torch.randn(2**24 + 100, generator=g, device=dev)
+    got = dp_allreduce_int8(x, mesh, "data")
+    q, sc = _blockwise(x)
+    ref = _decode(q, sc, x.numel(), x.shape)
+    check(torch.equal(got.view(torch.int32), ref.view(torch.int32)),
+          "dp_allreduce_int8 at world size 1 differs from the quantize -> dequantize trip")
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(5):
+        dp_allreduce_int8(x, mesh, "data")
+    b.record()
+    torch.cuda.synchronize()
+    rec["dp_allreduce_int8"] = {"elements": x.numel(), "bit_equal": True,
+                                "ms": a.elapsed_time(b) / 5}
+    del x, got, q, sc, ref
+
+    # ---- (d) a ZeRO-1 state's save and sharded restore ------------------- #
+    flat_p, flat_o = flatten_with_keys(p), flatten_with_keys(o.moments)
+    flat_ps, flat_ms = flatten_with_keys(p_sh), flatten_with_keys(m_sh)
+    tree, sh = {"params": {}, "opt": {}}, {"params": {}, "opt": {}}
+    for n in EXPERT_LEAVES:
+        k = f"blocks/0/mlp/{n}"
+        tree["params"][n] = flat_p[k][0]  # layer 0 of the stack
+        sh["params"][n] = NamedSharding(mesh, PartitionSpec(*tuple(flat_ps[k].spec)[1:]))
+        tree["opt"][n], sh["opt"][n] = {}, {}
+        for mom in ("m", "v"):
+            tree["opt"][n][mom] = flat_o[f"{k}/{mom}"][0]
+            sh["opt"][n][mom] = NamedSharding(
+                mesh, PartitionSpec(*tuple(flat_ms[f"{k}/{mom}"].spec)[1:]))
+    del p, o, flat_p, flat_o
+    torch.cuda.empty_cache()
+    store = CheckpointStore(str(Path(out, "zero1")), codec="int8")
+    quantize_blocks.launches = dequantize_blocks.launches = 0
+    res = store.save(1, tree, shardings=sh)
+    q_launches = quantize_blocks.launches
+    restored = store.restore(1, device=dev, shardings=sh)
+    dq_launches = dequantize_blocks.launches
+    n_bad, nbytes = 0, 0
+    for k, x in flatten_with_keys(tree).items():
+        payload, meta = encode_leaf(x)
+        trip = decode_leaf(payload, meta, None, dev)
+        n_bad += int(not torch.equal(restored[k].view(torch.int32), trip.view(torch.int32)))
+        nbytes += x.numel() * x.element_size()
+    check(n_bad == 0, f"ZeRO-1 restore: {n_bad} leaves differ from the coded round trip")
+    n_leaves = len(flatten_with_keys(tree))
+    check(q_launches == n_leaves and dq_launches == n_leaves,
+          f"ZeRO-1 save / restore: {q_launches} / {dq_launches} codec launches, {n_leaves} leaves")
+    rec["zero1_ckpt"] = {"leaves": n_leaves, "raw_bytes": nbytes,
+                         "stored_bytes": res["stored_bytes"], "c_block": res["t_snapshot"],
+                         "c_full": res["t_total"], "quantize_launches": q_launches,
+                         "dequantize_launches": dq_launches, "bit_equal_to_round_trip": True}
+    return rec
+
+
+def ep_shares(dev) -> dict:
+    """Phase 53 (b): one MoE layer of Qwen3-30B-A3B at full width (128
+    experts, top-8, the config's capacity factor) on 8 x 1024 tokens, its
+    output as PAR_EP_M expert-parallel shares run in turn (no process
+    group) and summed in rank order, against ``moe_apply``; the device ms
+    of each share beside moe_apply's."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.models.moe import init_moe, moe_apply, moe_expert_share, route
+
+    cfg = dataclasses.replace(get(QWEN3), num_layers=1)
+    E, D = cfg.moe.num_experts, cfg.d_model
+    n = E // PAR_EP_M
+    g = torch.Generator(device=dev)
+    g.manual_seed(PAR_SEED + 1)
+    p32 = init_moe(g, cfg, torch.float32)
+    x32 = torch.randn(PAR_BATCH + (D,), generator=g, device=dev)
+    out = {}
+    for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        p = {k: v if k == "router" else v.to(dt) for k, v in p32.items()}
+        x = x32.to(dt)
+        xt = x.reshape(-1, D)
+        r = route(p, xt, cfg)
+        r2 = route(p, xt, cfg)
+        same = bool(torch.equal(r.expert_ids, r2.expert_ids) and torch.equal(r.keep, r2.keep))
+        check(same, f"EP shares, {name}: the routing changed between two calls")
+        want, _ = moe_apply(p, x, cfg)
+        slices = [{k: p[k][m * n:(m + 1) * n] for k in ("wi_gate", "wi_up", "wo")}
+                  for m in range(PAR_EP_M)]
+        shares = [moe_expert_share(xt, r, s["wi_gate"], s["wi_up"], s["wo"], m, PAR_EP_M)
+                  for m, s in enumerate(slices)]
+        y = shares[0]
+        for s in shares[1:]:
+            y = y + s
+        err = float((y.float() - want.reshape(-1, D).float()).abs().max())
+        scale = float(want.float().abs().max())
+        check(err <= EP_TOL[name] * scale,
+              f"EP shares, {name}: {err} from moe_apply (max|y| {scale})")
+        share_ms = [device_ms([lambda m=m, s=s: moe_expert_share(
+            xt, r, s["wi_gate"], s["wi_up"], s["wo"], m, PAR_EP_M)], samples=5)[0]
+            for m, s in enumerate(slices)]
+        apply_ms = device_ms([lambda: moe_apply(p, x, cfg)], samples=5)[0]
+        out[name] = {"experts_per_rank": n, "max_abs_diff": err, "max_abs_y": scale, "tol_of_max": EP_TOL[name],
+                     "routing_equal": same, "dropped_pairs": int((~r.keep).sum()),
+                     "capacity": r.capacity, "share_ms": share_ms,
+                     "shares_ms_sum": sum(share_ms), "moe_apply_ms": apply_ms}
+        del p, x, xt, r, r2, want, shares, y, slices
+    del p32, x32
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_phases(dev, kernels: list) -> None:
+    """Phase 53: the distributed layer on the card.  (a) Qwen3-30B-A3B at
+    full width (128 experts, top-8) at 2 of its 48 layers: the sharded
+    train step (ZeRO-1 specs, f32 AdamW) at world size 1 over NCCL, two
+    steps of 8 x 1024 tokens, bit-equal to the unsharded step, and a
+    sharded prefill (one flash launch a layer); (b) one MoE layer's
+    expert-parallel shares, m = 0..7 of 8, run in turn against
+    ``moe_apply``; (c) ``dp_allreduce_int8`` at world size 1 over NCCL; (d)
+    a ZeRO-1 state of one MoE layer's expert leaves and their moments
+    saved through the int8 store and restored with ``shardings=``.  (a),
+    (c) and (d) run in a subprocess with its own process group.  Adds the
+    path's launches to the flash and codec entries of ``kernels``."""
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--parallel-child",
+                               tmp], capture_output=True, text=True, timeout=PAR_CHILD_S)
+        check(proc.returncode == 0, f"phase 53 child exited {proc.returncode}:\n"
+              f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+        rec = json.loads(Path(tmp, "parallel.json").read_text())
+    smi = smi_line()
+    emit("parallel_step", seconds=time.monotonic() - t0, world_size=1, backend="nccl",
+         mesh={"data": 1, "model": 1}, **{k: rec[k] for k in (
+             "layers", "of_layers", "batch", "steps", "experts", "top_k", "step", "prefill")},
+         nvidia_smi=smi)
+    emit("parallel_dp_allreduce_int8", **rec["dp_allreduce_int8"], nvidia_smi=smi)
+    emit("parallel_zero1_ckpt", **rec["zero1_ckpt"], nvidia_smi=smi)
+    t1 = time.monotonic()
+    shares = ep_shares(dev)
+    emit("parallel_ep_shares", seconds=time.monotonic() - t1, ranks=PAR_EP_M,
+         tokens=PAR_BATCH[0] * PAR_BATCH[1],
+         results=shares, nvidia_smi=smi)
+    paths = {"flash_attention_bhsd": rec["prefill"]["flash_launches"],
+             "quantize_blocks": rec["zero1_ckpt"]["quantize_launches"],
+             "dequantize_blocks": rec["zero1_ckpt"]["dequantize_launches"]}
+    for k in kernels:
+        if k["name"] in paths:
+            k["parallel_path_launches"] = paths[k["name"]]
+    emit("parallel_phases", seconds=time.monotonic() - t0)
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -5629,13 +5972,15 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--campaign-fault"]:
         return campaign_fault_child(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--parallel-child"]:
+        return parallel_child(sys.argv[2])
     # "--only train" / "--only families" / "--only hybrid" / "--only
-    # ssm_train": the environment, the build and phases 38-40 / 41-44 /
-    # 45-48 / 49-52 alone
+    # ssm_train" / "--only parallel": the environment, the build and phases
+    # 38-40 / 41-44 / 45-48 / 49-52 / 53 alone
     only = sys.argv[2] if sys.argv[1:2] == ["--only"] and len(sys.argv) > 2 else None
-    if only not in (None, "train", "families", "hybrid", "ssm_train"):
-        print(f"chip_smoke: --only takes train, families, hybrid or ssm_train, not {only!r}",
-              file=sys.stderr)
+    if only not in (None, "train", "families", "hybrid", "ssm_train", "parallel"):
+        print("chip_smoke: --only takes train, families, hybrid, ssm_train or parallel, "
+              f"not {only!r}", file=sys.stderr)
         return 2
     t_script = time.monotonic()
     sys.path.insert(0, str(SRC))
@@ -5689,6 +6034,10 @@ def main() -> int:
         return 0
     if only == "ssm_train":
         ssm_train_phases(dev, [])
+        emit("total", seconds=time.monotonic() - t_script)
+        return 0
+    if only == "parallel":
+        parallel_phases(dev, [])
         emit("total", seconds=time.monotonic() - t_script)
         return 0
 
@@ -5886,6 +6235,8 @@ def main() -> int:
     t0 = time.monotonic()
     ssm_train_phases(dev, kernels)
     emit("ssm_train_phases", seconds=time.monotonic() - t0)
+    torch.cuda.empty_cache()  # phase 53's child process needs the card's memory
+    parallel_phases(dev, kernels)
     emit("total", seconds=time.monotonic() - t_script)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -257,6 +257,22 @@ def latest_step(root: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
+def _blocker(shardings):
+    """``(key, full leaf) -> this rank's block`` under ``shardings`` (one
+    NamedSharding or a tree of them; the leaf itself without)."""
+    if shardings is None:
+        return lambda key, x: x
+    from ..parallel.sharding import NamedSharding, local_block
+
+    flat = None if isinstance(shardings, NamedSharding) else flatten_with_keys(shardings)
+
+    def blocked(key, x):
+        sh = shardings if flat is None else flat.get(key)
+        return x if sh is None else local_block(x, sh).clone()
+
+    return blocked
+
+
 @dataclass
 class Snapshot:
     """The device half of a save: per leaf key, the host array ``np.save``
@@ -340,19 +356,50 @@ class CheckpointStore:
             "stored_bytes": float(stored_bytes),
         }
 
-    def save(self, step: int, tree, prev_tree=None) -> Dict[str, float]:
+    def save(self, step: int, tree, prev_tree=None, shardings=None) -> Optional[Dict[str, float]]:
         """Blocking save: :meth:`snapshot` then :meth:`write`.  Returns
-        timing/byte metrics."""
-        return self.write(step, self.snapshot(tree, prev_tree))
+        timing/byte metrics.
+
+        With ``shardings`` (a :class:`..parallel.sharding.NamedSharding`
+        for every leaf, or a tree of them), ``tree`` and ``prev_tree`` hold
+        this rank's blocks: every leaf is all-gathered over the mesh (a
+        collective: every rank calls ``save``), rank 0 writes the full
+        leaves, so the files are those of an unsharded save, and the ranks
+        meet at a barrier after the commit.  Ranks other than 0 return
+        ``None``."""
+        if shardings is None:
+            return self.write(step, self.snapshot(tree, prev_tree))
+        import torch.distributed as dist
+
+        from ..parallel.sharding import gather_tree
+
+        tree = gather_tree(tree, shardings)
+        if prev_tree is not None:
+            prev_tree = gather_tree(prev_tree, shardings)
+        try:
+            if dist.get_rank() == 0:
+                return self.write(step, self.snapshot(tree, prev_tree))
+            return None
+        finally:
+            dist.barrier()
 
     # ------------------------------------------------------------------ #
-    def restore(self, step: int, target=None, prev_tree=None, device=None):
+    def restore(self, step: int, target=None, prev_tree=None, device=None, shardings=None):
         """Restore ``step``.  With ``target`` (a tree of tensors), each leaf
         is decoded on its target leaf's device, cast to its dtype, and the
         target's structure is returned; without, a flat ``{key: tensor}``
         on ``device`` (the current CUDA device unless the caller passes
-        ``"cpu"``; without CUDA and without a device it raises)."""
+        ``"cpu"``; without CUDA and without a device it raises).
+
+        ``shardings`` (one :class:`..parallel.sharding.NamedSharding` for
+        every leaf, or a tree of them keyed as the checkpoint) re-shards
+        onto a mesh: each leaf is decoded whole and this rank keeps its
+        block (``target``, if given, holds blocks).  Any mesh whose blocks
+        divide the leaves will do, so a step written from a 2 x 2 mesh
+        restores onto 1 x 2 or onto one rank.  ``prev_tree`` is the full
+        previous tree."""
         default = resolve_device(device) if target is None else None
+        blocked = _blocker(shardings)
         d = self._dir(step)
         with open(os.path.join(d, "manifest.json"), "rb") as f:
             mbytes = f.read()
@@ -373,11 +420,11 @@ class CheckpointStore:
             if _crc(payload) != meta["crc"]:
                 raise IOError(f"checkpoint corruption in {key} at step {step}")
             if flat_target is None:
-                out[key] = decode_leaf(payload, meta, prev_flat.get(key), default)
+                out[key] = blocked(key, decode_leaf(payload, meta, prev_flat.get(key), default))
             elif key in flat_target:
                 ref = flat_target[key]
                 x = decode_leaf(payload, meta, prev_flat.get(key), ref.device)
-                out[key] = x.to(ref.dtype)
+                out[key] = blocked(key, x).to(ref.dtype)
 
         if flat_target is None:
             return out
@@ -400,7 +447,7 @@ class CheckpointStore:
         return sorted(out)
 
     def restore_latest(
-        self, target=None, prev_tree=None, device=None
+        self, target=None, prev_tree=None, device=None, shardings=None
     ) -> Optional[Tuple[int, Any]]:
         """Restore the newest checkpoint that passes integrity checks.
 
@@ -415,6 +462,7 @@ class CheckpointStore:
             try:
                 tree = self.restore(
                     step, target=target, prev_tree=prev_tree, device=device,
+                    shardings=shardings,
                 )
                 return step, tree
             except (IOError, OSError, ValueError, KeyError, EOFError,

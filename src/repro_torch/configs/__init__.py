@@ -7,10 +7,10 @@ from __future__ import annotations
 from importlib import import_module
 from typing import List
 
-from .base import ArchConfig, FTSpec, LayerSpec, MoESpec, SSMSpec
+from .base import SHAPES, ArchConfig, FTSpec, LayerSpec, MoESpec, ShapeConfig, SSMSpec
 
-__all__ = ["ArchConfig", "FTSpec", "LayerSpec", "MoESpec", "SSMSpec",
-           "ARCH_NAMES", "get"]
+__all__ = ["ArchConfig", "FTSpec", "LayerSpec", "MoESpec", "SSMSpec", "ShapeConfig",
+           "SHAPES", "ARCH_NAMES", "get"]
 
 #: the architectures, in the reference's order
 _MODULES = {

@@ -12,7 +12,7 @@ import math
 from dataclasses import dataclass, field, replace
 from typing import Optional, Tuple
 
-__all__ = ["MoESpec", "SSMSpec", "FTSpec", "LayerSpec", "ArchConfig"]
+__all__ = ["MoESpec", "SSMSpec", "FTSpec", "LayerSpec", "ArchConfig", "ShapeConfig", "SHAPES"]
 
 
 @dataclass(frozen=True)
@@ -103,6 +103,13 @@ class ArchConfig:
     def n_repeats(self) -> int:
         return self.num_layers // len(self.pattern)
 
+    def shard_heads_ok(self, tp: int = 16) -> bool:
+        """The head count divides a model axis of ``tp`` (attention-free:
+        true), the reference's test for sharding heads."""
+        if self.num_heads == 0:
+            return True
+        return self.num_heads % tp == 0
+
     @property
     def d_inner(self) -> int:
         return self.ssm.expand * self.d_model
@@ -180,3 +187,21 @@ class ArchConfig:
             param_dtype="float32",
             optimizer="adamw",
         )
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """A batch shape of a step (the reference's)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}

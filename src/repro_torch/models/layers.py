@@ -133,6 +133,22 @@ def init_attention(generator: torch.Generator, cfg, dtype, lead=()) -> dict:
     return p
 
 
+def attention_specs(cfg) -> dict:
+    """Logical axes per attention parameter, the reference's."""
+    h = "heads" if cfg.shard_heads_ok() else None
+    specs = {
+        "wq": ("d_model", h, "head_dim"),
+        "wk": ("d_model", "kv_heads", "head_dim"),
+        "wv": ("d_model", "kv_heads", "head_dim"),
+        "wo": (h, "head_dim", "d_model"),
+    }
+    if cfg.qkv_bias:
+        specs["bq"] = (h, "head_dim")
+        specs["bk"] = ("kv_heads", "head_dim")
+        specs["bv"] = ("kv_heads", "head_dim")
+    return specs
+
+
 def _project(x, w, b=None):
     y = torch.einsum("bsd,dhk->bshk", x, w)
     return y if b is None else y + b
@@ -243,6 +259,14 @@ def init_mlp(generator: torch.Generator, d_model: int, d_ff: int, dtype, lead=()
         "wi_up": _normal(generator, lead + (d_model, d_ff), s_in, dtype),
         "wo": _normal(generator, lead + (d_ff, d_model), s_out, dtype),
     }
+
+
+#: logical axes of the SwiGLU leaves, the reference's
+MLP_SPECS = {
+    "wi_gate": ("d_model", "ff"),
+    "wi_up": ("d_model", "ff"),
+    "wo": ("ff", "d_model"),
+}
 
 
 def swiglu_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:

@@ -85,6 +85,20 @@ def _dt_rank(cfg) -> int:
     return cfg.ssm.dt_rank or math.ceil(cfg.d_model / 16)
 
 
+#: logical axes of the Mamba leaves, the reference's
+MAMBA_SPECS = {
+    "in_proj": ("d_model", "inner"),
+    "conv_w": ("inner", None),
+    "conv_b": ("inner",),
+    "x_proj": ("inner", None),
+    "dt_w": (None, "inner"),
+    "dt_b": ("inner",),
+    "A_log": ("inner", "state"),
+    "D_skip": ("inner",),
+    "out_proj": ("inner", "d_model"),
+}
+
+
 def init_mamba(generator: torch.Generator, cfg, dtype, lead=()) -> dict:
     """Random Mamba weights, stacked over ``lead`` (the layer axis), by the
     reference's laws: the products normal, ``conv_b`` zeros, ``dt_b``
@@ -175,6 +189,22 @@ def mamba_cache_spec(cfg, batch: int) -> dict:
 # --------------------------------------------------------------------------- #
 # Time mix
 # --------------------------------------------------------------------------- #
+#: logical axes of the RWKV6 time-mix leaves, the reference's
+RWKV_SPECS = {
+    "mu": (None, "d_model"),
+    "w0": ("heads", None),
+    "w_lora_a": ("d_model", None),
+    "w_lora_b": (None, "heads", None),
+    "u": ("heads", None),
+    "wr": ("d_model", "heads", None),
+    "wk": ("d_model", "heads", None),
+    "wv": ("d_model", "heads", None),
+    "wg": ("d_model", "heads", None),
+    "wo": ("heads", None, "d_model"),
+    "ln": ("heads", None),
+}
+
+
 def init_rwkv(generator: torch.Generator, cfg, dtype, lead=()) -> dict:
     """Random time-mix weights, stacked over ``lead`` (the layer axis), by
     the reference's laws: ``mu`` 0.5, ``w0`` and ``u`` zeros, ``ln``
@@ -258,6 +288,15 @@ def rwkv_cache_spec(cfg, batch: int) -> dict:
 # --------------------------------------------------------------------------- #
 # Channel mix
 # --------------------------------------------------------------------------- #
+#: logical axes of the RWKV6 channel-mix leaves, the reference's
+RWKV_CM_SPECS = {
+    "mu": (None, "d_model"),
+    "wk": ("d_model", "ff"),
+    "wv": ("ff", "d_model"),
+    "wr": ("d_model", None),
+}
+
+
 def init_rwkv_channel_mix(generator: torch.Generator, cfg, dtype, lead=()) -> dict:
     """Random channel-mix weights, stacked over ``lead``, by the
     reference's laws."""

@@ -70,9 +70,11 @@ from ..configs.base import ArchConfig, LayerSpec
 from ..core.torch_sim import resolve_device
 from . import moe, ssm
 from .layers import (
+    MLP_SPECS,
     RuntimeFlags,
     attention,
     attention_decode,
+    attention_specs,
     cross_entropy_loss,
     init_attention,
     init_mlp,
@@ -154,8 +156,8 @@ def _dense_mlp(p, h, cfg, flags):
     return swiglu_mlp(p, h), None
 
 
-def _moe_mlp(p, h, cfg, flags):
-    return moe.moe_apply(p, h, cfg, flags.moe_capacity_factor)
+def _moe_mlp(p, h, cfg, flags, rules=None):
+    return moe.moe_apply(p, h, cfg, flags.moe_capacity_factor, rules)
 
 
 def _rwkv_cm_mlp(p, h, cfg, flags):
@@ -195,12 +197,29 @@ _REMAT = {
 REMAT_POLICIES = ("none",) + tuple(_REMAT)
 
 
+class _MetaGenerator(torch.Generator):
+    """A generator whose draws land on the meta device: shapes and dtypes,
+    no storage (:meth:`LanguageModel.abstract_params`)."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
 class LanguageModel(nn.Module):
     """The LM of every family of the reference's configs.  Parameters and
     caches are plain trees passed to the entry points, as in the
-    reference."""
+    reference.
 
-    def __init__(self, cfg: ArchConfig, flags: Optional[RuntimeFlags] = None):
+    ``rules`` (:class:`..parallel.sharding.ShardingRules` bound to a mesh
+    over a process group; :func:`..launch.steps.build_model` makes them)
+    turns on the distributed layer: the entry points then take this
+    rank's blocks of the parameters and this data rank's slice of the
+    batch, and the MoE blocks run expert-parallel over the model axis with
+    their load-balance loss taken over every data rank's tokens
+    (:func:`.moe.moe_apply`).  Every other layer is rank-local."""
+
+    def __init__(self, cfg: ArchConfig, flags: Optional[RuntimeFlags] = None, rules=None):
         super().__init__()
         for spec in cfg.pattern:
             if spec not in BLOCKS:
@@ -213,6 +232,13 @@ class LanguageModel(nn.Module):
             raise ValueError(f"remat_policy {self.flags.remat_policy!r} is not one of "
                              f"{REMAT_POLICIES}")
         self.param_dtype = _DTYPES[cfg.param_dtype]
+        self.rules = rules
+
+    def _mlp(self, kind: str):
+        """The MLP function of a block kind, bound to the model's rules."""
+        if kind == "moe":
+            return functools.partial(_moe_mlp, rules=self.rules)
+        return _MLPS[kind]
 
     # ------------------------------------------------------------------ #
     # Parameters
@@ -254,6 +280,70 @@ class LanguageModel(nn.Module):
             })
         params["blocks"] = tuple(blocks)
         return params
+
+    def abstract_params(self) -> dict:
+        """The parameter tree of :meth:`init` as meta tensors: shapes and
+        dtypes, no allocation."""
+        return self.init(_MetaGenerator())
+
+    def _block_specs(self, spec: LayerSpec) -> dict:
+        cfg = self.cfg
+        out: dict = {"mixer_norm": ("d_model",)}
+        if spec.mixer == "attn":
+            out["mixer"] = attention_specs(cfg)
+        elif spec.mixer == "mamba":
+            out["mixer"] = dict(ssm.MAMBA_SPECS)
+        else:
+            sp = dict(ssm.RWKV_SPECS)
+            if not cfg.shard_heads_ok():
+                sp = {k: tuple(None if a == "heads" else a for a in v) for k, v in sp.items()}
+            out["mixer"] = sp
+        out["mlp_norm"] = ("d_model",)
+        if spec.mlp == "dense":
+            out["mlp"] = dict(MLP_SPECS)
+        elif spec.mlp == "moe":
+            sp = dict(moe.MOE_SPECS)
+            if not cfg.moe.dense_residual:
+                sp.pop("dense", None)
+            out["mlp"] = sp
+        else:
+            out["mlp"] = dict(ssm.RWKV_CM_SPECS)
+        return out
+
+    def param_specs(self) -> dict:
+        """The tree of logical-axis tuples matching :meth:`init`'s, the
+        reference's: a leading ``"layers"`` axis on the stacked block
+        leaves, the embedding on ``vocab``, the LM head on ``(d_model,
+        vocab)``."""
+        specs: dict = {"embed": ("vocab", None), "final_norm": ("d_model",)}
+        if not self.cfg.tie_embeddings:
+            specs["lm_head"] = ("d_model", "vocab")
+
+        def stacked(t):
+            if isinstance(t, dict):
+                return {k: stacked(v) for k, v in t.items()}
+            return ("layers",) + tuple(t)
+
+        specs["blocks"] = tuple(stacked(self._block_specs(s)) for s in self.cfg.pattern)
+        return specs
+
+    def cache_specs(self) -> dict:
+        """Logical axes of the serving cache, the reference's."""
+        cfg = self.cfg
+        h = "heads" if cfg.shard_heads_ok() else None
+        blocks = []
+        for spec in cfg.pattern:
+            if spec.mixer == "attn":
+                kv = ("layers", "batch", "cache_seq", "kv_heads", None)
+                blocks.append({"k": kv, "v": kv})
+            elif spec.mixer == "mamba":
+                blocks.append({"conv": ("layers", "batch", None, "cache_inner"),
+                               "ssm": ("layers", "batch", "cache_inner", "state")})
+            else:
+                blocks.append({"state": ("layers", "batch", h, None, None),
+                               "last": ("layers", "batch", None),
+                               "cm_last": ("layers", "batch", None)})
+        return {"pos": (), "blocks": tuple(blocks)}
 
     def cast_params(self, params: dict) -> dict:
         """The tree as the compute graph uses it: every leaf but the
@@ -346,7 +436,7 @@ class LanguageModel(nn.Module):
 
         mixer = {"attn": attn, "mamba": mamba, "rwkv": rwkv}[spec.mixer]
         mlp = rwkv_cm if spec.mlp == "rwkv_cm" else (
-            lambda p, h: _MLPS[spec.mlp](p, h, cfg, flags))
+            lambda p, h: self._mlp(spec.mlp)(p, h, cfg, flags))
         return _block(mixer, mlp, cfg.norm_eps, bp, x)[0]
 
     def _run_layers(self, params: dict, x, sin, cos, mode: str, cache: Optional[dict], pos):
@@ -366,8 +456,8 @@ class LanguageModel(nn.Module):
                     x = self._apply_block(spec, bp, x, sin, cos, mode,
                                           _layer(cache["blocks"][pi], r), pos)
                     continue
-                block = functools.partial(_train_block, _MIXERS[spec.mixer], _MLPS[spec.mlp],
-                                          cfg, flags)
+                block = functools.partial(_train_block, _MIXERS[spec.mixer],
+                                          self._mlp(spec.mlp), cfg, flags)
                 if remat is None:
                     x, a = block(bp, x, sin, cos)
                 else:

@@ -1,10 +1,14 @@
 """Optimizer substrate of the port: AdamW (+8-bit moments) and int8
-gradient compression with error feedback (the reference's
-``repro/optim``; its mesh all-reduce ``dp_allreduce_int8`` waits for the
-port's ``parallel/``)."""
+gradient compression with error feedback, with its data-parallel int8
+all-reduce ``dp_allreduce_int8`` (the reference's ``repro/optim``)."""
 
 from .adamw import AdamWState, adamw_init, adamw_update, cosine_schedule, global_norm
-from .compress import compress_gradients, decompress_gradients, ef_compress_step
+from .compress import (
+    compress_gradients,
+    decompress_gradients,
+    dp_allreduce_int8,
+    ef_compress_step,
+)
 
 __all__ = [
     "AdamWState",
@@ -14,5 +18,6 @@ __all__ = [
     "global_norm",
     "compress_gradients",
     "decompress_gradients",
+    "dp_allreduce_int8",
     "ef_compress_step",
 ]

@@ -65,21 +65,43 @@ def _expand(scale: torch.Tensor, L: int) -> torch.Tensor:
     return scale.repeat_interleave(_BLOCK, dim=-1)[..., :L]
 
 
-def _quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: f32[..., L] -> (int8[..., L], f32[..., ceil(L / 256)])."""
+def _scales_of(scale: torch.Tensor, L: int, window) -> torch.Tensor:
+    """Each entry's scale: the blocks of the last dim, or, for a
+    ``window`` ``(offset, full, _)``, the entries ``offset .. offset + L``
+    of a last dim ``full`` long whose blocks all ``scale`` holds."""
+    if window is None:
+        return _expand(scale, L)
+    off, full, _ = window
+    return _expand(scale, full)[..., off:off + L]
+
+
+def _quantize(x: torch.Tensor, window=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: f32[..., L] -> (int8[..., L], f32[..., ceil(L / 256)]).  With a
+    ``window`` ``(offset, full, reduce_max)``, ``x`` is entries ``offset
+    .. offset + L`` of a last dim ``full`` long whose other entries other
+    ranks hold (ZeRO-1 on the last dim): each block's largest ``|x|`` is
+    taken over the ranks by ``reduce_max``, so every rank has the whole
+    leaf's scales and codes its entries as the whole leaf would be."""
     if x.dim() == 0:
         x = x[None]
     L = x.shape[-1]
-    nb = _n_blocks(L)
-    a = F.pad(x.abs(), (0, nb * _BLOCK - L))  # |x| >= 0: zero pads leave the max
-    scale = a.reshape(x.shape[:-1] + (nb, _BLOCK)).amax(dim=-1) / 127.0
-    scale = torch.clamp(scale, min=1e-12)
-    q = torch.clamp(torch.round(x / _expand(scale, L)), -127, 127).to(torch.int8)
+    if window is None:
+        nb = _n_blocks(L)
+        a = F.pad(x.abs(), (0, nb * _BLOCK - L))  # |x| >= 0: zero pads leave the max
+        amax = a.reshape(x.shape[:-1] + (nb, _BLOCK)).amax(dim=-1)
+    else:
+        off, full, reduce_max = window
+        nb = _n_blocks(full)
+        a = torch.zeros(x.shape[:-1] + (nb * _BLOCK,), dtype=x.dtype, device=x.device)
+        a[..., off:off + L] = x.abs()
+        amax = reduce_max(a.reshape(x.shape[:-1] + (nb, _BLOCK)).amax(dim=-1))
+    scale = torch.clamp(amax / 127.0, min=1e-12)
+    q = torch.clamp(torch.round(x / _scales_of(scale, L, window)), -127, 127).to(torch.int8)
     return q, scale
 
 
-def _dequantize(q: torch.Tensor, scale: torch.Tensor, shape=None) -> torch.Tensor:
-    out = q.to(torch.float32) * _expand(scale, q.shape[-1])
+def _dequantize(q: torch.Tensor, scale: torch.Tensor, shape=None, window=None) -> torch.Tensor:
+    out = q.to(torch.float32) * _scales_of(scale, q.shape[-1], window)
     return out if shape is None else out.reshape(shape)
 
 
@@ -118,7 +140,7 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def _update(p, g, mom: dict, lr, c1, c2, b1, b2, eps, weight_decay):
+def _update(p, g, mom: dict, lr, c1, c2, b1, b2, eps, weight_decay, window=None):
     """One leaf's update; returns (new param, new moment dict)."""
     g = g.to(torch.float32)
     if "m" in mom:
@@ -127,12 +149,12 @@ def _update(p, g, mom: dict, lr, c1, c2, b1, b2, eps, weight_decay):
         new_mom = {"m": m, "v": v}
     else:
         gq = g if g.dim() else g[None]
-        m_prev = _dequantize(mom["m_q"], mom["m_s"])
-        v_prev = _dequantize(mom["v_q"], mom["v_s"])
+        m_prev = _dequantize(mom["m_q"], mom["m_s"], window=window)
+        v_prev = _dequantize(mom["v_q"], mom["v_s"], window=window)
         m = b1 * m_prev + (1 - b1) * gq
         v = b2 * v_prev + (1 - b2) * gq.square()
-        mq, ms = _quantize(m)
-        vq, vs = _quantize(v)
+        mq, ms = _quantize(m, window)
+        vq, vs = _quantize(v, window)
         new_mom = {"m_q": mq, "m_s": ms, "v_q": vq, "v_s": vs}
         m = m.reshape(p.shape)
         v = v.reshape(p.shape)
@@ -153,13 +175,21 @@ def adamw_update(
     eps: float = 1e-8,
     weight_decay: float = 0.1,
     clip_norm: Optional[float] = 1.0,
+    grad_norm: Optional[torch.Tensor] = None,
+    windows: Optional[Dict[str, tuple]] = None,
 ):
     """Returns ``(new_params, new_state, {"grad_norm": pre-clip norm})``:
     global-norm clipping, bias correction, decoupled weight decay on every
-    leaf.  Functional: no input is written."""
+    leaf.  Functional: no input is written.
+
+    For a sharded state (ZeRO-1: ``params``, ``grads`` and the moments are
+    this rank's blocks) the caller gives the global pre-clip ``grad_norm``,
+    and, per leaf key whose int8 moments are split along their last dim,
+    a ``windows`` entry ``(offset, full, reduce_max)`` (:func:`_quantize`)."""
+    windows = windows or {}
     with torch.no_grad():
         step = state.step + 1
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads) if grad_norm is None else grad_norm
         scale = None
         if clip_norm is not None:
             scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
@@ -184,12 +214,13 @@ def adamw_update(
                 rows = max(1, _SLICE_ELEMS // (p.numel() // p.shape[0]))
                 outs = [_update(p[i:i + rows], g[i:i + rows],
                                 {k: v[i:i + rows] for k, v in mom.items()}, lr, c1, c2, b1, b2,
-                                eps, weight_decay) for i in range(0, p.shape[0], rows)]
+                                eps, weight_decay, windows.get(key))
+                        for i in range(0, p.shape[0], rows)]
                 new_p[key] = torch.cat([o[0] for o in outs])
                 new_m[key] = {k: torch.cat([o[1][k] for o in outs]) for k in mom}
             else:
                 new_p[key], new_m[key] = _update(p, g, mom, lr, c1, c2, b1, b2, eps,
-                                                 weight_decay)
+                                                 weight_decay, windows.get(key))
         params_out = map_with_keys(lambda k, _: new_p[k], params)
         moments_out = map_with_keys(
             lambda k, _: new_m[k.rpartition("/")[0]][k.rpartition("/")[2]], state.moments)

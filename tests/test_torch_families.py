@@ -364,13 +364,26 @@ def test_loss_fn_ce_and_aux_match_reference(name, compute):
         assert 0.5 * _moe_layers(rcfg) < float(gm["aux"]) < 2.0 * _moe_layers(rcfg)
 
 
+def _step_clock(monkeypatch, SV):
+    """``serve()``'s clock, made to advance 1 s at each reading: the
+    prefill reads it twice and each pass of the decode loop once, so a
+    fault time lands on a fixed decode step whatever the host's load."""
+    import itertools
+    import types
+
+    ticks = itertools.count()
+    monkeypatch.setattr(SV, "time", types.SimpleNamespace(monotonic=lambda: float(next(ticks))))
+
+
 @pytest.mark.parametrize("name", ["qwen3-moe-30b-a3b", "arctic-480b"])
-def test_moe_serve_with_faults_gives_the_fault_free_tokens(name):
+def test_moe_serve_with_faults_gives_the_fault_free_tokens(name, monkeypatch):
     """The MoE path has no atomics and no data-dependent order, so a
     faulted ``serve()`` (restores and re-decoded tokens) gives the
-    fault-free run's tokens."""
+    fault-free run's tokens.  The faults fall on decode steps of a
+    simulated clock (:func:`_step_clock`)."""
     from repro_torch.launch import serve as SV
 
+    _step_clock(monkeypatch, SV)
     cfg = configs.get(name).reduced()
     kw = dict(requests=3, prompt_len=12, gen=24, snapshot_every=4, seed=5, device="cpu")
     clean = SV.serve(cfg, **kw)
@@ -381,12 +394,14 @@ def test_moe_serve_with_faults_gives_the_fault_free_tokens(name):
 
 
 @pytest.mark.parametrize("name", ["jamba-1.5-large-398b"] + list(FRONTENDS))
-def test_hybrid_and_frontend_serve_with_faults_gives_the_fault_free_tokens(name):
+def test_hybrid_and_frontend_serve_with_faults_gives_the_fault_free_tokens(name, monkeypatch):
     """Jamba (its Mamba states restored from the snapshots) and the frontend
     families (the prefix in the cache): a faulted ``serve()`` gives the
-    fault-free run's tokens."""
+    fault-free run's tokens.  The faults fall on decode steps of a
+    simulated clock (:func:`_step_clock`)."""
     from repro_torch.launch import serve as SV
 
+    _step_clock(monkeypatch, SV)
     cfg = configs.get(name).reduced()
     kw = dict(requests=3, prompt_len=12, gen=24, snapshot_every=4, seed=5, device="cpu")
     clean = SV.serve(cfg, **kw)
