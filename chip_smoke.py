@@ -1302,6 +1302,51 @@ def device_kernels(fn, names) -> dict:
     return {n: sum(n in e.name for e in prof.events()) for n in names}
 
 
+def kernel_split(fn, reps: int = 10) -> list:
+    """The device kernels of ``reps`` calls of ``fn`` in a ``torch.profiler``
+    trace: for each kernel, by name, its launches a call and its mean ms
+    over the launches the trace recorded (the profiler's averages), and what
+    the exported trace records of its launch (grid, block, registers a
+    thread, shared memory a block, the estimated occupancy; None where the
+    trace has no record of it).  Late in this script the profiler recorded
+    none of a few short calls' kernels, though it recorded a training
+    step's, and a cold trace can drop its first records: so a small kernel
+    opens the session and ``fn`` runs ``reps`` times, and a kernel recorded
+    fewer than ``reps / 2`` times is left out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        time.sleep(0.02)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(0.02)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    launch = {e["name"]: e.get("args", {}) for e in events if e.get("cat") == "kernel"}
+    out = []
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0.0)
+        if not us or 2 * e.count < reps:
+            continue
+        a = launch.get(e.key, {})
+        out.append({"kernel": e.key, "launches": round(e.count / reps), "ms": us / 1e3 / e.count,
+                    "grid": a.get("grid"), "block": a.get("block"),
+                    "registers": a.get("registers per thread"),
+                    "shared_bytes": a.get("shared memory"),
+                    "occupancy_pct": a.get("est. achieved occupancy %")})
+    return out
+
+
 def serving_phases(dev, launch_floor_ms: float) -> list:
     """Phases 11-14: the attention kernels against their plain versions,
     the model on the card against the port on the CPU, the serving path,
@@ -5508,13 +5553,14 @@ def remat_check(cfg, dev) -> dict:
     return out
 
 
-def ssm_train_phases(dev, kernels: list) -> None:
+def ssm_train_phases(dev, kernels: list, bwd_regs: dict) -> None:
     """Phases 49-52: the WKV and scan backward kernels against their plain
     versions, timed; RWKV6 and Jamba loss and gradients card against CPU;
     ``train()`` on RWKV6-7B and Jamba-1.5-Large at full width under faults;
     remat on the RWKV6 cut.  Appends the two backward kernels' entries to
     ``kernels`` and adds the training path's launches to the WKV, scan and
-    codec entries."""
+    codec entries.  ``bwd_regs``: ptxas's registers, static shared memory
+    and spills of the backward kernels, from the build."""
     import dataclasses
     import gc
 
@@ -5564,7 +5610,10 @@ def ssm_train_phases(dev, kernels: list) -> None:
                 ms, _ = device_ms([lambda x=x: fn(*x)])
                 pms, _ = device_ms([lambda x=x: ref(*x)], samples=1)
                 timing = {"ms": ms, "plain_ms": pms, **bound_fn(*shape, with_0)}
-                row.update(timing, repeat_bit_equal=same)
+                stem = "wkv6_bwd_" if kname == "wkv6_bwd" else "scan_bwd_"
+                row.update(timing, repeat_bit_equal=same,
+                           device_kernels=kernel_split(lambda x=x: fn(*x)),
+                           ptxas={k: v for k, v in bwd_regs.items() if stem in k})
             rows.append(row)
             del x, got
             torch.cuda.empty_cache()
@@ -5576,7 +5625,11 @@ def ssm_train_phases(dev, kernels: list) -> None:
               "8 x 1024 x 64 heads x 64 and Jamba's 8 x 1024 x 16384 x ds 16 from a zero "
               "state, timed (device_ms: a CUDA graph of the call, median of replays; the "
               "plain version's graph of its per-token loop), bits_sha256 of its outputs for "
-              "comparing runs; no single PyTorch call computes either backward",
+              "comparing runs, device_kernels: each device kernel of the call in a "
+              "torch.profiler trace (ms a launch, registers, shared memory, the trace's "
+              "estimated occupancy), ptxas: the build's registers, static shared memory "
+              "and spills of each instantiation; no single PyTorch call computes either "
+              "backward",
          nvidia_smi=smi_line())
 
     # ---- 50. loss and gradients, card against CPU ---------------------- #
@@ -6033,7 +6086,7 @@ def main() -> int:
         emit("total", seconds=time.monotonic() - t_script)
         return 0
     if only == "ssm_train":
-        ssm_train_phases(dev, [])
+        ssm_train_phases(dev, [], bwd_regs)
         emit("total", seconds=time.monotonic() - t_script)
         return 0
     if only == "parallel":
@@ -6233,7 +6286,7 @@ def main() -> int:
     emit("hybrid_phases", seconds=time.monotonic() - t0)
     torch.cuda.empty_cache()  # the training cuts need the card's memory
     t0 = time.monotonic()
-    ssm_train_phases(dev, kernels)
+    ssm_train_phases(dev, kernels, bwd_regs)
     emit("ssm_train_phases", seconds=time.monotonic() - t0)
     torch.cuda.empty_cache()  # phase 53's child process needs the card's memory
     parallel_phases(dev, kernels)

@@ -136,6 +136,7 @@ _SIGNATURES = {
     },
     "rwkv6_bwd": {
         "wkv6_bwd_chunk": [_I32],
+        "wkv6_bwd_groups": [_I32],
         # r, k, v, w, u, s0, dy, dsT; dr, dk, dv, dw, du, ds0; three scratch
         # buffers; B, S, H, hd, u_batched
         "wkv6_bwd": [_P] * 17 + [_I32] * 5 + [_P],
@@ -147,6 +148,7 @@ _SIGNATURES = {
     },
     "mamba_scan_bwd": {
         "selective_scan_bwd_chunk": [],
+        "selective_scan_bwd_parts": [_I32, _I32],
         # dt, x, A, Bc, Cc, h0, dy, dhT; ddt, dx, dA, dB, dC, dh0; three
         # scratch buffers; B, S, D, ds
         "selective_scan_bwd": [_P] * 17 + [_I32] * 4 + [_P],

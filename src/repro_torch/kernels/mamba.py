@@ -52,16 +52,13 @@ import torch
 
 from .flash_attention import _check_device
 from .guard import needs_guard
-from .sim_step import _raise_on, _stream_ptr
+from .sim_step import _aligned16, _raise_on, _stream_ptr
 
 __all__ = ["D_STATES", "selective_scan_ref", "selective_scan", "selective_scan_bwd_ref",
            "selective_scan_bwd", "SelectiveScan", "sample_scan_inputs"]
 
 #: state sizes the kernel is built for (Jamba's 16, ``reduced()``'s 8)
 D_STATES = (8, 16)
-#: channels a block of ``csrc/mamba_scan_bwd.cu`` (its ``kThreads``): one
-#: partial of dB and dC a block
-_BWD_CHANNELS = 128
 
 
 def selective_scan_ref(dt: torch.Tensor, x: torch.Tensor, A: torch.Tensor,
@@ -240,7 +237,8 @@ def selective_scan_bwd(dt: torch.Tensor, x: torch.Tensor, A: torch.Tensor, Bc: t
     and ``dhT`` (None: zeros), f32 -> ``(ddt, dx, dA, dB, dC, dh0)``
     (``dh0`` None when ``h0`` is).  CUDA tensors launch
     ``csrc/mamba_scan_bwd.cu`` (one call, three device kernels: counted
-    once in ``selective_scan_bwd.launches``); CPU tensors run
+    once in ``selective_scan_bwd.launches``; ``A``, ``h0`` and ``dhT`` are
+    copied first where they are not 16-byte aligned); CPU tensors run
     :func:`selective_scan_bwd_ref`."""
     dev = _check(dt, x, A, Bc, Cc, h0, dhT)
     if tuple(dy.shape) != tuple(x.shape) or dy.dtype != torch.float32:
@@ -257,9 +255,10 @@ def selective_scan_bwd(dt: torch.Tensor, x: torch.Tensor, A: torch.Tensor, Bc: t
     if B > 65535:
         raise ValueError("selective_scan_bwd: batch must be <= 65535")
     lib = build.load("mamba_scan_bwd")
-    chunk = lib.selective_scan_bwd_chunk()
-    dt, x, A, Bc, Cc, dy = (t.contiguous() for t in (dt, x, A, Bc, Cc, dy))
-    h0, dhT = (None if t is None else t.contiguous() for t in (h0, dhT))
+    chunk, parts = lib.selective_scan_bwd_chunk(), lib.selective_scan_bwd_parts(B, din)
+    dt, x, Bc, Cc, dy = (t.contiguous() for t in (dt, x, Bc, Cc, dy))
+    A = _aligned16(A.contiguous())
+    h0, dhT = (None if t is None else _aligned16(t.contiguous()) for t in (h0, dhT))
 
     def new(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
@@ -267,7 +266,7 @@ def selective_scan_bwd(dt: torch.Tensor, x: torch.Tensor, A: torch.Tensor, Bc: t
     ddt, dx, dA, dB, dC = new(B, S, din), new(B, S, din), new(din, ds), new(B, S, ds), new(B, S, ds)
     dh0 = None if h0 is None else new(B, din, ds)
     states = new(B * ((S + chunk - 1) // chunk) * din * ds)
-    bc_part = new(B * ((din + _BWD_CHANNELS - 1) // _BWD_CHANNELS) * S * 2 * ds)
+    bc_part = new(B * parts * S * 2 * ds)
     dA_part = new(B * din * ds)
 
     def ptr(t):

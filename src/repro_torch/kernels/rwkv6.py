@@ -59,7 +59,7 @@ import torch
 
 from .flash_attention import _check_device
 from .guard import needs_guard
-from .sim_step import _raise_on, _stream_ptr
+from .sim_step import _aligned16, _raise_on, _stream_ptr
 
 __all__ = ["HEAD_DIMS", "TILE_ROWS", "wkv_ref", "wkv6_ref", "wkv", "wkv6_bhsd",
            "wkv_bwd_ref", "wkv6_bwd", "WKV", "sample_wkv_inputs"]
@@ -267,8 +267,9 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     (``u3`` ``(1, H, hd)`` or ``(B, H, hd)``), ``dy`` ``(B, S, H, hd)`` and
     ``dsT`` (None: zeros), f32 -> ``(dr, dk, dv, dw, du3, ds0)`` (``ds0``
     None when ``s0`` is).  CUDA tensors launch ``csrc/rwkv6_bwd.cu`` (one
-    call, three device kernels: counted once in ``wkv6_bwd.launches``);
-    CPU tensors run :func:`wkv_bwd_ref`."""
+    call, three device kernels: counted once in ``wkv6_bwd.launches``;
+    operands not 16-byte aligned are copied first); CPU tensors run
+    :func:`wkv_bwd_ref`."""
     dev = _check("wkv6_bwd", r, k, v, w, u3, s0, dsT)
     for arg, x in (("dy", dy),):
         if tuple(x.shape) != tuple(r.shape) or x.dtype != torch.float32:
@@ -280,12 +281,12 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
 
     B, S, H, hd = r.shape
     lib = build.load("rwkv6_bwd")
-    chunk = lib.wkv6_bwd_chunk(hd)
+    chunk, groups = lib.wkv6_bwd_chunk(hd), lib.wkv6_bwd_groups(hd)
     if chunk <= 0:
         raise ValueError(f"wkv6_bwd: head dim {hd} is not built")
-    r, k, v, w, dy = (x.contiguous() for x in (r, k, v, w, dy))
+    r, k, v, w, dy = (_aligned16(x.contiguous()) for x in (r, k, v, w, dy))
     u3 = u3.contiguous()
-    s0, dsT = (None if x is None else x.contiguous() for x in (s0, dsT))
+    s0, dsT = (None if x is None else _aligned16(x.contiguous()) for x in (s0, dsT))
 
     def new(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
@@ -293,7 +294,7 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     dr, dk, dv, dw = (new(B, S, H, hd) for _ in range(4))
     du, ds0 = new(*u3.shape), (None if s0 is None else new(B, H, hd, hd))
     states = new(B * H * ((S + chunk - 1) // chunk) * hd * hd)
-    dv_part = new((hd // min(hd, 16)) * B * S * H * hd)
+    dv_part = new(groups * B * S * H * hd) if groups > 1 else None
     du_part = new(B * H * hd)
 
     def ptr(x):

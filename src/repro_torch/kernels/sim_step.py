@@ -609,6 +609,12 @@ def _raise_on(name: str, rc: int) -> None:
         raise KernelLaunchError(name, rc)
 
 
+def _aligned16(x: torch.Tensor) -> torch.Tensor:
+    """``x``, or a copy of it where its data is not 16-byte aligned (for
+    kernels that read their operands 16 bytes at a time)."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def _law_specs(kind: str, law, lp, prefix: str = "") -> list:
     """``_check`` specs of the law-indexed variant's three per-lane inputs
     (none for a single-law call, which must not pass them)."""

@@ -2,10 +2,12 @@
 (``csrc/mamba_scan_bwd.cu``, :func:`repro_torch.kernels.mamba.
 selective_scan_bwd`) against its plain version
 :func:`selective_scan_bwd_ref`, at both built state sizes (8 and 16), one
-token, sequences ending on and beside a chunk's edge (8 tokens), channel
-counts that are not a multiple of a block's 128, with and without an
-initial state and a final state's gradient, Jamba's training shape, and
-the path through ``ops.selective_scan`` under autograd.  Imports neither
+token, sequences ending on and beside a chunk's edge
+(``selective_scan_bwd_chunk()`` tokens), channel counts that are not a
+multiple of a block's 128, a batch row whose blocks walk several channel
+groups (the last one partial), one batch row, with and without an initial
+state and a final state's gradient, Jamba's training shape, and the path
+through ``ops.selective_scan`` under autograd.  Imports neither
 JAX nor the reference, so it runs on the card's machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_mamba_bwd_card.py
@@ -62,12 +64,27 @@ def _check(got, want):
         assert err <= TOL * scale, f"{name}: off by {err} (max {scale})"
 
 
+def _chunk():
+    """Tokens between the states the kernel stores, from the library."""
+    from repro_torch.kernels import build
+
+    return build.load("mamba_scan_bwd").selective_scan_bwd_chunk()
+
+
+#: sequence lengths as functions of the chunk c
+_LENGTHS = {"1": lambda c: 1, "c-1": lambda c: c - 1, "c": lambda c: c,
+            "c+1": lambda c: c + 1, "4c+5": lambda c: 4 * c + 5, "5c": lambda c: 5 * c,
+            "41c+5": lambda c: 41 * c + 5}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("ds", M.D_STATES)
 @pytest.mark.parametrize("B,S,din,with_h0,with_dhT", [
-    (2, 1, 256, True, True), (2, 8, 128, True, False), (3, 9, 200, False, True),
-    (1, 333, 64, True, True), (4, 40, 4096, False, False)])
+    (2, "1", 256, True, True), (2, "c", 128, True, False), (3, "c+1", 200, False, True),
+    (1, "41c+5", 64, True, True), (4, "5c", 4096, False, False),
+    (2, "c-1", 256, True, True), (4, "4c+5", 5000, True, True), (1, "c+1", 300, True, True)])
 def test_bwd_matches_plain_on_card(cuda_device, ds, B, S, din, with_h0, with_dhT):
+    S = _LENGTHS[S](_chunk())
     x = _case(B, S, din, ds, seed=ds + S + din, dev=cuda_device, with_h0=with_h0,
               with_dhT=with_dhT)
     n0 = M.selective_scan_bwd.launches

@@ -1,9 +1,11 @@
 """On a CUDA card: the backward of the WKV recurrence
 (``csrc/rwkv6_bwd.cu``, :func:`repro_torch.kernels.rwkv6.wkv6_bwd`)
 against its plain version :func:`wkv_bwd_ref`, at every built head dim,
-one token, sequences ending on and beside a chunk's edge (16 tokens; 8 at
-hd 128), with and without an initial state and a final state's gradient,
-a per-batch-row ``u``, RWKV6-7B's training shape, and the path through
+one token, sequences ending on and beside the edges of the kernel's
+tiling (a span between stored states, ``wkv6_bwd_chunk(hd)`` tokens, and
+its half, whose states a thread keeps in registers), with and without an
+initial state and a final state's gradient, one batch row, a
+per-batch-row ``u``, RWKV6-7B's training shape, and the path through
 ``ops.wkv6`` under autograd.  Imports neither JAX nor the reference, so it
 runs on the card's machine:
 
@@ -61,12 +63,29 @@ def _check(got, want):
         assert err <= TOL * scale, f"{name}: off by {err} (max {scale})"
 
 
+def _chunk(hd):
+    """Tokens between the states the kernel stores, from the library."""
+    from repro_torch.kernels import build
+
+    return build.load("rwkv6_bwd").wkv6_bwd_chunk(hd)
+
+
+#: sequence lengths as functions of the chunk c: one token, the half-chunk
+#: a thread keeps in registers and one past it, one short of a chunk, a
+#: chunk, one past, two chunks and a remainder
+_LENGTHS = {"1": lambda c: 1, "half": lambda c: c // 2, "half+1": lambda c: c // 2 + 1,
+            "c-1": lambda c: c - 1, "c": lambda c: c, "c+1": lambda c: c + 1,
+            "2c+5": lambda c: 2 * c + 5}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd", R.HEAD_DIMS)
 @pytest.mark.parametrize("B,S,H,with_s0,with_dsT", [
-    (2, 1, 3, True, True), (2, 16, 2, True, False), (1, 17, 3, False, True),
-    (3, 37, 2, True, True), (2, 8, 1, False, False)])
+    (2, "1", 3, True, True), (2, "c", 2, True, False), (1, "c+1", 3, False, True),
+    (3, "2c+5", 2, True, True), (2, "half", 1, False, False), (1, "c-1", 2, True, True),
+    (2, "half+1", 2, True, True)])
 def test_bwd_matches_plain_on_card(cuda_device, hd, B, S, H, with_s0, with_dsT):
+    S = _LENGTHS[S](_chunk(hd))
     x = _case(B, S, H, hd, seed=hd + S + B, dev=cuda_device, with_s0=with_s0,
               with_dsT=with_dsT)
     n0 = R.wkv6_bwd.launches
@@ -76,10 +95,11 @@ def test_bwd_matches_plain_on_card(cuda_device, hd, B, S, H, with_s0, with_dsT):
 
 
 @pytest.mark.cuda
-def test_per_batch_row_u(cuda_device):
-    x = _case(3, 21, 2, 64, seed=5, dev=cuda_device, u_batched=True)
+@pytest.mark.parametrize("hd", R.HEAD_DIMS)
+def test_per_batch_row_u(cuda_device, hd):
+    x = _case(3, _chunk(hd) + 5, 2, hd, seed=5, dev=cuda_device, u_batched=True)
     got = R.wkv6_bwd(*x)
-    assert got[4].shape == (3, 2, 64)
+    assert got[4].shape == (3, 2, hd)
     _check(got, R.wkv_bwd_ref(*x))
 
 
