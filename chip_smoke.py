@@ -95,17 +95,18 @@ the slabs' shapes and bytes, one launch of each kernel an iteration, the
 validation gate with the CPU port's z beside the largest and any
 rejected cell) and the scenario grid in host mode (the silent slab walk's
 path); a 12-cell sub-grid card against CPU and fused against per-cell in
-both trace modes; the paper's Tables 1-2 grid (120 cells, with Weibull
-0.5 superposed fresh-start traces, plus a stationary family) through
-``run_cells`` (its 120 cells from ``repro_torch.paper.sim_tables.
-build_cells``); and the four kernels' times.
+both trace modes; the paper's Tables 1-2 grid (the reference's 100
+quick cells, with Weibull 0.5 superposed fresh-start traces, plus a
+stationary family of 40) through ``run_cells`` (its cells from
+``repro_torch.paper.sim_tables.build_cells``); and the four kernels'
+times.
 
 Then the engine API (phases 30-33, no kernel of their own): the 12-cell
 sub-grid through ``run_grid(grid, EngineConfig(...))`` in both trace
 modes, bit for bit the keyword call, and its lanes against the NumPy
 engine and the scalar engine on the same traces; ``devices=`` as None,
 1, "all" and the card named twice, lane for lane; BestPeriod
-(``optimize(method="search")``, seven families, 100 runs at N = 2^19) on
+(``optimize(method="search")``, seven families, 100 runs at N = 2^17) on
 the card against the NumPy engine, with each call's iterations, host
 syncs and launches; the paper's drivers (``repro_torch.paper``) on the
 card against the NumPy engine.
@@ -305,6 +306,10 @@ MIXED_SEED = 5
 #: extremizer on the smooth families, and the timed table's size and seed
 NEWTON_RTOL, NEWTON_EXCESS_MAX, EXTREMIZER_RTOL = 1e-12, 1e-12, 1e-9
 NEWTON_CELLS, NEWTON_SEED = 65536, 3
+#: rows of the timed table that the CPU also solves, to hold the card to
+#: (was all NEWTON_CELLS: a 7.6 s solve on the CPU; each row is solved
+#: alone)
+NEWTON_CPU_CELLS = 8192
 #: phase 23: the reference validation suite's contract (runs, seed, alpha)
 VALIDATION_RUNS, VALIDATION_SEED, VALIDATION_ALPHA = 200, 11, 0.01
 #: phase 25: the scenario grid's seed (the reference benchmark's
@@ -313,6 +318,12 @@ VALIDATION_RUNS, VALIDATION_SEED, VALIDATION_ALPHA = 200, 11, 0.01
 SCENARIO_SEED = 9
 TRUST_QS = (0.3, 0.5)
 SCENARIO_MIXED_RUNS = 8
+#: phase 24: the trust-coin walks' sampled horizons are capped at the lane's
+#: clock plus this span (was uncapped: 12 x 8 days for 85% of the lanes, so
+#: the q = 0 lanes walked ~4,000 faults to their stream's end, ~35,000
+#: eager steps of the plain walks in all; ~2,100 now).  Every mode, variant
+#: and q is still walked to its end.
+TRUST_HORIZON_SPAN = 4 * 86400.0
 
 TM_ULPS = 4  # refilled cursor dates: libdevice transcendentals, same on both sides
 LAWS = (("exponential", 0.0), ("weibull", 0.7), ("lognormal", 1.0), ("uniform", 0.0))
@@ -407,8 +418,14 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+#: the script's start on the host's monotonic clock: every line's "at_s"
+#: counts from it, so phases that state no seconds of their own can be timed
+#: from the lines before and after them
+T_START = time.monotonic()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    print(json.dumps({"phase": phase, **kw, "at_s": time.monotonic() - T_START}), flush=True)
 
 
 def ulp_dist(a, b):
@@ -2384,16 +2401,18 @@ def analytic_phases(dev, res, smi: str) -> None:
         b.record()
         torch.cuda.synchronize()
         ms.append(a.elapsed_time(b))
-    cargs, _ = A.newton_inputs(big, device="cpu")
+    cargs, n_cpu = A.newton_inputs({k: v[:NEWTON_CPU_CELLS] for k, v in big.items()},
+                                   device="cpu")
     tc = time.perf_counter()
     cout = KA.newton_policy(*cargs)
     cpu_s = time.perf_counter() - tc
     big_rel = 0.0
     for g, c in zip(out, cout):
-        g, c = g[:n_big].cpu().numpy(), c[:n_big].numpy()
-        check(np.isfinite(g).all(), "newton (65,536 cells): non-finite on the card")
+        check(np.isfinite(g[:n_big].cpu().numpy()).all(),
+              "newton (65,536 cells): non-finite on the card")
+        g, c = g[:n_cpu].cpu().numpy(), c[:n_cpu].numpy()
         big_rel = max(big_rel, float(np.max(np.abs(g - c) / np.maximum(np.abs(c), 1e-300))))
-    check(big_rel <= NEWTON_RTOL, f"newton (65,536 cells): card vs CPU rel {big_rel}")
+    check(big_rel <= NEWTON_RTOL, f"newton ({n_cpu} of its cells): card vs CPU rel {big_rel}")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         KA.newton_policy(*args)
         torch.cuda.synchronize()
@@ -2438,13 +2457,15 @@ def analytic_phases(dev, res, smi: str) -> None:
          flat_cells=[c.label for c, f in zip(cells, flat) if f],
          extremizer_rtol=EXTREMIZER_RTOL, q1_cells=int((card["q"] > 0).sum()),
          timed_cells=NEWTON_CELLS, iters=KA.NEWTON_ITERS, card_ms=sorted(ms)[len(ms) // 2],
-         card_ms_samples=ms, cpu_s=cpu_s, cpu_threads=torch.get_num_threads(),
+         card_ms_samples=ms, cpu_s=cpu_s, cpu_cells=n_cpu,
+         cpu_threads=torch.get_num_threads(),
          big_card_vs_cpu_rel=big_rel, device_kernels_per_solve=len(dev_events),
          distinct_kernels=len({e.name for e in dev_events}),
          host_syncs_in_solve=0, user_calls=user_calls, bracket_loop=loop_ms,
          nvidia_smi=smi,
          note="card_ms: CUDA events around one solve, median of 5 after a warm-up; "
-              "cpu_s: one solve on the CPU; host_syncs_in_solve: the solve ran under "
+              "cpu_s: one solve of the first cpu_cells rows on the CPU, held to the card's "
+              "within rtol; host_syncs_in_solve: the solve ran under "
               "torch.cuda.set_sync_debug_mode('error'); user_calls: wall seconds of "
               "the whole call, median of 5; bracket_loop: CUDA events, median of 3")
 
@@ -2575,7 +2596,9 @@ def scenario_phases(dev, regs: dict, main_launches: dict) -> list:
     check(silent_work[SILENT]["walking_lanes"] > 0, "the captured silent walk walks no lane")
     # the trust coins on sampled lanes (q_eff 0, 0.3, 0.5, 1; the q = 0
     # lanes walk to their stream's end)
+    t_trust = time.monotonic()
     x = K.lane_state_tensors(K.sample_walk_state(L, 130), dev)
+    x["horizon"] = torch.minimum(x["horizon"], x["t"] + TRUST_HORIZON_SPAN)
     laws = K.sample_lane_laws(L, 131, 1)
     for k in ("law", "s1", "s2"):
         x[k] = torch.from_numpy(laws[k]).to(dev)
@@ -2603,8 +2626,9 @@ def scenario_phases(dev, regs: dict, main_launches: dict) -> list:
             err[name] = max(err.get(name, 0.0), e)
             trust_calls[f"{mode}{suffix}"] = walk_work(c, want, bool(suffix))
     torch.cuda.synchronize()
-    emit("scenario_check", seconds=time.monotonic() - t0, lanes=L, iteration=CAPTURE_ITER,
-         silent_work=silent_work, trust_work=trust_calls, ulps=ulps,
+    emit("scenario_check", seconds=time.monotonic() - t0, silent_s=t_trust - t0,
+         trust_s=time.monotonic() - t_trust, trust_horizon_span_s=TRUST_HORIZON_SPAN,
+         lanes=L, iteration=CAPTURE_ITER, silent_work=silent_work, trust_work=trust_calls, ulps=ulps,
          main_path_silent_launches=main_launches[SILENT]
          + main_launches[SILENT + "[indexed]"],
          compared=f"silent walk on the scenario grid's iteration {CAPTURE_ITER} (single-law "
@@ -2761,8 +2785,11 @@ SLAB_WALKS = ("masked_slab_prediction_skip", "masked_slab_strike_walk",
               "masked_slab_silent_walk")
 #: phase 28's sub-grid: cells at this platform size, runs a cell
 HOST_SUB_N, HOST_SUB_RUNS = 2**14, 200
-#: phase 29: the runs and seed of the reference's Tables 1-2 benchmark
-TABLES_RUNS, TABLES_SEED = 30, 100
+#: phase 29: the reference's Tables 1-2 benchmark in its quick form: 16
+#: runs a cell (was 30, its full form) on its 100 quick cells (was its 120
+#: full ones: the 20 more, Weibull 0.5 superposed at N 2^19, took ~11,000
+#: of the phase's ~11,200 outer iterations, the other cells ~3,300 at most)
+TABLES_RUNS, TABLES_SEED = 16, 100
 
 
 class SlabCall:
@@ -2873,42 +2900,55 @@ class SlabCall:
                 "walking_lanes": walking, "masked_lanes": masked}
 
 
+class SlabSpy:
+    """Inside ``with``: torch_sim's slab-walk wrappers are wrapped, and the
+    arguments of outer iteration ``at``'s calls of the walks ``names`` (of
+    "skip", "strike", "silent") are kept as they were before each call, in
+    ``self.cap``: {name: :class:`SlabCall`}."""
+
+    def __init__(self, at: int, names):
+        from repro_torch.core import torch_sim as PT
+
+        self.PT, self.at, self.names, self.cap = PT, at, names, {}
+        self.real = {n: getattr(PT, n) for n in SLAB_WALKS}
+
+    def __enter__(self):
+        seen = dict.fromkeys(("skip", "strike", "silent"), 0)
+
+        def spy(name, fn):
+            def wrapped(*args, **kw):
+                if name in self.names and seen[name] == self.at:
+                    self.cap[name] = SlabCall(name, args, kw)
+                seen[name] += 1
+                return fn(*args, **kw)
+
+            return wrapped
+
+        for short, n in zip(("skip", "strike", "silent"), SLAB_WALKS):
+            setattr(self.PT, n, spy(short, self.real[n]))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.real.items():
+            setattr(self.PT, n, fn)
+        if exc[0] is None:
+            check(sorted(self.cap) == sorted(self.names),
+                  f"captured slab walks {sorted(self.cap)}")
+
+
 def capture_slab_walks(layout, dev, at: int, names) -> dict:
     """Run ``layout``'s host traces on the card for ``at + 1`` outer
-    iterations and keep the arguments of iteration ``at``'s slab walks
-    (``names`` of "skip", "strike", "silent") as they were before each
-    call: {name: :class:`SlabCall`}.  torch_sim's wrappers are wrapped
-    for the run and restored after it."""
-    from repro_torch.core import torch_sim as PT
-
-    real = {n: getattr(PT, n) for n in SLAB_WALKS}
-    seen = dict.fromkeys(("skip", "strike", "silent"), 0)
-    cap = {}
-
-    def spy(name, fn):
-        def wrapped(*args, **kw):
-            if name in names and seen[name] == at:
-                cap[name] = SlabCall(name, args, kw)
-            seen[name] += 1
-            return fn(*args, **kw)
-
-        return wrapped
-
-    for short, n in zip(("skip", "strike", "silent"), SLAB_WALKS):
-        setattr(PT, n, spy(short, real[n]))
-    try:
-        PT.simulate_batch_torch(layout.work_c, layout.plats_c, layout.strats_c,
-                                layout.traces, cell_index=layout.cidx, device=dev,
-                                max_iters=at + 1)
-        raise SmokeFailure(f"the grid finished within {at + 1} iterations")
-    except RuntimeError as e:
-        if "did not converge" not in str(e):
-            raise
-    finally:
-        for n, fn in real.items():
-            setattr(PT, n, fn)
-    check(sorted(cap) == sorted(names), f"captured slab walks {sorted(cap)}")
-    return cap
+    iterations under a :class:`SlabSpy`: {name: :class:`SlabCall`}."""
+    with SlabSpy(at, names) as spy:
+        try:
+            spy.PT.simulate_batch_torch(layout.work_c, layout.plats_c, layout.strats_c,
+                                        layout.traces, cell_index=layout.cidx, device=dev,
+                                        max_iters=at + 1)
+            raise SmokeFailure(f"the grid finished within {at + 1} iterations")
+        except RuntimeError as e:
+            if "did not converge" not in str(e):
+                raise
+    return spy.cap
 
 
 def prim_host_call(K, s, plain: bool = False):
@@ -2965,17 +3005,17 @@ def host_sub_grid():
 
 def tables_cells():
     """The paper's Tables 1-2 grid as the port's driver builds it
-    (``repro_torch.paper.sim_tables.build_cells(quick=False)``, the
-    reference benchmark's 120 cells), plus its Weibull 0.5 family again
-    with stationary components: 40 more."""
+    (``repro_torch.paper.sim_tables.build_cells(quick=True)``, the
+    reference benchmark's 100 quick cells), plus the full grid's Weibull
+    0.5 family again with stationary components (both platform sizes):
+    40 more."""
     from dataclasses import replace
 
     from repro_torch.paper.sim_tables import build_cells
 
-    cells = build_cells(quick=False)
     stationary = [replace(c, stationary=True, label=c.label.replace("-fresh", "-stationary"))
-                  for c in cells if c.n_components]
-    return cells + stationary
+                  for c in build_cells(quick=False) if c.n_components]
+    return build_cells(quick=True) + stationary
 
 
 def cpu_cell_z(layout, positions) -> dict:
@@ -3038,28 +3078,24 @@ def host_phases(dev, regs: dict) -> list:
     err["masked_primitive_update[host]"] = max_abs_err(zip(got[:4], want[:4]))
     t1 = time.monotonic()
     layout = build_fused_layout(full, "host")
-    scen_layout = build_fused_layout(scen, "host")
     gen_s = time.monotonic() - t1
     cap = capture_slab_walks(layout, dev, CAPTURE_ITER, ("skip", "strike"))
-    cap.update(capture_slab_walks(scen_layout, dev, CAPTURE_ITER, ("silent",)))
     check("Fcancel" in cap["strike"].kw, "the full grid's strike walk carries no cancel marks")
-    for name, c in cap.items():
-        wrapper = SLAB_WALKS[("skip", "strike", "silent").index(name)]
-        g, w = c.run(K), c.run(K, plain=True)
-        for k in w:
-            check(torch.equal(f64_bits(g[k]), f64_bits(w[k])),
-                  f"{wrapper}: {k} differs from the plain version")
-        err[wrapper] = max_abs_err((g[k], w[k]) for k in w if w[k].dtype == torch.float64)
-        work[wrapper] = c.work(w)
-        check(work[wrapper]["steps"] > 0, f"{wrapper}: the captured call walks no lane")
-    emit("host_check", seconds=time.monotonic() - t0, lanes=L, faulted_lanes=n_fault,
-         iteration=CAPTURE_ITER, host_gen_s_capture_layouts=gen_s,
-         slab_shapes={n: list(c.args[3 if n == "skip" else -1].shape) for n, c in cap.items()},
-         cancel_lanes=int(cap["strike"].kw["can"].sum()), work=work,
-         compared="trace-fed primitive update (no stream) on 108,000 sampled lanes and the "
-                  "slab walks on iteration 40 of the host-mode full grid (skip, strike with "
-                  "cancel marks) and scenario grid (silent): every output bit-equal to the "
-                  "plain version")
+
+    def check_slab_walks(names):
+        for name in names:
+            c = cap[name]
+            wrapper = SLAB_WALKS[("skip", "strike", "silent").index(name)]
+            g, w = c.run(K), c.run(K, plain=True)
+            for k in w:
+                check(torch.equal(f64_bits(g[k]), f64_bits(w[k])),
+                      f"{wrapper}: {k} differs from the plain version")
+            err[wrapper] = max_abs_err((g[k], w[k]) for k in w if w[k].dtype == torch.float64)
+            work[wrapper] = c.work(w)
+            check(work[wrapper]["steps"] > 0, f"{wrapper}: the captured call walks no lane")
+
+    check_slab_walks(("skip", "strike"))
+    check_s = time.monotonic() - t0
 
     # ---- 27. the main host path: the full grid, host-drawn traces ------ #
     reset_counts(K)
@@ -3120,13 +3156,17 @@ def host_phases(dev, regs: dict) -> list:
               "CPU port's z for the cell, from the same traces")
     main_launches = launches
 
-    # the scenario grid in host mode: the silent slab walk's path
+    # the scenario grid in host mode: the silent slab walk's path, its
+    # iteration CAPTURE_ITER's silent walk kept for phase 26's check (the
+    # path's own traces: no second generation of them)
     reset_counts(K)
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    sres = run_grid(scen, device="cuda", trace_mode="host")
+    with SlabSpy(CAPTURE_ITER, ("silent",)) as spy:
+        sres = run_grid(scen, device="cuda", trace_mode="host")
     torch.cuda.synchronize()
     swall = time.monotonic() - t0
+    cap.update(spy.cap)
     slaunches = counts(K)
     smeta = sres.meta
     check(slaunches["masked_slab_silent_walk"] > 0,
@@ -3140,6 +3180,16 @@ def host_phases(dev, regs: dict) -> list:
          slab_bytes=smeta["slab_bytes"], outer_iters=smeta["outer_iters"],
          host_syncs=smeta["host_syncs"],
          launches={k: v for k, v in slaunches.items() if v}, families=fams)
+    t0 = time.monotonic()
+    check_slab_walks(("silent",))
+    emit("host_check", seconds=check_s + time.monotonic() - t0, lanes=L,
+         faulted_lanes=n_fault, iteration=CAPTURE_ITER, host_gen_s_capture_layouts=gen_s,
+         slab_shapes={n: list(c.args[3 if n == "skip" else -1].shape) for n, c in cap.items()},
+         cancel_lanes=int(cap["strike"].kw["can"].sum()), work=work,
+         compared="trace-fed primitive update (no stream) on 108,000 sampled lanes and the "
+                  "slab walks on iteration 40 of the host-mode full grid (skip, strike with "
+                  "cancel marks) and scenario grid (silent, captured on its host path): "
+                  "every output bit-equal to the plain version")
 
     # ---- 28. card against CPU, fused against per-cell ----------------- #
     t0 = time.monotonic()
@@ -3179,7 +3229,7 @@ def host_phases(dev, regs: dict) -> list:
     twall = time.monotonic() - t0
     tlaunches = counts(K)
     tmeta = tres.meta
-    check(len(tres.cells) == 160 and all(np.isfinite(c.mean_waste) and 0.0 < c.mean_waste < 1.0
+    check(len(tres.cells) == len(cells) and all(np.isfinite(c.mean_waste) and 0.0 < c.mean_waste < 1.0
                                          for c in tres.cells), "tables: a cell's waste")
     families = {}
     for c in tres.cells:
@@ -3199,8 +3249,8 @@ def host_phases(dev, regs: dict) -> list:
          slabs=tmeta["slabs"], outer_iters=tmeta["outer_iters"],
          host_syncs=tmeta["host_syncs"], launches={k: v for k, v in tlaunches.items() if v},
          families=families,
-         note="repro_torch.paper.sim_tables.build_cells(quick=False) (the reference "
-              "benchmark's grid) plus the Weibull 0.5 "
+         note="repro_torch.paper.sim_tables.build_cells(quick=True) (the reference "
+              "benchmark's quick grid) plus the full grid's Weibull 0.5 "
               "family with stationary components, one run_cells call in host trace mode; "
               "host_gen_s: the NumPy trace generation, loop_s: the lane loop on the card")
 
@@ -3246,9 +3296,11 @@ def host_phases(dev, regs: dict) -> list:
 # The engine API: EngineConfig, devices=, BestPeriod, the paper's drivers
 # --------------------------------------------------------------------------- #
 #: phase 32: BestPeriod's families, platform size, runs and seed (the
-#: paper's 100 runs, the default period grid: 1,000 lanes a call)
+#: paper's 100 runs, the default period grid: 1,000 lanes a call).  N was
+#: 2**19: 5,408 outer iterations over the seven calls, 25.4 s of host-bound
+#: loop; 2**17 takes ~1,000
 SEARCH_FAMILIES = ("young", "daly", "exact", "instant", "nockpt", "withckpt", "migration")
-SEARCH_N, SEARCH_RUNS, SEARCH_SEED = 2**19, 100, 0
+SEARCH_N, SEARCH_RUNS, SEARCH_SEED = 2**17, 100, 0
 #: phase 30: the scalar engine checks the first lanes of every cell
 SCALAR_LANES = 8
 #: the host-trace kernels (one launch of each an iteration of a
@@ -3461,7 +3513,8 @@ def engine_phases(dev) -> None:
     emit("best_period", seconds=time.monotonic() - t0, N=SEARCH_N, runs=SEARCH_RUNS,
          seed=SEARCH_SEED, lanes_per_call=SEARCH_RUNS * 10, card_s=card_s,
          batch_engine_s=batch_s, max_rel_waste_vs_batch=worst, calls=calls,
-         note="optimize(families, platform(2**19), PredictorModel(0.85, 0.82, window=300), "
+         note=f"optimize(families, platform({SEARCH_N}), PredictorModel(0.85, 0.82, "
+              "window=300), "
               "method='search', n_runs=100): one cell-multiplexed host-trace dispatch a "
               "family on the card; the same argmin T_R as engine='batch' on the same "
               "traces, waste rtol 1e-9; T_R_over_newton: the searched period over "
@@ -3510,6 +3563,11 @@ CAMPAIGN_MTBF = 3600.0
 #: lanes) and the chunk at whose boundary the real sticky error is raised
 CHAOS_CHUNK = 600
 ASSERT_AT_CHUNK = 2
+#: phase 35: the CLI's campaign, the full grid's first cells (its 27
+#: smallest-platform cells, N 2^14-2^16 at the first predictor) in 4
+#: chunks, killed at chunk 2 (was the whole grid, 108 cells in 4 chunks of
+#: CAMPAIGN_CHUNK: ~2,500 outer iterations over its two processes, ~230 now)
+CLI_CELLS, CLI_CHUNK = 27, 7000
 #: the 12-column campaign accumulator: moment columns and count columns
 def campaign_spy():
     """Route the campaign's engine calls through a spy that keeps each
@@ -3757,8 +3815,9 @@ def campaign_phases(dev, main_res, main_wall: float) -> None:
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     cli = [sys.executable, "-m", "repro_torch.experiments.campaign"]
-    args = ["--preset", "full", "--n-runs", str(RUNS_PER_CELL), "--seed", "0",
-            "--chunk-lanes", str(CAMPAIGN_CHUNK), "--ckpt-period", "0"]
+    args = ["--preset", "full", "--limit-cells", str(CLI_CELLS), "--n-runs",
+            str(RUNS_PER_CELL), "--seed", "0", "--chunk-lanes", str(CLI_CHUNK),
+            "--ckpt-period", "0"]
     with tempfile.TemporaryDirectory() as tmp:
         d, out = os.path.join(tmp, "k"), os.path.join(tmp, "resumed.json")
         tc = time.monotonic()
@@ -3777,18 +3836,26 @@ def campaign_phases(dev, main_res, main_wall: float) -> None:
               f"campaign CLI resume: rc {resumed.returncode}: {resumed.stderr[-2000:]}")
         with open(out) as f:
             got = json.load(f)
+        # the same campaign uninterrupted, in this process
+        ref = campaign(GridSpec(tuple(paper_grid_cells("full")[:CLI_CELLS]),
+                                n_runs=RUNS_PER_CELL, seed=0),
+                       cfg.replace(chunk_lanes=CLI_CHUNK), tmp, "ref", ckpt_period=0.0,
+                       async_snapshots=False)
     keys = ("label", "mean_waste", "mean_makespan", "mean_faults")
+    check(ref.meta["campaign"]["n_snapshots"] == 4 and len(ref.cells) == CLI_CELLS,
+          f"campaign CLI: the reference ran {ref.meta['campaign']['n_snapshots']} chunks")
     check([[r[k] for k in keys] for r in got["cells"]]
-          == [[c.cell.label, c.mean_waste, c.mean_makespan, c.mean_faults] for c in a.cells],
-          "campaign CLI: the resumed cells differ from phase 34's period-0 run")
+          == [[c.cell.label, c.mean_waste, c.mean_makespan, c.mean_faults] for c in ref.cells],
+          "campaign CLI: the resumed cells differ from the uninterrupted campaign")
     info = got["meta"]["campaign"]
     check(info["incarnation"] >= 1, f"campaign CLI: incarnation {info['incarnation']}")
     emit("campaign_sigkill", seconds=time.monotonic() - t0, kill_rc=killed.returncode,
          kill_s=kill_s, snapshots_left=left, resume_s=resume_s,
          incarnation=info["incarnation"], n_snapshots=info["n_snapshots"],
          events=info["events"], stdout=resumed.stdout.strip().splitlines(),
-         compared="label, mean_waste, mean_makespan, mean_faults equal to phase 34's "
-                  "period-0 campaign")
+         cells=CLI_CELLS, chunk_lanes=CLI_CHUNK,
+         compared="label, mean_waste, mean_makespan, mean_faults equal to the same grid's "
+                  "uninterrupted period-0 campaign in this process")
 
     # ---- 36. synthetic chaos on the 12-cell sub-grid ------------------- #
     t0 = time.monotonic()
@@ -4902,29 +4969,39 @@ def hybrid_phases(dev, kernels: list, scan_regs: dict) -> None:
     # ---- 45. the scan kernel; attention at the frontend shapes --------- #
     t0 = time.monotonic()
     cases, y_err = [], 0.0
-    for name, b, s_, d_, ds_, with_h0, in_place in (
-        ("prefill", B, S, din, ds, False, False),
-        ("decode_in_place", B, 1, din, ds, True, True),
-        ("s1_h0", 2, 1, 4096, ds, True, False),
-        ("h0_s333", 2, 333, 4096, ds, True, False),
-        ("chunk_edge_s17", 3, 17, 640, ds, True, False),
-        ("ds8", 2, 100, 2048, 8, True, False),
-        ("ds8_s1_in_place", 3, 1, 1000, 8, True, True),
+    for name, b, s_, d_, ds_, with_h0, in_place, off in (
+        ("prefill", B, S, din, ds, False, False, False),
+        ("decode_in_place", B, 1, din, ds, True, True, False),
+        ("s1_h0", 2, 1, 4096, ds, True, False, False),
+        ("h0_s333", 2, 333, 4096, ds, True, False, False),
+        ("chunk_edge_s17", 3, 17, 640, ds, True, False, False),
+        ("ds8", 2, 100, 2048, 8, True, False, False),
+        ("ds8_s1_in_place", 3, 1, 1000, 8, True, True, False),
+        ("views_4_bytes_off_s1_in_place", 3, 1, 1000, ds, True, True, True),
+        ("views_4_bytes_off_s37", 2, 37, 4100, 8, True, False, True),
     ):
         x = MB.sample_scan_inputs(b, s_, d_, ds_, seed=len(cases), device=dev, with_h0=with_h0)
         want = MB.selective_scan_ref(*x)
+        emu = MB.selective_scan_kernel_order(*x)
+        args = list(x)
+        if off:  # A and the states 4 bytes into larger buffers: the kernels' 4-byte path
+            args[2], args[5] = (torch.cat([v.new_zeros(1), v.reshape(-1)])[1:].view(v.shape)
+                                for v in (x[2], x[5]))
         if in_place:
-            cache = x[5].clone()
-            got = ops.selective_scan(*x[:5], cache, state_out=cache)
+            cache = args[5] if off else args[5].clone()
+            got = ops.selective_scan(*args[:5], cache, state_out=cache)
             check(got[1].data_ptr() == cache.data_ptr(), f"selective_scan/{name}: not in place")
         else:
-            got = ops.selective_scan(*x)
+            got = ops.selective_scan(*args)
         e = scan_close(got, want, f"selective_scan/{name}")
+        check(same_bits(got[0], emu[0]),
+              f"selective_scan/{name}: y differs from the torch emulation of its order")
         y_err = max(y_err, e)
         cases.append({"case": name, "shape": [b, s_, d_, ds_], "h0": with_h0,
-                      "in_place": in_place, "y_max_abs_err": e,
-                      "y_max_abs": float(want[0].abs().max()), "state_bit_equal": True})
-        del x, want, got
+                      "in_place": in_place, "state_4_bytes_off": off, "y_max_abs_err": e,
+                      "y_max_abs": float(want[0].abs().max()), "state_bit_equal": True,
+                      "y_bit_equal_to_kernel_order": True})
+        del x, want, got, emu, args
     # libdevice's expf in the kernel against torch.exp on the card: with h0
     # ones and B zero the final state is exp(dt A) itself
     n = 1 << 20
@@ -5072,7 +5149,8 @@ def hybrid_phases(dev, kernels: list, scan_regs: dict) -> None:
         "registers": {name: v.get("registers") for name, v in scan_regs.items()},
         "shape": f"dt/x ({B}, {S}, {din}) f32, ds {ds}, zero initial state; decode "
                  f"({B}, 1, {din}) over a ({B}, {din}, {ds}) state",
-        "note": "no TPU kernel: the reference's lax.scan, one CUDA kernel in the port",
+        "note": "no TPU kernel: the reference's lax.scan; in the port one launch a call, "
+                "of the decode kernel (S == 1) or the prefill kernel",
     })
 
 
@@ -6064,7 +6142,7 @@ def main() -> int:
              if "registers" in ln or "spill" in ln]
     regs = ptxas_report(logs.get("sim_step", ""))
     wkv_regs = ptxas_kernels(logs.get("rwkv6", ""), r"(wkv6_(?:chunk|token)_kernel)")
-    scan_regs = ptxas_kernels(logs.get("mamba_scan", ""), r"(selective_scan_kernel)")
+    scan_regs = ptxas_kernels(logs.get("mamba_scan", ""), r"(scan_(?:prefill|decode)_kernel)")
     bwd_regs = {**ptxas_kernels(logs.get("rwkv6_bwd", ""), r"(wkv6_bwd_\w+_kernel)"),
                 **ptxas_kernels(logs.get("mamba_scan_bwd", ""), r"(scan_bwd_\w+_kernel)")}
     emit("build", seconds=time.monotonic() - t0, built=sorted(logs),

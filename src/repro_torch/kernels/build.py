@@ -142,6 +142,7 @@ _SIGNATURES = {
         "wkv6_bwd": [_P] * 17 + [_I32] * 5 + [_P],
     },
     "mamba_scan": {
+        "selective_scan_fwd_chunk": [],
         # dt, x, A, Bc, Cc, h0, y, hT; B, S, D, ds; (batch, seq) strides of
         # dt, x, Bc, Cc, y
         "selective_scan_fwd": [_P] * 8 + [_I32] * 4 + [_I64] * 10 + [_P],

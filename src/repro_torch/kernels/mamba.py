@@ -15,16 +15,19 @@ returns ``y`` ``(B, S, din)`` and the final state, which it writes into
 place).  It is the reference's ``models/ssm._ssm_scan``, a ``lax.scan``
 with no Pallas kernel; on the card it runs as the hand-written kernel
 ``csrc/mamba_scan.cu`` (built by :mod:`.build`), one launch a call, for
-any ``S >= 1`` and ``ds`` 8 or 16 (:data:`D_STATES`).
+any ``S >= 1`` and ``ds`` 8 or 16 (:data:`D_STATES`): a decode kernel at
+``S == 1``, a prefill kernel otherwise.
 
 :func:`selective_scan_ref` is the plain version: the per-token loop of
 ``_ssm_scan`` in torch ops, whose state update (the rounded product
 ``dt A``, its exp, the rounded products ``da h`` and ``(dt x) B``, their
-rounded sum) the kernel repeats bit for bit; ``y`` sums over ``s`` in
-another order there, so the kernel's ``y`` is held to it within a
-tolerance.  A wrapper given CPU tensors runs the plain version; given
-CUDA tensors it launches the kernel or raises.
-``selective_scan.launches`` counts the kernel's launches.
+rounded sum) the kernels repeat bit for bit; ``y`` sums over ``s`` in
+another order there, so the kernels' ``y`` is held to it within a
+tolerance.  :func:`selective_scan_kernel_order` computes the kernels'
+own ``y`` order in torch ops (bit for bit on the card).  A wrapper given
+CPU tensors runs the plain version; given CUDA tensors it launches the
+kernel or raises.  ``selective_scan.launches`` counts the kernel's
+launches.
 
 **Backward.**  The reference trains through ``jax.grad`` of its
 ``lax.scan``.  Given an operand that requires a gradient,
@@ -54,8 +57,9 @@ from .flash_attention import _check_device
 from .guard import needs_guard
 from .sim_step import _aligned16, _raise_on, _stream_ptr
 
-__all__ = ["D_STATES", "selective_scan_ref", "selective_scan", "selective_scan_bwd_ref",
-           "selective_scan_bwd", "SelectiveScan", "sample_scan_inputs"]
+__all__ = ["D_STATES", "selective_scan_ref", "selective_scan_kernel_order", "selective_scan",
+           "selective_scan_bwd_ref", "selective_scan_bwd", "SelectiveScan",
+           "sample_scan_inputs"]
 
 #: state sizes the kernel is built for (Jamba's 16, ``reduced()``'s 8)
 D_STATES = (8, 16)
@@ -75,6 +79,33 @@ def selective_scan_ref(dt: torch.Tensor, x: torch.Tensor, A: torch.Tensor,
         da = torch.exp(dti[..., None] * A)
         h = da * h + (dti * x[:, t])[..., None] * Bc[:, t, None, :]
         ys.append(torch.einsum("bds,bs->bd", h, Cc[:, t]))
+    return torch.stack(ys, dim=1), h
+
+
+def selective_scan_kernel_order(dt: torch.Tensor, x: torch.Tensor, A: torch.Tensor,
+                                Bc: torch.Tensor, Cc: torch.Tensor,
+                                h0: Optional[torch.Tensor] = None
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' arithmetic in torch ops, inputs and outputs as
+    :func:`selective_scan_ref`: the same state update, and ``y`` in the
+    kernels' order (``csrc/mamba_scan.cu``, both kernels): a channel's
+    states split into ``L = ds / 4`` lanes of 4, each lane's rounded
+    products summed in state order into ``p_q``, then ``(p_0 + p_2) +
+    (p_1 + p_3)`` at ds 16 and ``p_0 + p_1`` at ds 8, every product and
+    sum rounded alone."""
+    B, S, din = x.shape
+    ds = A.shape[1]
+    if ds not in D_STATES:
+        raise ValueError(f"selective_scan_kernel_order: d_state {ds} is not one of {D_STATES}")
+    h = (x.new_zeros((B, din, ds)) if h0 is None else h0)
+    ys = []
+    for t in range(S):
+        dti = dt[:, t]
+        h = torch.exp(dti[..., None] * A) * h + (dti * x[:, t])[..., None] * Bc[:, t, None, :]
+        prod = (h * Cc[:, t, None, :]).view(B, din, ds // 4, 4)
+        p = ((prod[..., 0] + prod[..., 1]) + prod[..., 2]) + prod[..., 3]
+        ys.append((p[..., 0] + p[..., 2]) + (p[..., 1] + p[..., 3]) if ds == 16
+                  else p[..., 0] + p[..., 1])
     return torch.stack(ys, dim=1), h
 
 
@@ -185,6 +216,11 @@ def selective_scan(dt: torch.Tensor, x: torch.Tensor, A: torch.Tensor, Bc: torch
     dimension contiguous, ``A``, ``h0`` and ``state_out`` contiguous on the
     card) -> ``(y, h_final)``: a fresh ``(B, S, din)`` f32 and the final
     state, written into ``state_out`` when given (which may be ``h0``).
+    ``h0``, ``state_out`` and ``A`` need not be 16-byte aligned on the
+    card: the kernels move the state 16 bytes a lane where all three are
+    aligned and 4 bytes at a time where one is not, with the same bits.
+    Nothing is copied: ``state_out`` is written where it lies, so a view
+    into a larger cache is updated in place.
 
     CUDA tensors launch the kernel; CPU tensors run
     :func:`selective_scan_ref`.  Given an operand that requires a gradient

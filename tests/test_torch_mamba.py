@@ -21,9 +21,10 @@ Tolerances, measured on the CPU before they were set:
   the other way: measured 1 of 3,072 entries, in f32 and in bf16 compute).
 * softplus: within 2 f32 ulp (1 bf16 ulp), subnormals aside (XLA flushes
   them).
-* the kernel's y order (a sequential sum over s, emulated here in torch)
-  against the plain version's einsum: within 1e-6 of max|y|; the state is
-  the same arithmetic, bit-equal.
+* the kernels' y order (``selective_scan_kernel_order``: a lane's 4
+  states summed in order, then folded over the channel's lanes) against
+  the plain version's einsum: within 1e-6 of max|y|; the state is the same
+  arithmetic, bit-equal.
 """
 
 import dataclasses
@@ -185,22 +186,35 @@ def test_scan_is_differentiable_on_the_cpu():
     _share(x.grad, want, 1e-5)
 
 
-def test_kernel_order_emulation_matches_plain():
-    """The CUDA kernel's arithmetic in torch: the same state update, y
-    summed over s in order, one rounded product and sum a term."""
-    dt, x, A, Bc, Cc, h0 = M.sample_scan_inputs(3, 40, 32, 16, seed=11)
+@pytest.mark.parametrize("ds", M.D_STATES)
+@pytest.mark.parametrize("kernel,S", [("prefill", 40), ("decode", 1)])
+def test_kernel_order_emulation_matches_plain(kernel, S, ds):
+    """The CUDA kernels' arithmetic in torch (``selective_scan_kernel_order``:
+    the prefill and the decode kernel share it): the same state update,
+    bit-equal to the plain version's; y summed over a lane's 4 states in
+    order, then folded over the channel's ds / 4 lanes, within Y_TOL of
+    the plain version's.  Both are also held to an independent loop of
+    their own: a rounded product and sum a term."""
+    dt, x, A, Bc, Cc, h0 = M.sample_scan_inputs(3, S, 32, ds, seed=11)
     want_y, want_h = M.selective_scan_ref(dt, x, A, Bc, Cc, h0)
+    got_y, got_h = M.selective_scan_kernel_order(dt, x, A, Bc, Cc, h0)
     h, ys = h0.clone(), []
-    for t in range(x.shape[1]):
+    for t in range(S):
         u = dt[:, t] * x[:, t]
-        acc = torch.zeros_like(u)
-        for s in range(A.shape[1]):
-            da = torch.exp(dt[:, t] * A[:, s])
-            h[:, :, s] = da * h[:, :, s] + u * Bc[:, t, s, None]
-            acc = acc + h[:, :, s] * Cc[:, t, s, None]
-        ys.append(acc)
+        part = []
+        for q in range(ds // 4):
+            acc = None
+            for s in range(4 * q, 4 * q + 4):
+                da = torch.exp(dt[:, t] * A[:, s])
+                h[:, :, s] = da * h[:, :, s] + u * Bc[:, t, s, None]
+                term = h[:, :, s] * Cc[:, t, s, None]
+                acc = term if acc is None else acc + term
+            part.append(acc)
+        ys.append((part[0] + part[2]) + (part[1] + part[3]) if ds == 16 else part[0] + part[1])
     assert torch.equal(h.view(torch.int32), want_h.view(torch.int32))
-    _share(torch.stack(ys, 1), want_y, Y_TOL)
+    assert torch.equal(got_h.view(torch.int32), want_h.view(torch.int32))
+    assert torch.equal(torch.stack(ys, 1).view(torch.int32), got_y.view(torch.int32))
+    _share(got_y, want_y, Y_TOL)
 
 
 # --------------------------------------------------------------------------- #
